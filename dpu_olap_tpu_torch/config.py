@@ -1,0 +1,56 @@
+"""Runtime configuration (counterpart of ``dpu_olap_tpu/config.py``).
+
+The same env tiers as the JAX package: NR_DEVICES (or NR_DPUS), SF and
+MAX_THREADS, plus the feature flags the port reads. Flags of modules not yet
+ported arrive with those modules.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+
+def _env_int(name: str, default: int) -> int:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    return int(v)
+
+
+def nr_devices(default: int | None = None) -> int:
+    """Number of devices to use (reference NR_DPUS). Defaults to the number
+    of visible CUDA devices; there is no CPU fallback, so with no CUDA device
+    this is 0."""
+    if "NR_DEVICES" in os.environ:
+        return _env_int("NR_DEVICES", 0)
+    if "NR_DPUS" in os.environ:
+        return _env_int("NR_DPUS", 0)
+    if default is not None:
+        return default
+    import torch
+
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def scale_factor() -> int:
+    """SF workload scale factor (1 by default)."""
+    return _env_int("SF", 1)
+
+
+def max_threads() -> int:
+    """Host CPU threads for host-side work (reference MAX_THREADS)."""
+    return _env_int("MAX_THREADS", os.cpu_count() or 1)
+
+
+@dataclasses.dataclass
+class Flags:
+    """Feature flags (reference shared/umq/cflags.h).
+
+    enable_log -> verbose operator logging (ENABLE_LOG)
+    """
+
+    enable_log: bool = False
+
+
+FLAGS = Flags(enable_log=_env_int("ENABLE_LOG", 0) != 0)

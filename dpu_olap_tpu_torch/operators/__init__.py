@@ -1,0 +1,4 @@
+"""Operators (counterpart of ``dpu_olap_tpu/operators``): the
+reference's ctor(device_set, inputs...) -> Prepare() -> Run() -> Timers()
+protocol, with a Gpu variant and a Native (pyarrow) oracle. Import the
+operator modules directly, e.g. ``operators.join_op``."""

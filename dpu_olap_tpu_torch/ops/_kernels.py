@@ -1,0 +1,113 @@
+"""Build and load the port's CUDA kernels (``dpu_olap_tpu_torch/csrc/*.cu``).
+
+All sources compile with nvcc into one shared library with a plain C
+interface, loaded with ctypes. The build happens at first use, never at
+import, and is keyed on a hash of the sources and flags: the library lands in
+``dpu_olap_tpu_torch/_build/`` (git-ignored) and is reused while the sources
+are unchanged. A failed build raises with nvcc's output; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_P = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_SIGNATURES = {
+    # (in_planes, out_planes, n_planes, n, npow, stream)
+    "dpu_sort_u32": [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.c_int, _LL, _LL, _P],
+    # (data, n, sidx, out, k, stream)
+    "dpu_gather_sorted_u32": [_P, _LL, _P, _P, _LL, _P],
+}
+
+_lib: ctypes.CDLL | None = None
+build_seconds: float | None = None  # wall time of the last nvcc run
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _sources() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libdpu_olap_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the shared library unless it already exists."""
+    global build_seconds
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
+    cmd += [str(s) for s in _sources()]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}{res.stderr}"
+        )
+    os.replace(tmp, so)
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.dpu_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.dpu_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if rc != 0:
+        msg = library().dpu_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch ({msg})")
+
+
+def stream_handle(device) -> ctypes.c_void_p:
+    """The current PyTorch CUDA stream of ``device``, as a C pointer."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

@@ -1,0 +1,2 @@
+"""Device runtime (counterpart of ``dpu_olap_tpu/parallel``): DeviceSet over
+one torch device in ``mesh``. The shuffle and distributed join follow."""

@@ -1,0 +1,162 @@
+"""Parity of the port's dense-pk join (dpu_olap_tpu_torch.ops.merge and
+operators.join_op) with the JAX package's join_shard_dense / JoinTpu and the
+pyarrow oracle, on the CPU. Integer data: exact comparison, rows after a
+canonical sort (both sorts are unstable on ties)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dpu_olap_tpu.generator import make_join_tables as jax_make_join_tables
+from dpu_olap_tpu.operators.join_op import JoinTpu
+from dpu_olap_tpu.ops.merge_xla import join_shard_dense as jax_join_shard_dense
+from dpu_olap_tpu.parallel.mesh import DeviceSet as JaxDeviceSet
+from dpu_olap_tpu_torch.columnar import Batch, Table
+from dpu_olap_tpu_torch.generator import make_join_tables
+from dpu_olap_tpu_torch.operators.join_op import JoinGpu, JoinNative
+from dpu_olap_tpu_torch.ops.merge import join_dense_eligible, join_shard_dense
+from dpu_olap_tpu_torch.parallel.mesh import DeviceSet
+
+CPU_SET = DeviceSet(torch.device("cpu"))
+
+
+def _canon(cols):
+    rows = np.stack([np.asarray(c) for c in cols])
+    return rows[:, np.lexsort(rows[::-1])]
+
+
+def _dense_case(name):
+    rng = np.random.default_rng(7)
+    if name == "generator":  # tests/test_join.py:246-268
+        left, right = jax_make_join_tables(1, 1 << 13, 1 << 12)
+        lb, rb = left[0], right[0]
+        return [lb["fk"]], [lb["y"]], rb["pk"], [rb["x"]]
+    n_r, n_l, lo = 1 << 12, 1 << 13, 1000  # tests/test_join.py:271-296
+    pk = np.arange(lo, lo + n_r, dtype=np.uint32)
+    # fks below pk0 wrap huge and must sort to the tail, unmatched
+    fk = rng.integers(0, lo + n_r + 500, n_l, dtype=np.uint32)
+    n_pay = 2 if name == "two_payloads" else 1
+    xs = [rng.integers(0, 2**32, n_r, dtype=np.uint32) for _ in range(n_pay)]
+    ys = [rng.integers(0, 2**32, n_l, dtype=np.uint32) for _ in range(n_pay)]
+    return [fk], ys, pk, xs
+
+
+@pytest.mark.parametrize("case", ["generator", "unmatched_and_offset", "two_payloads"])
+def test_join_shard_dense_matches_jax(case):
+    (fk,), ys, pk, xs = _dense_case(case)
+    fk, pk = np.asarray(fk), np.asarray(pk)
+    ys, xs = [np.asarray(y) for y in ys], [np.asarray(x) for x in xs]
+    t = torch.from_numpy
+    key, out_l, out_r, matched, ovf = join_shard_dense(
+        t(fk), tuple(map(t, ys)), t(pk), tuple(map(t, xs))
+    )
+    jkey, jl, jr, jm, jovf = jax_join_shard_dense(
+        jnp.asarray(fk), tuple(map(jnp.asarray, ys)),
+        jnp.asarray(pk), tuple(map(jnp.asarray, xs)), interpret=True,
+    )
+    assert int(ovf) == 0 and int(jovf) == 0
+    assert key.dtype == torch.uint32 and matched.dtype == torch.bool
+    np.testing.assert_array_equal(key.numpy(), np.asarray(jkey))
+    np.testing.assert_array_equal(matched.numpy(), np.asarray(jm))
+    np.testing.assert_array_equal(
+        _canon([key.numpy(), *(c.numpy() for c in out_l), *(c.numpy() for c in out_r)]),
+        _canon([np.asarray(jkey), *map(np.asarray, jl), *map(np.asarray, jr)]),
+    )
+    # the dense truth, independent of both packages
+    m = matched.numpy()
+    in_range = (fk >= pk[0]) & (fk.astype(np.int64) < int(pk[0]) + len(pk))
+    assert m.sum() == in_range.sum()
+    kf = key.numpy()[m].astype(np.int64)
+    for x, c in zip(xs, out_r):
+        np.testing.assert_array_equal(c.numpy()[m], x[kf - pk[0]])
+    assert not key.numpy()[~m].any() and all(not c.numpy()[~m].any() for c in out_l)
+
+
+def test_join_dense_eligible():
+    assert join_dense_eligible(2, 1)
+    assert not join_dense_eligible(1, 1) and not join_dense_eligible(8, 0)
+
+
+def _rows(out, cols):
+    return _canon([out[c] for c in cols])
+
+
+@pytest.mark.parametrize("num_batches", [1, 3])
+def test_join_gpu_matches_join_tpu_and_native(num_batches):
+    left, right = make_join_tables(num_batches, 1 << 12, 1 << 11)
+    jleft, jright = jax_make_join_tables(num_batches, 1 << 12, 1 << 11)
+    op = JoinGpu(CPU_SET, left, right).Prepare()
+    jop = JoinTpu(JaxDeviceSet.allocate(1), jleft, jright).Prepare()
+    assert (op.keys31, op.pk_sorted, op.pk_dense) == (jop.keys31, jop.pk_sorted, jop.pk_dense)
+    assert op.pk_dense
+    out, jout = op.Run(), jop.Run()
+    nat = JoinNative(left, right).Prepare().Run()
+    cols = ("fk", "y", "x")
+    assert len(out["fk"]) == nat.num_rows == num_batches << 12
+    np.testing.assert_array_equal(_rows(out, cols), _rows(jout, cols))
+    np.testing.assert_array_equal(
+        _rows(out, cols), _canon([nat[c].to_numpy() for c in cols])
+    )
+    assert op.Timers().sum_ns("join-total") > 0 and op.Timers().rank_count("h2d") == 1
+
+
+def test_join_gpu_wide_payloads_match_join_tpu():
+    rng = np.random.default_rng(11)
+    nb, bl, br = 2, 1 << 10, 1 << 9
+    cols_l, cols_r = [], []
+    for i in range(nb):
+        cols_l.append({
+            "fk": rng.integers(i * br, (i + 1) * br + 64, bl, dtype=np.uint32),
+            "y64": rng.integers(0, 2**64, bl, dtype=np.uint64),
+            "yf": rng.integers(0, 2**32, bl, dtype=np.uint32).view(np.float32),
+        })
+        cols_r.append({
+            "pk": np.arange(i * br, (i + 1) * br, dtype=np.uint32),
+            "xi": rng.integers(-(2**63), 2**63 - 1, br, dtype=np.int64),
+            "xf": rng.integers(0, 2**64, br, dtype=np.uint64).view(np.float64),
+        })
+    from dpu_olap_tpu import columnar as jcol
+
+    jleft = jcol.Table([jcol.Batch.from_numpy(c) for c in cols_l])
+    jright = jcol.Table([jcol.Batch.from_numpy(c) for c in cols_r])
+    out = JoinGpu(CPU_SET, Table.from_reference(jleft), Table.from_reference(jright)).Prepare().Run()
+    jout = JoinTpu(JaxDeviceSet.allocate(1), jleft, jright).Prepare().Run()
+    names = ["fk", "y64", "yf", "xi", "xf"]
+    assert list(out) == list(jout) == names
+    for n in names:
+        assert out[n].dtype == jout[n].dtype
+
+    def bits(o):  # compare bit patterns: NaN payloads are not == themselves
+        return _canon(
+            [o["fk"].astype(np.uint64)] + [o[n].view(np.uint64) if o[n].itemsize == 8
+                                           else o[n].view(np.uint32).astype(np.uint64)
+                                           for n in names[1:]]
+        )
+
+    np.testing.assert_array_equal(bits(out), bits(jout))
+    assert len(out["fk"]) < nb * bl  # some fks lie past the last pk
+
+
+def test_join_gpu_rejects_non_dense_pk():
+    pk = np.array([0, 1, 3, 4], np.uint32)  # sorted, not dense
+    left = Table([Batch.from_numpy({"fk": np.array([0, 1, 3, 4], np.uint32),
+                                    "y": np.arange(4, dtype=np.uint32)})])
+    right = Table([Batch.from_numpy({"pk": pk, "x": np.arange(4, dtype=np.uint32)})])
+    op = JoinGpu(CPU_SET, left, right).Prepare()
+    assert op.pk_sorted and not op.pk_dense
+    with pytest.raises(NotImplementedError, match="item 5"):
+        op.Run()
+
+
+@pytest.mark.parametrize("rows, path", [(256, "shuffle"), (255, "partitioned")])
+def test_join_gpu_multi_device_raises(rows, path):
+    class TwoDevices(DeviceSet):
+        @property
+        def nr_devices(self):
+            return 2
+
+    left, right = make_join_tables(1, rows, rows)
+    op = JoinGpu(TwoDevices(torch.device("cpu")), left, right).Prepare()
+    with pytest.raises(NotImplementedError, match=f"{path}.*item 10"):
+        op.Run()
