@@ -6,13 +6,21 @@ Run from the root of the repository on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from dpu_olap_tpu_torch/csrc, checks each kernel
-against its plain PyTorch version on the card, then drives the main path —
-the BM_JoinDpu dense-pk join through JoinGpu.Prepare().Run() — at SF=1
-(checked against the pyarrow oracle) and SF=8 (checked against the dense
-truth), with the kernels' launch counts read around each run. It prints one
-line per phase, a JSON line with each kernel's numbers, and last
-{"ok": true, "device": {...}}. With no CUDA device, outside the repository,
-or when any phase fails, it exits non-zero and prints no "ok" line.
+against its plain PyTorch version on the card (sort, gather, filter, sum),
+then drives each operator path through Prepare().Run() at the reference
+benchmark shapes, at SF=1 and SF=8, each with the kernels' launch counts set
+to 0 just before its run and read just after:
+  * JoinGpu, the BM_JoinDpu dense-pk join (sort + gather kernels): SF=1
+    against pyarrow, SF=8 against the dense truth;
+  * FilterGpu, BM_Filter (filter kernel): against pyarrow, chunk by chunk;
+  * SumGpu, BM_Aggr and its small-batch shape (sum kernel): the exact
+    integer against pyarrow;
+  * TakeGpu, BM_Take (sort + gather kernels): against pyarrow, batch by
+    batch.
+It prints one line per phase, a JSON line with each kernel's numbers, the
+card's name and power limit, and last {"ok": true, "device": {...}}. With no
+CUDA device, outside the repository, or when any phase fails, it exits
+non-zero and prints no "ok" line.
 """
 
 from __future__ import annotations
@@ -29,6 +37,9 @@ SEED = 42
 SF1_ROWS = 1 << 21  # rows per side of one BM_JoinDpu batch
 SF8 = 8
 REPS = 7  # timed runs per kernel measurement (median)
+RUN_REPS = 3  # timed Run() calls per operator path (median)
+FILTER_N = 64 << 20  # one filter round at SF=8 (1024 x 64Ki)
+SUM_N = 16 << 20  # one sum round at SF=8 (8 x 2Mi)
 
 
 class SmokeFailure(Exception):
@@ -49,48 +60,48 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0].strip()
 
 
-def main() -> dict:
+def cuda_ms(fn) -> float:
+    """Median device time of fn over REPS runs, by CUDA events."""
     import torch
 
-    print(f"[env] torch {torch.__version__}, cuda {torch.version.cuda}", flush=True)
-    require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
-    card = card_line()
-    print(f"[env] card: {card}", flush=True)
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-
-    # imported only now: a copy of this script outside the repo fails here
-    from dpu_olap_tpu_torch.generator import make_join_tables
-    from dpu_olap_tpu_torch.operators.join_op import JoinGpu, JoinNative
-    from dpu_olap_tpu_torch.ops import _kernels, merge, sort_cuda, take_cuda
-    from dpu_olap_tpu_torch.parallel.mesh import DeviceSet
-
-    def cuda_ms(fn) -> float:
-        """Median device time of fn over REPS runs, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
         fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(REPS):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            stop.record()
-            stop.synchronize()
-            times.append(start.elapsed_time(stop))
-        return float(np.median(times))
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return float(np.median(times))
 
-    def on_card(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    def host(t: torch.Tensor) -> np.ndarray:
-        return t.cpu().numpy()
+def on_card(a: np.ndarray):
+    import torch
 
-    def canon(cols) -> np.ndarray:
-        rows = np.stack([np.asarray(c) for c in cols])
-        return rows[:, np.lexsort(rows[::-1])]
+    return torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
 
-    # ---- 2. build --------------------------------------------------------
+
+def host(t) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+def canon(cols) -> np.ndarray:
+    rows = np.stack([np.asarray(c) for c in cols])
+    return rows[:, np.lexsort(rows[::-1])]
+
+
+def max_err(got, ref) -> int:
+    """Largest absolute difference of two integer arrays (0 when equal)."""
+    g, r = np.asarray(got).astype(np.int64), np.asarray(ref).astype(np.int64)
+    return int(np.abs(g - r).max()) if g.size else 0
+
+
+def phase_build() -> None:
+    from dpu_olap_tpu_torch.ops import _kernels
+
     t0 = time.perf_counter()
     so = _kernels.build()
     _kernels.library()
@@ -101,10 +112,16 @@ def main() -> dict:
         flush=True,
     )
 
-    # ---- 3. uint32 glue ops on the card -----------------------------------
-    rng = np.random.default_rng(SEED)
+
+def phase_glue(rng) -> None:
+    """The uint32 glue ops of the plain paths, on the card, against numpy."""
+    import torch
+
+    from dpu_olap_tpu_torch.ops import aggregate, filter as filt, filter_cuda, merge, take
+
+    dev = torch.device("cuda", 0)
     a = rng.integers(0, 2**32, 4096, dtype=np.uint32)
-    a[:4] = [0, 2**31, 0xFFFFFFFE, 0xFFFFFFFF]
+    a[:6] = [0, 2**31, 0xFFFFFFFE, 0xFFFFFFFF, (1 << 30) - 1, 1 << 30]
     ta = on_card(a)
     require(ta.dtype == torch.uint32 and np.array_equal(host(ta), a), "uint32 H2D/D2H round trip")
     a64 = ta.to(torch.int64)
@@ -126,9 +143,45 @@ def main() -> dict:
     flag = torch.zeros((), dtype=torch.int32, device=dev)
     flag |= torch.zeros((), dtype=torch.int32, device=dev)
     require(flag.item() == 0, "int32 flag or-reduce")
+    # filter: the threshold predicate through the int32 view, per-row counts
+    keep = filt.default_predicate(ta)
+    require(np.array_equal(host(keep), a < (1 << 30)), "threshold predicate via int32 view")
+    require(
+        np.array_equal(host(keep.reshape(4, -1).sum(dim=1)), (a < (1 << 30)).reshape(4, -1).sum(1)),
+        "per-row bool counts",
+    )
+    # plain compaction: bool cumsum, int64 where, int32 scatter, int64 -> uint32
+    out, sel, cnt = filter_cuda.compact_scatter(ta, keep, 0, with_indices=True)
+    c = int((a < (1 << 30)).sum())
+    require(int(cnt) == c, "plain compaction count")
+    require(np.array_equal(host(out)[:c], a[a < (1 << 30)]), "plain compaction values")
+    require(np.array_equal(host(sel)[:c], np.flatnonzero(a < (1 << 30))), "plain compaction rows")
+    # take: unsigned clip in int64, arange -> uint32, uint32 fill and cat
+    n = 1000
+    clip = take._clip_u32(ta, n)
+    require(np.array_equal(host(clip), np.minimum(a, n - 1)), "unsigned clip via int64")
+    pos = torch.arange(300, device=dev).to(torch.uint32)
+    pad = torch.full((5,), 0xFFFFFFFF, dtype=torch.uint32, device=dev)
+    both = host(torch.cat([pos, pad]))
+    require(
+        np.array_equal(both, np.concatenate([np.arange(300), np.full(5, 0xFFFFFFFF)]).astype(np.uint32)),
+        "arange -> uint32, uint32 fill and cat",
+    )
+    # aggregate: int64 halves and shifts, 0-d uint32 readback, min/max, f32 partials
+    lo32, hi32 = aggregate.sum_cuda.sum_u64_pair_ref(ta)
+    require(aggregate.u64_pair_to_int(lo32, hi32) == int(a.astype(np.uint64).sum()), "plain u64 sum")
+    require(int(aggregate.min_u32(ta)) == int(a.min()), "min via int64")
+    require(int(aggregate.max_u32(ta)) == int(a.max()), "max via int64")
+    f = rng.random(5000, dtype=np.float32)
+    parts = host(aggregate.sum_f64_partials(on_card(f)))
+    require(np.allclose(parts.sum(), f.astype(np.float64).sum(), rtol=1e-5), "f32 block partials")
     print("[glue] uint32 glue ops on the card agree with numpy", flush=True)
 
-    # ---- 4. kernels against their plain versions, on the card -------------
+
+def phase_sort_gather(rng, card: str) -> dict:
+    """Sort and gather kernels against their plain versions, on the card."""
+    from dpu_olap_tpu_torch.ops import sort_cuda, take_cuda
+
     def sort_case(n: int, n_pay: int):
         key = rng.integers(0, 0xFFFFFFFF, n, dtype=np.uint32)  # < 0xFFFFFFFF
         pool = rng.integers(0, 0xFFFFFFFF, 1000, dtype=np.uint32)
@@ -143,8 +196,7 @@ def main() -> dict:
         g, r = canon(got), canon(ref)
         require(np.array_equal(g, r), f"sort rows n={n} payloads={n_pay}")
         require(np.array_equal(r, canon([key, *pays])), f"plain sort rows n={n}")
-        err = int(np.abs(g.astype(np.int64) - r.astype(np.int64)).max())
-        return planes, err
+        return planes, max_err(g, r)
 
     sort_err = 0
     timed_planes = None
@@ -154,7 +206,7 @@ def main() -> dict:
             sort_err = max(sort_err, err)
             print(f"[sort] n={n} payloads={n_pay}: kernel == plain", flush=True)
             if n == SF1_ROWS and n_pay == 1:
-                timed_planes = planes  # the main path's shape: (idx, y)
+                timed_planes = planes  # the join's shape: (idx, y)
     for n in (2, 1000, 5000):  # padded to MIN_LEN, one tile, two tiles
         sort_err = max(sort_err, sort_case(n, 2)[1])
     print("[sort] n=2, 1000, 5000 payloads=2: kernel == plain", flush=True)
@@ -176,7 +228,6 @@ def main() -> dict:
     expect = np.where(sidx < n, data[np.minimum(sidx, n - 1)], 0).astype(np.uint32)
     require(np.array_equal(rv, expect), "plain gather")
     require(np.array_equal(gv, rv) and gf.item() == 0, "gather kernel == plain")
-    gather_err = int(np.abs(gv.astype(np.int64) - rv.astype(np.int64)).max())
     gather_ms = cuda_ms(lambda: take_cuda.gather_sorted(tdata, tsidx))
     gather_plain_ms = cuda_ms(lambda: take_cuda.gather_sorted_ref(tdata, tsidx))
     print(
@@ -184,115 +235,344 @@ def main() -> dict:
         f" plain {gather_plain_ms:.4f} ms (median of {REPS}, CUDA events) [{card}]",
         flush=True,
     )
+    return {
+        "sort_bitonic": (sort_err, sort_ms, sort_plain_ms),
+        "gather_sorted": (max_err(gv, rv), gather_ms, gather_plain_ms),
+    }
 
-    def run_join(num_batches: int):
-        """Drive the main path once with fresh launch counts; then time it."""
-        left, right = make_join_tables(num_batches, SF1_ROWS, SF1_ROWS, seed=SEED)
-        ds = DeviceSet.allocate(1)
-        op = JoinGpu(ds, left, right).Prepare()
-        require(op.pk_dense, "generator pk not detected dense")
-        sort_cuda.LAUNCHES = 0
-        take_cuda.LAUNCHES = 0
-        out = op.Run()
-        launches = {"sort": sort_cuda.LAUNCHES, "gather": take_cuda.LAUNCHES}
+
+def _filter_inputs(rng):
+    """(name, values) cases for the filter kernel check."""
+    t = 1 << 30
+    cases = [("random 64Mi", rng.integers(0, 2**32, FILTER_N, dtype=np.uint32))]
+    odd = 3 * (1 << 20) + 17
+    cases.append((f"random {odd}", rng.integers(0, 2**32, odd, dtype=np.uint32)))
+    for n in (1, 127, 4097):
+        cases.append((f"random {n}", rng.integers(0, 2**32, n, dtype=np.uint32)))
+    i = np.arange(odd)
+    cases.append(("all pass", rng.integers(0, t, odd, dtype=np.uint32)))
+    cases.append(("none pass", rng.integers(t, 2**32, odd, dtype=np.uint32)))
+    cases.append(("alternating", np.where(i % 2 == 0, 7, 0xC0000000).astype(np.uint32)))
+    edges = np.array([0, t - 1, t, 0xFFFFFFFF], dtype=np.uint32)
+    cases.append(("boundary values", edges[rng.integers(0, 4, odd)]))
+    return cases
+
+
+def phase_filter_kernel(rng, card: str) -> tuple:
+    """Filter kernel == plain, bit for bit, on the card; timed at 64Mi."""
+    import torch
+
+    from dpu_olap_tpu_torch.ops import filter_cuda
+
+    err = 0
+    timed = None
+    for name, v in _filter_inputs(rng):
+        tv = on_card(v)
+        keep = v < (1 << 30)
+        c = int(keep.sum())
+        for fill in (0, 0xDEADBEEF):
+            got, gc = filter_cuda.filter_compact(tv, fill)
+            ref, rc = filter_cuda.filter_compact_ref(tv, fill)
+            got, ref = host(got), host(ref)
+            require(int(rc) == c and np.array_equal(ref[:c], v[keep]), f"plain filter {name}")
+            require(np.all(ref[c:] == np.uint32(fill)), f"plain filter tail {name}")
+            require(int(gc) == c and np.array_equal(got, ref), f"filter kernel != plain: {name} fill={fill:#x}")
+            err = max(err, max_err(got, ref))
+        gv, gs, gc = filter_cuda.filter_with_indices(tv)
+        rv, rs, rc = filter_cuda.filter_with_indices_ref(tv)
+        require(np.array_equal(host(rs)[:c], np.flatnonzero(keep)), f"plain filter rows {name}")
+        require(np.all(host(rs)[c:] == len(v)), f"plain filter row tail {name}")
         require(
-            launches["sort"] > 0 and launches["gather"] > 0,
-            f"main path did not launch every kernel: {launches}",
+            int(gc) == int(rc) == c and np.array_equal(host(gv), host(rv))
+            and np.array_equal(host(gs), host(rs)),
+            f"filter_with_indices kernel != plain: {name}",
         )
-        secs, phases = [], {}
-        for _ in range(3):
-            op_t = JoinGpu(ds, left, right).Prepare()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            op_t.Run()
-            secs.append(time.perf_counter() - t)
-            for name in ("host-prep", "h2d", "join-total", "gather-result"):
-                phases.setdefault(name, []).append(op_t.Timers().sum_ms(name))
-        run_s = float(np.median(secs))
-        phase_ms = {k: float(np.median(v)) for k, v in phases.items()}
-        return left, right, out, launches, run_s, phase_ms
-
-    def device_path(left, right):
-        """Device time of join_shard_dense on device-resident inputs, and of
-        its two kernels alone at the same shapes."""
-        lf, rt = left.concat(), right.concat()
-        fk, y, pk, x = (on_card(lf["fk"]), on_card(lf["y"]), on_card(rt["pk"]), on_card(rt["x"]))
-        total = cuda_ms(lambda: merge.join_shard_dense(fk, (y,), pk, (x,)))
-        idx = merge._u32(fk.to(torch.int64) - pk[:1].to(torch.int64))
-        s_ms = cuda_ms(lambda: sort_cuda.sort_bitonic((idx, y)))
-        sidx_ = sort_cuda.sort_bitonic((idx, y))[0]
-        g_ms = cuda_ms(lambda: take_cuda.gather_sorted(x, sidx_))
-        return total, s_ms, g_ms
-
-    # ---- 5. main path, flagship shape (SF=1) --------------------------------
-    left, right, out, launches1, run_s, phase_ms = run_join(1)
-    nat = JoinNative(left, right).Prepare().Run()
-    cols = ("fk", "y", "x")
-    require(len(out["fk"]) == nat.num_rows, "SF=1 row count differs from pyarrow")
-    require(
-        np.array_equal(canon([out[c] for c in cols]), canon([nat[c].to_numpy() for c in cols])),
-        "SF=1 JoinGpu != JoinNative",
-    )
-    rows = len(out["fk"])
-    dev_ms, dsort_ms, dgather_ms = device_path(left, right)
+        err = max(err, max_err(host(gs), host(rs)))
+        print(f"[filter] {name} (n={len(v)}, kept {c}): kernel == plain", flush=True)
+        if len(v) == FILTER_N:
+            timed = tv
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: filter_cuda.filter_compact(timed))
+    plain_ms = cuda_ms(lambda: filter_cuda.filter_compact_ref(timed))
+    idx_ms = cuda_ms(lambda: filter_cuda.filter_with_indices(timed))
+    idx_plain_ms = cuda_ms(lambda: filter_cuda.filter_with_indices_ref(timed))
     print(
-        f"[join SF=1] {rows} rows == pyarrow; launches {launches1}; Run() {run_s * 1e3:.3f} ms ="
-        f" {rows / run_s:.1f} rows/s (median of 3; phases ms {phase_ms});"
-        f" device join_shard_dense {dev_ms:.4f} ms = {rows / (dev_ms / 1e3):.1f} rows/s"
-        f" (sort {dsort_ms:.4f} ms, gather {dgather_ms:.4f} ms) [{card}]",
+        f"[filter] n={FILTER_N}: filter_compact kernel {ms:.4f} ms, plain {plain_ms:.4f} ms;"
+        f" filter_with_indices kernel {idx_ms:.4f} ms, plain {idx_plain_ms:.4f} ms"
+        f" (median of {REPS}, CUDA events) [{card}]",
         flush=True,
     )
+    return err, ms, plain_ms
 
-    # ---- 6. main path, real size (SF=8, one concatenated join) -------------
-    torch.cuda.reset_peak_memory_stats(dev)
-    left, right, out, launches8, run_s8, phase_ms8 = run_join(SF8)
-    peak = torch.cuda.max_memory_allocated(dev)
+
+def phase_sum_kernel(rng, card: str) -> tuple:
+    """Sum kernel == plain, exactly, on the card; timed at 16Mi."""
+    from dpu_olap_tpu_torch.ops import sum_cuda
+    from dpu_olap_tpu_torch.ops.aggregate import u64_pair_to_int
+
+    big = on_card(rng.integers(0, 2**32, SUM_N + 7, dtype=np.uint32))
+    cases = [
+        ("random 16Mi", big[:SUM_N]),
+        ("misaligned view 16Mi+6", big[1:]),
+        ("misaligned view 5", big[3:8]),
+        ("all 0xFFFFFFFF 2^24", on_card(np.full(1 << 24, 0xFFFFFFFF, np.uint32))),
+    ] + [(f"random {n}", big[:n]) for n in (0, 1, 3, 4, 1029)]
+    err = 0
+    for name, t in cases:
+        truth = int(host(t).astype(np.uint64).sum(dtype=np.uint64))
+        got = u64_pair_to_int(*sum_cuda.sum_u64_pair(t))
+        ref = u64_pair_to_int(*sum_cuda.sum_u64_pair_ref(t))
+        require(ref == truth, f"plain sum {name}: {ref} != {truth}")
+        require(got == ref, f"sum kernel != plain: {name}: {got} != {ref}")
+        err = max(err, abs(got - ref))
+        print(f"[sum] {name}: kernel == plain == numpy ({got})", flush=True)
+    t = cases[0][1]
+    ms = cuda_ms(lambda: sum_cuda.sum_u64_pair(t))
+    plain_ms = cuda_ms(lambda: sum_cuda.sum_u64_pair_ref(t))
+    print(
+        f"[sum] n={SUM_N}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+        f" (median of {REPS}, CUDA events) [{card}]",
+        flush=True,
+    )
+    return err, ms, plain_ms
+
+
+def run_path(label: str, make_op, counters: dict, phases, card: str, rows: int):
+    """Drive one operator path once with its launch counts set to 0 just
+    before Run() and read just after; then time RUN_REPS fresh runs.
+    Returns (output, launches)."""
+    import torch
+
+    op = make_op().Prepare()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in counters.values():
+        mod.LAUNCHES = 0
+    out = op.Run()
+    launches = {name: mod.LAUNCHES for name, mod in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    require(
+        all(v > 0 for v in launches.values()),
+        f"{label}: the path did not launch every kernel: {launches}",
+    )
+    secs, ph = [], {}
+    for _ in range(RUN_REPS):
+        op_t = make_op().Prepare()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        op_t.Run()
+        secs.append(time.perf_counter() - t)
+        for name in phases:
+            ph.setdefault(name, []).append(op_t.Timers().sum_ms(name))
+    run_s = float(np.median(secs))
+    phase_ms = {k: round(float(np.median(v)), 3) for k, v in ph.items()}
+    print(
+        f"[{label}] launches {launches}; Run() {run_s * 1e3:.3f} ms = {rows / run_s:.1f} rows/s"
+        f" (median of {RUN_REPS}; phases ms {phase_ms}); peak device memory {peak} B [{card}]",
+        flush=True,
+    )
+    return out, launches
+
+
+def phase_join(sf: int, card: str) -> dict:
+    import torch
+
+    from dpu_olap_tpu_torch.generator import make_join_tables
+    from dpu_olap_tpu_torch.operators.join_op import JoinGpu, JoinNative
+    from dpu_olap_tpu_torch.ops import merge, sort_cuda, take_cuda
+    from dpu_olap_tpu_torch.parallel.mesh import DeviceSet
+
+    left, right = make_join_tables(sf, SF1_ROWS, SF1_ROWS, seed=SEED)
+    ds = DeviceSet.allocate(1)
+    require(JoinGpu(ds, left, right).Prepare().pk_dense, "generator pk not detected dense")
+    out, launches = run_path(
+        f"join SF={sf}", lambda: JoinGpu(ds, left, right),
+        {"sort": sort_cuda, "gather": take_cuda},
+        ("host-prep", "h2d", "join-total", "gather-result"), card, left.num_rows,
+    )
     lc, rc = left.concat(), right.concat()
-    pk0 = int(rc["pk"][0])
-    fk_out = out["fk"].astype(np.int64)
-    require(len(fk_out) == lc.num_rows, "SF=8 row count != left rows")
-    require(np.array_equal(out["x"], rc["x"][fk_out - pk0]), "SF=8 x != right_x[fk - pk0]")
-    require(
-        np.array_equal(canon([out["fk"], out["y"]]), canon([lc["fk"], lc["y"]])),
-        "SF=8 (fk, y) multiset differs from the input",
-    )
-    rows8 = len(fk_out)
-    dev_ms8, dsort_ms8, dgather_ms8 = device_path(left, right)
+    if sf == 1:
+        nat = JoinNative(left, right).Prepare().Run()
+        cols = ("fk", "y", "x")
+        require(len(out["fk"]) == nat.num_rows, "SF=1 row count differs from pyarrow")
+        require(
+            np.array_equal(canon([out[c] for c in cols]), canon([nat[c].to_numpy() for c in cols])),
+            "SF=1 JoinGpu != JoinNative",
+        )
+        truth = "pyarrow"
+    else:
+        pk0 = int(rc["pk"][0])
+        fk_out = out["fk"].astype(np.int64)
+        require(len(fk_out) == lc.num_rows, f"SF={sf} row count != left rows")
+        require(np.array_equal(out["x"], rc["x"][fk_out - pk0]), f"SF={sf} x != right_x[fk - pk0]")
+        require(
+            np.array_equal(canon([out["fk"], out["y"]]), canon([lc["fk"], lc["y"]])),
+            f"SF={sf} (fk, y) multiset differs from the input",
+        )
+        truth = "the dense truth"
+    # device time of join_shard_dense on device-resident inputs, and of its
+    # two kernels alone at the same shapes
+    fk, y, pk, x = (on_card(lc["fk"]), on_card(lc["y"]), on_card(rc["pk"]), on_card(rc["x"]))
+    total = cuda_ms(lambda: merge.join_shard_dense(fk, (y,), pk, (x,)))
+    idx = merge._u32(fk.to(torch.int64) - pk[:1].to(torch.int64))
+    s_ms = cuda_ms(lambda: sort_cuda.sort_bitonic((idx, y)))
+    sidx = sort_cuda.sort_bitonic((idx, y))[0]
+    g_ms = cuda_ms(lambda: take_cuda.gather_sorted(x, sidx))
+    rows = len(out["fk"])
     print(
-        f"[join SF=8] {rows8} rows == dense truth; launches {launches8}; Run() {run_s8 * 1e3:.3f} ms ="
-        f" {rows8 / run_s8:.1f} rows/s (median of 3; phases ms {phase_ms8}); peak device memory"
-        f" {peak} B; device join_shard_dense {dev_ms8:.4f} ms = {rows8 / (dev_ms8 / 1e3):.1f} rows/s"
-        f" (sort {dsort_ms8:.4f} ms, gather {dgather_ms8:.4f} ms) [{card}]",
+        f"[join SF={sf}] {rows} rows == {truth}; device join_shard_dense {total:.4f} ms ="
+        f" {rows / (total / 1e3):.1f} rows/s (sort {s_ms:.4f} ms, gather {g_ms:.4f} ms) [{card}]",
         flush=True,
     )
+    return launches
 
-    kernels = [
-        {
-            "name": "sort_bitonic",
+
+def phase_filter(sf: int, card: str) -> dict:
+    """BM_Filter: SF*128 batches x 64Ki (filter_benchmark.cc:150-158)."""
+    from dpu_olap_tpu_torch.generator import make_filter_batches
+    from dpu_olap_tpu_torch.operators.filter_op import FilterGpu, FilterNative
+    from dpu_olap_tpu_torch.ops import filter as filt
+    from dpu_olap_tpu_torch.ops import filter_cuda
+    from dpu_olap_tpu_torch.parallel.mesh import DeviceSet
+
+    table = make_filter_batches(sf * 128, 1 << 16, seed=SEED)
+    ds = DeviceSet.allocate(1)
+    out, launches = run_path(
+        f"filter SF={sf}", lambda: FilterGpu(ds, table), {"filter": filter_cuda},
+        ("stage", "dispatch", "collect"), card, table.num_rows,
+    )
+    nat = FilterNative(table).Prepare().Run()
+    require(len(out) == len(nat) == len(table), f"filter SF={sf}: chunk count")
+    for i, (g, e) in enumerate(zip(out, nat)):
+        require(np.array_equal(g, e), f"filter SF={sf}: chunk {i} != pyarrow")
+    x = on_card(np.stack([b["a"] for b in table.batches]))
+    dev_ms = cuda_ms(lambda: (filt.default_predicate(x).sum(dim=1), filt.filter_compact(x.reshape(-1))))
+    kept = sum(len(c) for c in out)
+    print(
+        f"[filter SF={sf}] {len(out)} chunks, {kept} of {table.num_rows} rows kept == pyarrow;"
+        f" device counts + compaction of one round {dev_ms:.4f} ms ="
+        f" {table.num_rows / (dev_ms / 1e3):.1f} rows/s [{card}]",
+        flush=True,
+    )
+    return launches
+
+
+def phase_sum(sf: int, card: str) -> dict:
+    """BM_Aggr: SF x 2Mi and SF*32 x 64Ki (aggr_benchmark.cc:146-155)."""
+    from dpu_olap_tpu_torch.generator import make_filter_batches
+    from dpu_olap_tpu_torch.operators.aggr_op import SumGpu, SumNative
+    from dpu_olap_tpu_torch.ops import sum_cuda
+    from dpu_olap_tpu_torch.ops.aggregate import sum_u64_pair
+    from dpu_olap_tpu_torch.parallel.mesh import DeviceSet
+
+    ds = DeviceSet.allocate(1)
+    total = {"sum": 0}
+    for nb, rows in ((sf, 1 << 21), (sf * 32, 1 << 16)):
+        table = make_filter_batches(nb, rows, seed=SEED)
+        label = f"sum SF={sf} {nb}x{rows}"
+        got, launches = run_path(
+            label, lambda: SumGpu(ds, table), {"sum": sum_cuda},
+            ("stage", "dispatch", "collect"), card, table.num_rows,
+        )
+        expect = SumNative(table).Prepare().Run()
+        require(isinstance(got, int) and got == expect, f"{label}: {got} != pyarrow {expect}")
+        x = on_card(np.concatenate([b["a"] for b in table.batches]))
+        dev_ms = cuda_ms(lambda: sum_u64_pair(x))
+        print(
+            f"[{label}] {got} == pyarrow; device sum of one round {dev_ms:.4f} ms ="
+            f" {table.num_rows / (dev_ms / 1e3):.1f} rows/s [{card}]",
+            flush=True,
+        )
+        total["sum"] += launches["sum"]
+    return total
+
+
+def phase_take(sf: int, card: str) -> dict:
+    """BM_Take: SF x 4Mi data / 512Ki indices (take_benchmark.cc:155-164)."""
+    from dpu_olap_tpu_torch.generator import make_take_batches
+    from dpu_olap_tpu_torch.operators.take_op import TakeGpu, TakeNative
+    from dpu_olap_tpu_torch.ops import sort_cuda, take_cuda
+    from dpu_olap_tpu_torch.parallel.mesh import DeviceSet
+
+    data, idx = make_take_batches(sf, 1 << 22, 1 << 19, seed=SEED)
+    ds = DeviceSet.allocate(1)
+    require(TakeGpu(ds, data, idx).Prepare()._use_sorted, "TakeGpu did not pick the sorted path")
+    out, launches = run_path(
+        f"take SF={sf}", lambda: TakeGpu(ds, data, idx),
+        {"sort": sort_cuda, "gather": take_cuda},
+        ("stage", "dispatch", "collect"), card, idx.num_rows,
+    )
+    nat = TakeNative(data, idx).Prepare().Run()
+    require(len(out) == len(nat) == sf, f"take SF={sf}: batch count")
+    for i, (g, e) in enumerate(zip(out, nat)):
+        require(np.array_equal(g, e), f"take SF={sf}: batch {i} != pyarrow")
+    op = TakeGpu(ds, data, idx).Prepare()
+    d = on_card(np.stack([b["a"] for b in data.batches]))
+    q = on_card(np.stack([b["i"] for b in idx.batches]))
+    dev_ms = cuda_ms(lambda: op._take_round(d, q))
+    print(
+        f"[take SF={sf}] {idx.num_rows} queries into {data.num_rows} rows == pyarrow;"
+        f" device take of one round {dev_ms:.4f} ms = {idx.num_rows / (dev_ms / 1e3):.1f} rows/s"
+        f" [{card}]",
+        flush=True,
+    )
+    return launches
+
+
+def main() -> dict:
+    import torch
+
+    print(f"[env] torch {torch.__version__}, cuda {torch.version.cuda}", flush=True)
+    require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    card = card_line()
+    print(f"[env] card: {card}", flush=True)
+    torch.cuda.set_device(0)
+
+    # the package is imported only inside the phases: a copy of this script
+    # outside the repo fails at the build
+    phase_build()
+    rng = np.random.default_rng(SEED)
+    phase_glue(rng)
+    measured = phase_sort_gather(rng, card)
+    measured["filter_compact"] = phase_filter_kernel(rng, card)
+    measured["sum_u64_pair"] = phase_sum_kernel(rng, card)
+
+    launches = {"sort": 0, "gather": 0, "filter": 0, "sum": 0}
+    for sf in (1, SF8):
+        for phase in (phase_join, phase_filter, phase_sum, phase_take):
+            for name, n in phase(sf, card).items():
+                launches[name] += n
+
+    sources = {
+        "sort_bitonic": ("sort", "sort.cu", "dpu_olap_tpu/ops/sort_pallas.py:385", [
+            "dpu_olap_tpu/ops/sort_pallas.py:286",
+            "dpu_olap_tpu/ops/sort_pallas.py:103",
+            "dpu_olap_tpu/ops/sort_pallas.py:327",
+        ]),
+        "gather_sorted": ("gather", "gather.cu", "dpu_olap_tpu/ops/take_pallas.py:219", None),
+        "filter_compact": ("filter", "filter.cu", "dpu_olap_tpu/ops/filter_pallas.py:314", [
+            "dpu_olap_tpu/ops/filter_pallas.py:314",
+            "dpu_olap_tpu/ops/filter_pallas.py:375",
+            "dpu_olap_tpu/ops/filter_pallas.py:448",
+        ]),
+        "sum_u64_pair": ("sum", "sum.cu", "dpu_olap_tpu/ops/aggregate.py:113", None),
+    }
+    kernels = []
+    for name, (counter, src, replaces, also) in sources.items():
+        err, ms, plain_ms = measured[name]
+        entry = {
+            "name": name,
             "route": "cuda",
-            "source": "dpu_olap_tpu_torch/csrc/sort.cu",
-            "replaces": "dpu_olap_tpu/ops/sort_pallas.py:385",
-            "replaces_kernels": [
-                "dpu_olap_tpu/ops/sort_pallas.py:286",
-                "dpu_olap_tpu/ops/sort_pallas.py:103",
-                "dpu_olap_tpu/ops/sort_pallas.py:327",
-            ],
-            "launches": launches1["sort"],
-            "max_abs_err": sort_err,
-            "ms": sort_ms,
-            "plain_ms": sort_plain_ms,
-        },
-        {
-            "name": "gather_sorted",
-            "route": "cuda",
-            "source": "dpu_olap_tpu_torch/csrc/gather.cu",
-            "replaces": "dpu_olap_tpu/ops/take_pallas.py:219",
-            "launches": launches1["gather"],
-            "max_abs_err": gather_err,
-            "ms": gather_ms,
-            "plain_ms": gather_plain_ms,
-        },
-    ]
+            "source": f"dpu_olap_tpu_torch/csrc/{src}",
+            "replaces": replaces,
+            "launches": launches[counter],
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+        }
+        if also:
+            entry["replaces_kernels"] = also
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"[card] {card}", flush=True)
     return {

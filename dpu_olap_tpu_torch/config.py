@@ -51,6 +51,9 @@ class Flags:
     """
 
     enable_log: bool = False
+    # Round streaming (the reference's batch-round outer loop,
+    # filter_dpu.cc:127-156): max rows resident per dispatched round.
+    stream_round_rows: int = 64 << 20
 
 
 FLAGS = Flags(enable_log=_env_int("ENABLE_LOG", 0) != 0)

@@ -1,0 +1,104 @@
+"""Sum-aggregate operators (counterpart of ``dpu_olap_tpu/operators/aggr_op.py``).
+
+SumGpu — the counterpart of SumTpu, the reference's SumDpu
+(host/aggr/aggr_dpu.cc:31-89): per round, copy the batches to the device
+and reduce them there; the host adds the rounds' exact partials
+(aggr_dpu.cc:82-84).
+
+SumNative — pyarrow sum, the oracle (host/aggr/aggr_native.cc).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..columnar import Table, to_numpy
+from ..ops.aggregate import sum_f64_partials, sum_u64_pair, u64_pair_to_int
+from ..parallel.mesh import DeviceSet
+from ..parallel.streaming import round_geometry, stream_rounds
+from ..timer import Timers, timed
+
+
+def _f64_total(parts) -> float:
+    return float(parts.cpu().numpy().astype(np.float64).sum())
+
+
+class SumGpu:
+    """Integer columns use the exact uint64 sum (the sum kernel on CUDA);
+    float columns use the Double variant (device f32 block partials + host
+    f64 combine), the analog of the reference's AggrNative<UInt64Array> /
+    <DoubleArray> pair (host/aggr/aggr_native.cc:95-96)."""
+
+    def __init__(self, ds: DeviceSet, table: Table, column: str = "a"):
+        self.ds, self.table, self.column = ds, table, column
+        self.timers = Timers()
+
+    def Prepare(self):
+        return self
+
+    def Run(self) -> int | float:
+        d = self.ds.nr_devices
+        b = len(self.table)
+        cols = [to_numpy(bt[self.column]) for bt in self.table]
+        is_float = np.issubdtype(cols[0].dtype, np.floating)
+        even = b % d == 0 and len({len(c) for c in cols}) == 1
+
+        if not even:  # ragged batches (e.g. post-filter): single-array path
+            with timed(self.timers, "copy-to-device"):
+                dev = self.ds.scatter(np.concatenate(cols))
+            with timed(self.timers, "device-work"):
+                if is_float:
+                    return _f64_total(sum_f64_partials(dev))
+                return u64_pair_to_int(*sum_u64_pair(dev))
+
+        # Streaming rounds (aggr_dpu.cc:55-77 round loop): per-round device
+        # partials, host-side exact total.
+        rpr, n_rounds = round_geometry(b, d, len(cols[0]))
+        per_round = d * rpr
+
+        def stage(r):
+            return np.stack(cols[r * per_round : (r + 1) * per_round]).reshape(-1)
+
+        if is_float:
+            def dispatch(r, staged):
+                return sum_f64_partials(self.ds.scatter(staged))
+
+            collect = lambda r, h: _f64_total(h)  # noqa: E731
+            parts = stream_rounds(n_rounds, stage, dispatch, collect, timers=self.timers)
+            return float(np.sum(parts))
+
+        def dispatch(r, staged):
+            return sum_u64_pair(self.ds.scatter(staged))
+
+        collect = lambda r, h: u64_pair_to_int(*h)  # noqa: E731
+        parts = stream_rounds(n_rounds, stage, dispatch, collect, timers=self.timers)
+        return int(sum(parts))
+
+    def Timers(self):
+        return self.timers
+
+
+class SumNative:
+    def __init__(self, table: Table, column: str = "a"):
+        self.table, self.column = table, column
+        self.timers = Timers()
+
+    def Prepare(self):
+        import pyarrow as pa
+
+        self._chunked = pa.chunked_array(
+            [pa.array(to_numpy(b[self.column])) for b in self.table]
+        )
+        return self
+
+    def Run(self) -> int | float:
+        import pyarrow.compute as pc
+
+        with timed(self.timers, "native-work"):
+            out = pc.sum(self._chunked).as_py()
+            # UInt64 for integer inputs, Double for float inputs: the two
+            # reference instantiations (aggr_native.cc:95-96).
+            return float(out) if isinstance(out, float) else int(out)
+
+    def Timers(self):
+        return self.timers

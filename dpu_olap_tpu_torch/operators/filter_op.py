@@ -1,0 +1,107 @@
+"""Filter operators (counterpart of ``dpu_olap_tpu/operators/filter_op.py``).
+
+FilterGpu — the counterpart of FilterTpu, the reference's FilterDpu
+(host/filter/filter_dpu.cc): rounds of batches are stacked on the host,
+copied to the device, compacted by one launch of the filter kernel over the
+round's concatenation, and read back with per-batch counts that locate each
+batch's chunk; host assembly slices the chunks.
+
+FilterNative — pyarrow compute, the differential oracle
+(host/filter/filter_native.cc).
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+
+from ..columnar import Table, to_numpy
+from ..metrics import device_log
+from ..ops.filter import FILTER_THRESHOLD, default_predicate, filter_compact
+from ..parallel.mesh import DeviceSet
+from ..parallel.streaming import round_geometry, stream_rounds
+from ..timer import Timers, timed
+
+
+class FilterGpu:
+    """Streaming filter: rounds of batches flow through the kernel with a
+    bounded number of rounds in flight (the reference's virtual-DPU outer
+    loop, filter_dpu.cc:127-156); a round holds at most
+    FLAGS.stream_round_rows rows on the device."""
+
+    def __init__(self, ds: DeviceSet, table: Table, column: str = "a"):
+        self.ds = ds
+        self.table = table
+        self.column = column
+        self.timers = Timers()
+
+    def Prepare(self):
+        n = self.table[0].num_rows
+        if any(b.num_rows != n for b in self.table):
+            raise ValueError("FilterGpu needs batches of one length")
+        self.rpr, self.n_rounds = round_geometry(len(self.table), self.ds.nr_devices, n)
+        return self
+
+    def Run(self) -> List[np.ndarray]:
+        rpr = self.rpr
+
+        def stage(r):
+            rows = [to_numpy(self.table[r * rpr + i][self.column]) for i in range(rpr)]
+            return np.stack(rows)
+
+        def dispatch(r, staged):
+            x = self.ds.scatter(staged)  # (rpr, n) uint32
+            # The stable compaction of the concatenation is the concatenation
+            # of the per-batch compactions, so one kernel pass serves all
+            # batches; per-batch counts of the same predicate locate each
+            # chunk.
+            counts = default_predicate(x).sum(dim=1)
+            padded, _total = filter_compact(x.reshape(-1))
+            return padded, counts
+
+        def collect(r, handle):
+            # worker thread: only copies from the round's tensors, which
+            # name their device; only the kept prefix is read back
+            padded, counts = handle
+            counts_h = counts.cpu().numpy()
+            flat_h = padded[: int(counts_h.sum())].cpu().numpy()
+            device_log(f"filter round {r} result counts", counts_h[None, :])
+            ends = np.cumsum(counts_h)
+            return [flat_h[e - c : e] for c, e in zip(counts_h, ends)]
+
+        round_chunks = stream_rounds(
+            self.n_rounds, stage, dispatch, collect, timers=self.timers
+        )
+        return [c for chunks in round_chunks for c in chunks]
+
+    def Timers(self):
+        return self.timers
+
+
+class FilterNative:
+    """pyarrow oracle: v < 2^30 per batch (filter_native.cc:59)."""
+
+    def __init__(self, table: Table, column: str = "a"):
+        self.table = table
+        self.column = column
+        self.timers = Timers()
+
+    def Prepare(self):
+        import pyarrow as pa
+
+        self._arrays = [pa.array(to_numpy(b[self.column])) for b in self.table]
+        return self
+
+    def Run(self) -> List[np.ndarray]:
+        import pyarrow as pa
+        import pyarrow.compute as pc
+
+        thresh = pa.scalar(int(FILTER_THRESHOLD), pa.uint32())
+        with timed(self.timers, "native-work"):
+            return [
+                pc.filter(arr, pc.less(arr, thresh)).to_numpy() for arr in self._arrays
+            ]
+
+    def Timers(self):
+        return self.timers

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``dpu_olap_tpu_torch/csrc/*.cu``).
 
 All sources compile with nvcc into one shared library with a plain C
-interface, loaded with ctypes. The build happens at first use, never at
-import, and is keyed on a hash of the sources and flags: the library lands in
+interface, loaded with ctypes: one nvcc per source, all started together,
+then one link. The build happens at first use, never at import, and is keyed
+on a hash of the sources and flags: the library lands in
 ``dpu_olap_tpu_torch/_build/`` (git-ignored) and is reused while the sources
 are unchanged. A failed build raises with nvcc's output; nothing falls back.
 """
@@ -15,6 +16,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -22,7 +24,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -32,6 +34,10 @@ _SIGNATURES = {
     "dpu_sort_u32": [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.c_int, _LL, _LL, _P],
     # (data, n, sidx, out, k, stream)
     "dpu_gather_sorted_u32": [_P, _LL, _P, _P, _LL, _P],
+    # (x, n, threshold, fill, out, sel or NULL, tile_offs, count, stream)
+    "dpu_filter_u32": [_P, _LL, ctypes.c_uint, ctypes.c_uint, _P, _P, _P, _P, _P],
+    # (x, n, out_u64, stream)
+    "dpu_sum_u32": [_P, _LL, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -62,6 +68,14 @@ def library_path() -> Path:
     return BUILD_DIR / f"libdpu_olap_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd: list[str]) -> None:
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}{res.stderr}"
+        )
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the shared library unless it already exists."""
     global build_seconds
@@ -70,16 +84,24 @@ def build() -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(s) for s in _sources()]
+    nvcc = _nvcc()
+    srcs = _sources()
+    objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in srcs]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    if res.returncode != 0:
+    try:
+        with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
+            list(pool.map(
+                _run,
+                [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(srcs, objs)],
+            ))
+        _run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)])
+    except RuntimeError:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}{res.stderr}"
-        )
+        raise
+    finally:
+        build_seconds = time.perf_counter() - t0
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, so)
     return so
 

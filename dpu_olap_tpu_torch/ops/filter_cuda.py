@@ -1,0 +1,131 @@
+"""Stable compaction of uint32 values below 2^30 (counterpart of
+``dpu_olap_tpu/ops/filter_pallas.py`` v1: ``filter_compact_pallas``,
+``filter_with_indices_pallas`` and ``filter_pallas_padded``).
+
+``filter_compact`` and ``filter_with_indices`` launch ``csrc/filter.cu`` for
+CUDA tensors and run the plain versions ``filter_compact_ref`` and
+``filter_with_indices_ref`` for CPU tensors; any other device raises.
+Contract (ops/filter.py:71-85, 144-155 of the JAX package), for any length:
+  * ``(padded_values, count)``: ``padded_values[:count]`` are the values
+    ``v < 2^30`` in input order, ``padded_values[count:] == fill``;
+  * ``(values, indices, count)``: the same with ``fill`` 0, and the row
+    number of each kept value, the index tail equal to ``n``;
+  * ``count`` is a 0-d uint32 tensor on the input's device.
+The TPU wrapper pads the input to its block multiple; the kernel here takes
+any length below 2^32, so nothing is padded.
+
+``compact_scatter`` is the plain algorithm behind both plain versions (an
+inclusive scan of the mask gives each kept value its slot, then one scatter)
+and serves ``ops/filter.py`` for other predicates.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _kernels
+
+THRESHOLD = 1 << 30  # the reference predicate v < 2^30 (filter.c:25)
+TILE = 4096  # elements per block of the kernel (csrc/filter.cu TILE)
+LAUNCHES = 0  # kernel launches by filter_compact / filter_with_indices
+
+
+def _as_i32(x: int) -> int:
+    """A uint32 value as the int32 with the same bits."""
+    x = int(x) & 0xFFFFFFFF
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+def below_threshold(values: torch.Tensor) -> torch.Tensor:
+    """The mask ``values < 2^30``. A uint32 column is compared through its
+    int32 view (torch has no uint32 compare on the CPU): v < 2^30 exactly
+    when its int32 bit pattern lies in [0, 2^30)."""
+    if values.dtype == torch.uint32:
+        iv = values.view(torch.int32)
+        return (iv >= 0) & (iv < THRESHOLD)
+    return values < THRESHOLD
+
+
+def compact_scatter(
+    values: torch.Tensor, mask: torch.Tensor, fill: int = 0,
+    with_indices: bool = False,
+):
+    """Plain stable compaction of a uint32 column by ``mask``: returns
+    ``(padded, count)`` or, with indices, ``(padded, indices, count)``.
+    Each kept row's slot is its inclusive mask prefix minus 1; failed rows
+    scatter to a dropped slot n (the JAX package's ``_compact_scatter``)."""
+    n = values.shape[0]
+    dev = values.device
+    pos = torch.cumsum(mask, 0) - 1
+    slot = torch.where(mask, pos, n)
+    out = torch.full((n + 1,), _as_i32(fill), dtype=torch.int32, device=dev)
+    out[slot] = values.view(torch.int32)
+    count = mask.sum().to(torch.uint32)
+    if not with_indices:
+        return out[:n].view(torch.uint32), count
+    sel = torch.full((n + 1,), n, dtype=torch.int64, device=dev)
+    sel[slot] = torch.arange(n, device=dev)
+    return out[:n].view(torch.uint32), sel[:n].to(torch.uint32), count
+
+
+def _check(values: torch.Tensor) -> torch.device:
+    if values.dtype != torch.uint32 or values.dim() != 1:
+        raise ValueError("filter values must be a 1-D uint32 tensor")
+    if values.shape[0] >= 1 << 32:
+        raise ValueError("filter takes fewer than 2^32 values (uint32 counts and rows)")
+    return values.device
+
+
+def filter_compact_ref(values: torch.Tensor, fill: int = 0):
+    """Plain PyTorch version of filter_compact."""
+    return compact_scatter(values, below_threshold(values), fill)
+
+
+def filter_with_indices_ref(values: torch.Tensor):
+    """Plain PyTorch version of filter_with_indices."""
+    return compact_scatter(values, below_threshold(values), 0, with_indices=True)
+
+
+def _launch(values: torch.Tensor, fill: int, with_indices: bool):
+    global LAUNCHES
+    dev = values.device
+    if not values.is_contiguous():
+        raise ValueError("filter values must be contiguous")
+    n = values.shape[0]
+    out = torch.empty(n, dtype=torch.uint32, device=dev)
+    sel = torch.empty(n, dtype=torch.uint32, device=dev) if with_indices else None
+    offs = torch.empty(max(1, -(-n // TILE)), dtype=torch.uint32, device=dev)
+    count = torch.empty((), dtype=torch.uint32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _kernels.library().dpu_filter_u32(
+            values.data_ptr(), n, THRESHOLD, int(fill) & 0xFFFFFFFF,
+            out.data_ptr(), None if sel is None else sel.data_ptr(),
+            offs.data_ptr(), count.data_ptr(), _kernels.stream_handle(dev),
+        )
+    _kernels.check(rc, "filter_compact")
+    LAUNCHES += 1
+    return (out, count) if sel is None else (out, sel, count)
+
+
+def filter_compact(values: torch.Tensor, fill: int = 0):
+    """(padded_values, count) of the stable compaction of ``values < 2^30``.
+    CUDA tensors go to the kernel (on the current stream, without
+    synchronising), CPU tensors to ``filter_compact_ref``."""
+    dev = _check(values)
+    if dev.type == "cpu":
+        return filter_compact_ref(values, fill)
+    if dev.type != "cuda":
+        raise ValueError(f"filter_compact runs on cuda or cpu tensors, got {dev}")
+    return _launch(values, fill, with_indices=False)
+
+
+def filter_with_indices(values: torch.Tensor):
+    """(padded_values, padded_indices, count): filter_compact with fill 0,
+    plus the kept rows' numbers (tail n). CUDA tensors go to the kernel, CPU
+    tensors to ``filter_with_indices_ref``."""
+    dev = _check(values)
+    if dev.type == "cpu":
+        return filter_with_indices_ref(values)
+    if dev.type != "cuda":
+        raise ValueError(f"filter_with_indices runs on cuda or cpu tensors, got {dev}")
+    return _launch(values, 0, with_indices=True)

@@ -1,5 +1,7 @@
-"""Gather of a uint32 table at ascending positions (counterpart of
-``dpu_olap_tpu/ops/take_pallas.py:gather_sorted_pallas``).
+"""Gather of a uint32 table at ascending positions, and the sorted-stream
+take built on it (counterpart of ``dpu_olap_tpu/ops/take_pallas.py``:
+``gather_sorted_pallas``, ``takeable_sorted``, ``take_sorted`` and
+``take_sorted_stream``).
 
 ``gather_sorted`` launches ``csrc/gather.cu`` for CUDA tensors and runs the
 plain version ``gather_sorted_ref`` for CPU tensors; any other device raises.
@@ -8,6 +10,12 @@ The TPU kernel's slice and window geometry has no counterpart here: a
 per-thread gather cannot overflow, so the returned flag is always 0. It stays
 in the API so that the join's 5-tuple and its overflow check keep their
 shape.
+
+``take_sorted`` turns a random take into the sort kernel, this gather and a
+second sort (take_pallas.py:278-379): sort (clipped index, position), gather
+at the sorted indices, sort (position, value) back into query order.
+``take_sorted_stream`` skips the last sort and returns values in ascending
+index order with their positions.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from . import _kernels
+from .sort_cuda import MIN_LEN, sort_bitonic
 
 LAUNCHES = 0  # kernel launches by gather_sorted (the CPU path adds none)
 
@@ -63,3 +72,53 @@ def gather_sorted(data: torch.Tensor, sidx: torch.Tensor):
     _kernels.check(rc, "gather_sorted")
     LAUNCHES += 1
     return out, _no_overflow(dev)
+
+
+def takeable_sorted(n_data: int, n_idx: int) -> bool:
+    """Shape gate for take_sorted: a non-empty table whose clipped indices
+    stay below the 0xFFFFFFFF pad key, and at least one query."""
+    return 1 <= n_data < 1 << 32 and 1 <= n_idx <= 1 << 31
+
+
+def _stream_take(data: torch.Tensor, indices: torch.Tensor):
+    """Shared sort->gather core: (spos, val, flag, k) over the query stream
+    padded to npow. spos is a permutation of 0..npow-1 and the pads (key
+    0xFFFFFFFF, above every clipped real query) occupy the tail [k, npow).
+
+    The queries are padded here, with distinct positions k..npow-1, to the
+    exact length the sort kernel works on (a power of two, at least
+    sort_cuda.MIN_LEN), so the kernel pads nothing: anonymous pad payloads
+    could otherwise displace real positions through the restore sort (the
+    finding recorded at take_pallas.py:301-315)."""
+    if data.dim() != 1 or data.element_size() != 4 or indices.dim() != 1:
+        raise ValueError("take_sorted takes a 1-D column of 4-byte values and 1-D indices")
+    n, k = data.shape[0], indices.shape[0]
+    if not takeable_sorted(n, k):
+        raise ValueError(f"take_sorted cannot take {k} queries from {n} rows")
+    dev = data.device
+    npow = max(MIN_LEN, 1 << (k - 1).bit_length())
+    idxc = (indices.to(torch.int64) & 0xFFFFFFFF).clamp(max=n - 1).to(torch.uint32)
+    if npow != k:
+        pad = torch.full((npow - k,), 0xFFFFFFFF, dtype=torch.uint32, device=dev)
+        idxc = torch.cat([idxc, pad])
+    pos = torch.arange(npow, device=dev).to(torch.uint32)
+    sidx, spos = sort_bitonic((idxc, pos))
+    bits = data if data.dtype == torch.uint32 else data.view(torch.uint32)
+    val, flag = gather_sorted(bits.contiguous(), sidx)
+    return spos, val, flag, k
+
+
+def take_sorted(data: torch.Tensor, indices: torch.Tensor):
+    """(out, flag): out[i] = data[indices[i]] with clip semantics, through
+    sort -> gather -> sort. flag is the gather's overflow flag, always 0."""
+    spos, val, flag, k = _stream_take(data, indices)
+    out = sort_bitonic((spos, val))[1][:k]
+    return out.view(data.dtype), flag
+
+
+def take_sorted_stream(data: torch.Tensor, indices: torch.Tensor):
+    """Order-free take: (pos, val, flag) in ascending-index stream order,
+    val[j] = data[clip(indices[pos[j]])], both of length k. It skips the
+    restore sort, for consumers that aggregate, sort again or scatter."""
+    spos, val, flag, k = _stream_take(data, indices)
+    return spos[:k], val[:k].view(data.dtype), flag

@@ -181,7 +181,11 @@ def test_port_imports_no_jax():
         "import dpu_olap_tpu_torch.operators.join_op\n"
         "bad = [m for m in sys.modules if m == 'dpu_olap_tpu' or m.startswith('dpu_olap_tpu.')]\n"
         "assert not bad, bad\n"
-        "assert 'dpu_olap_tpu_torch.operators.join_op' in mods, mods\n"
+        "need = ['operators.join_op', 'operators.filter_op', 'operators.aggr_op',\n"
+        "        'operators.take_op', 'ops.filter', 'ops.filter_cuda', 'ops.aggregate',\n"
+        "        'ops.sum_cuda', 'ops.take', 'ops.take_cuda', 'parallel.streaming']\n"
+        "missing = [m for m in need if 'dpu_olap_tpu_torch.' + m not in mods]\n"
+        "assert not missing, missing\n"
         "print(len(mods))\n"
     )
     res = subprocess.run(
@@ -189,4 +193,4 @@ def test_port_imports_no_jax():
         timeout=120,
     )
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 12
+    assert int(res.stdout.split()[-1]) >= 21
