@@ -6,17 +6,25 @@ Run from the root of the repository on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from dpu_olap_tpu_torch/csrc, checks each kernel
-against its plain PyTorch version on the card (sort, gather, filter, sum),
-then drives each operator path through Prepare().Run() at the reference
-benchmark shapes, at SF=1 and SF=8, each with the kernels' launch counts set
-to 0 just before its run and read just after:
+against its plain PyTorch version on the card (sort, gather, filter, sum,
+forward fill, block merge), then drives each operator path through
+Prepare().Run() at the reference benchmark shapes, each with the kernels'
+launch counts set to 0 just before its run and read just after:
   * JoinGpu, the BM_JoinDpu dense-pk join (sort + gather kernels): SF=1
     against pyarrow, SF=8 against the dense truth;
+  * JoinGpu's fallbacks at SF=1, each against pyarrow: the sorted-build
+    join on TPC-H's sparse o_orderkey shape (sort + merge + fill kernels),
+    the fused keys31 join on BM_JoinDpu tables with a permuted build side
+    (sort + fill kernels) and the generic fused join on the same tables
+    with keys above 2^31 (fill kernel);
   * FilterGpu, BM_Filter (filter kernel): against pyarrow, chunk by chunk;
   * SumGpu, BM_Aggr and its small-batch shape (sum kernel): the exact
     integer against pyarrow;
   * TakeGpu, BM_Take (sort + gather kernels): against pyarrow, batch by
     batch.
+For each fallback it also splits the result's readback (copy, numpy mask,
+against masking on the card) and profiles one Run() (device busy time, idle
+share, the longest device events).
 It prints one line per phase, a JSON line with each kernel's numbers, the
 card's name and power limit, and last {"ok": true, "device": {...}}. With no
 CUDA device, outside the repository, or when any phase fails, it exits
@@ -40,6 +48,9 @@ REPS = 7  # timed runs per kernel measurement (median)
 RUN_REPS = 3  # timed Run() calls per operator path (median)
 FILTER_N = 64 << 20  # one filter round at SF=8 (1024 x 64Ki)
 SUM_N = 16 << 20  # one sum round at SF=8 (8 x 2Mi)
+FILL_N = 8 << 20  # the sorted-build join's merge length at TPC-H SF=1
+TPCH_ORDERS = 1_500_000  # TPC-H SF=1 orders rows (spec §4.2.5)
+JOIN_PHASES = ("host-prep", "h2d", "join-total", "gather-result")
 
 
 class SmokeFailure(Exception):
@@ -176,6 +187,49 @@ def phase_glue(rng) -> None:
     parts = host(aggregate.sum_f64_partials(on_card(f)))
     require(np.allclose(parts.sum(), f.astype(np.float64).sum(), rtol=1e-5), "f32 block partials")
     print("[glue] uint32 glue ops on the card agree with numpy", flush=True)
+
+
+def phase_join_entry_points(rng) -> None:
+    """The join entry points off JoinGpu's path (join_shard with the
+    cosort, sort and cuckoo probes; the fused join with valid masks) on
+    the card, against the same calls on the CPU."""
+    import torch
+
+    from dpu_olap_tpu_torch.ops import join
+
+    n_r, n_l = 1 << 16, 1 << 17
+    pk = rng.permutation(np.arange(2 * n_r, dtype=np.uint32))[:n_r]
+    fk = pk[rng.integers(0, n_r, n_l)]
+    fk[: n_l // 16] += np.uint32(2 * n_r)  # misses
+    x = rng.integers(0, 2**32, n_r, dtype=np.uint32)
+    x16 = rng.integers(0, 2**16, n_r, dtype=np.uint16)
+    y = rng.integers(0, 2**32, n_l, dtype=np.uint32)
+    lv, rv = rng.random(n_l) < 0.9, rng.random(n_r) < 0.9
+    cpu = [torch.from_numpy(a) for a in (fk, y, pk, x, x16, lv, rv)]
+    dev = [t.to("cuda") for t in cpu]
+
+    def run(t, impl):
+        return join.join_shard(t[0], (t[1],), t[2], (t[3], t[4]), left_valid=t[5],
+                               right_valid=t[6], impl=impl)
+
+    for impl in ("cosort", "sort", "cuckoo"):
+        got, ref = run(dev, impl), run(cpu, impl)
+        require(np.array_equal(host(got[3]), ref[3].numpy()), f"join_shard {impl}: found")
+        require(all(np.array_equal(host(g), r.numpy()) for g, r in zip(got[2], ref[2])),
+                f"join_shard {impl}: right columns")
+    for keys31 in (False, True):
+        got = join.join_shard_fused(dev[0], (dev[1],), dev[2], (dev[3],), left_valid=dev[5],
+                                    right_valid=dev[6], keys31=keys31)
+        ref = join.join_shard_fused(cpu[0], (cpu[1],), cpu[2], (cpu[3],), left_valid=cpu[5],
+                                    right_valid=cpu[6], keys31=keys31)
+        g = [host(got[0]), host(got[1][0]), host(got[2][0])]
+        r = [ref[0].numpy(), ref[1][0].numpy(), ref[2][0].numpy()]
+        require(np.array_equal(g[0], r[0]) and np.array_equal(host(got[3]), ref[3].numpy()),
+                f"join_shard_fused keys31={keys31}: keys or matched")
+        require(np.array_equal(canon(g), canon(r)), f"join_shard_fused keys31={keys31}: rows")
+    torch.cuda.synchronize()
+    print(f"[join entry points] join_shard (cosort, sort, cuckoo) and join_shard_fused with"
+          f" valid masks, {n_l} x {n_r} rows: card == CPU", flush=True)
 
 
 def phase_sort_gather(rng, card: str) -> dict:
@@ -337,24 +391,159 @@ def phase_sum_kernel(rng, card: str) -> tuple:
     return err, ms, plain_ms
 
 
-def run_path(label: str, make_op, counters: dict, phases, card: str, rows: int):
-    """Drive one operator path once with its launch counts set to 0 just
-    before Run() and read just after; then time RUN_REPS fresh runs.
-    Returns (output, launches)."""
+def phase_fill_kernels(rng, card: str) -> dict:
+    """propagate_fill and propagate_last kernels == plain, bit for bit on
+    every lane, on the card; timed at 8Mi. Returns the measurements and the
+    propagate_last launches of this phase."""
     import torch
 
+    from dpu_olap_tpu_torch.ops import scan_cuda
+
+    def check(name, alive, pays):
+        n = len(alive)
+        key = np.where(alive, rng.integers(0, 2**31, n, dtype=np.uint32), np.uint32(0xFFFFFFFF))
+        planes = (on_card(key), *(on_card(p) for p in pays))
+        got = [host(t) for t in scan_cuda.propagate_fill(planes)]
+        ref = [host(t) for t in scan_cuda.propagate_fill_ref(planes)]
+        src = np.maximum.accumulate(np.where(alive, np.arange(n), -1))
+        has = src >= 0
+        require(np.array_equal(ref[0][has], key[src[has]]) and np.all(ref[0][~has] == 0xFFFFFFFF),
+                f"plain fill {name}")
+        require(all(np.array_equal(g, r) for g, r in zip(got, ref)), f"fill kernel != plain: {name}")
+        before = scan_cuda.LAUNCHES
+        ta = on_card(alive)
+        gh, go = scan_cuda.propagate_last(ta, planes[1:])
+        rh, ro = scan_cuda.propagate_last_ref(ta, planes[1:])
+        counts["last"] += scan_cuda.LAUNCHES - before
+        require(np.array_equal(host(rh), has), f"plain propagate_last has {name}")
+        require(np.array_equal(host(gh), host(rh)) and all(
+            np.array_equal(host(g), host(r)) for g, r in zip(go, ro)),
+            f"propagate_last kernel != plain: {name}")
+        err[0] = max(err[0], *(max_err(g, r) for g, r in zip(got, ref)))
+        err[1] = max(err[1], *(max_err(host(g), host(r)) for g, r in zip(go, ro)))
+        print(f"[fill] {name} (n={n}, live {int(alive.sum())}): fill and last kernels == plain",
+              flush=True)
+
+    counts, err = {"last": 0}, [0, 0]
+    for n in (FILL_N, 3 * (1 << 20) + 17, 1, 4097):
+        for density in (0.0, 0.002, 0.5, 1.0):
+            pays = [rng.integers(0, 2**32, n, dtype=np.uint32)]
+            check(f"density {density}", rng.random(n) < density, pays)
+    # one live element just before a 4096-boundary carried across every
+    # later tile, and payloads with the top bit set
+    for pos in (4094, 4095, 4096, FILL_N - 4097):
+        alive = np.zeros(FILL_N, bool)
+        alive[pos] = True
+        pays = [rng.integers(0x80000000, 2**32, FILL_N, dtype=np.uint32) for _ in range(2)]
+        check(f"single live at {pos}", alive, pays)
+    alive = rng.random(FILL_N) < 0.18  # the TPC-H merge's share of pk rows
+    key = np.where(alive, rng.integers(0, 2**31, FILL_N, dtype=np.uint32), np.uint32(0xFFFFFFFF))
+    planes = (on_card(key), on_card(rng.integers(0, 2**32, FILL_N, dtype=np.uint32)))
+    ta = on_card(alive)
+    torch.cuda.synchronize()
+    fill_ms = cuda_ms(lambda: scan_cuda.propagate_fill(planes))
+    fill_plain = cuda_ms(lambda: scan_cuda.propagate_fill_ref(planes))
+    last_ms = cuda_ms(lambda: scan_cuda.propagate_last(ta, planes[1:]))
+    last_plain = cuda_ms(lambda: scan_cuda.propagate_last_ref(ta, planes[1:]))
+    print(
+        f"[fill] n={FILL_N} key + 1 payload: propagate_fill kernel {fill_ms:.4f} ms, plain"
+        f" {fill_plain:.4f} ms; propagate_last kernel {last_ms:.4f} ms, plain {last_plain:.4f} ms"
+        f" (median of {REPS}, CUDA events) [{card}]",
+        flush=True,
+    )
+    return {
+        "propagate_fill": (err[0], fill_ms, fill_plain),
+        "propagate_last": (err[1], last_ms, last_plain),
+        "last_launches": counts["last"],
+    }
+
+
+def _bitonic_planes(rng, n: int, block: int, hi: int, n_pay: int):
+    """Planes whose every block is an ascending run then a descending one."""
+    key = rng.integers(0, hi, n, dtype=np.uint32).reshape(-1, 2, block // 2)
+    key.sort(axis=2)
+    key[:, 1] = key[:, 1, ::-1]
+    return [key.reshape(n), *(rng.integers(0, 2**32, n, dtype=np.uint32) for _ in range(n_pay))]
+
+
+def phase_merge_kernels(rng, card: str) -> tuple:
+    """bitonic_merge_blocks kernel == plain, bit for bit (ties included), on
+    the card; bitonic_merge at the sorted-build join's 8Mi; timed."""
+    from dpu_olap_tpu_torch.ops import bitonic_cuda, merge, sort_cuda
+
+    err = 0
+    for block_rows in (bitonic_cuda.DEF_R, 32, 1):
+        block = block_rows * 128
+        planes = [on_card(p) for p in _bitonic_planes(rng, FILL_N, block, 16, 1)]
+        got = [host(t) for t in bitonic_cuda.bitonic_merge_blocks(planes, block_rows)]
+        ref = [host(t) for t in bitonic_cuda.bitonic_merge_blocks_ref(planes, block_rows)]
+        k = ref[0].reshape(-1, block)
+        require(np.all(k[:, 1:] >= k[:, :-1]), f"plain merge blocks of {block}: not sorted")
+        require(all(np.array_equal(g, r) for g, r in zip(got, ref)),
+                f"merge_blocks kernel != plain: block {block}")
+        err = max(err, *(max_err(g, r) for g, r in zip(got, ref)))
+        print(f"[merge] bitonic_merge_blocks n={FILL_N} block={block} keys < 16:"
+              " kernel == plain", flush=True)
+    timed = None
+    for n_pay in (1, 3):
+        host_planes = _bitonic_planes(rng, FILL_N, FILL_N, 2**31, n_pay)
+        planes = [on_card(p) for p in host_planes]
+        got = [host(t) for t in merge.bitonic_merge(planes)]
+        ref = [host(t) for t in bitonic_cuda.bitonic_merge_blocks_ref(planes, FILL_N // 128)]
+        require(np.array_equal(ref[0], np.sort(host_planes[0])), "plain bitonic_merge keys")
+        require(all(np.array_equal(g, r) for g, r in zip(got, ref)),
+                f"bitonic_merge kernel != plain: {n_pay} payloads")
+        err = max(err, *(max_err(g, r) for g, r in zip(got, ref)))
+        print(f"[merge] bitonic_merge n={FILL_N} payloads={n_pay}: kernel == plain", flush=True)
+        if n_pay == 1:
+            timed = planes
+    # below one 128-element block the ported sort finishes the merge
+    host_planes = _bitonic_planes(rng, 64, 64, 16, 2)
+    planes = [on_card(p) for p in host_planes]
+    before = sort_cuda.LAUNCHES
+    got = [host(t) for t in merge.bitonic_merge(planes)]
+    ref = [host(t) for t in sort_cuda.sort_bitonic_ref(planes)]
+    require(sort_cuda.LAUNCHES == before + 1, "bitonic_merge n=64 did not launch the sort kernel")
+    require(np.array_equal(got[0], np.sort(host_planes[0])) and np.array_equal(canon(got), canon(ref)),
+            "bitonic_merge n=64 (sort kernel) != plain")
+    print("[merge] bitonic_merge n=64 payloads=2: sort kernel == plain", flush=True)
+    ms = cuda_ms(lambda: merge.bitonic_merge(timed))
+    plain_ms = cuda_ms(lambda: bitonic_cuda.bitonic_merge_blocks_ref(timed, FILL_N // 128))
+    blocks = [on_card(p) for p in _bitonic_planes(rng, FILL_N, 1 << 16, 16, 1)]
+    blk_ms = cuda_ms(lambda: bitonic_cuda.bitonic_merge_blocks(blocks))
+    blk_plain = cuda_ms(lambda: bitonic_cuda.bitonic_merge_blocks_ref(blocks))
+    print(
+        f"[merge] n={FILL_N} 1 payload: bitonic_merge kernel {ms:.4f} ms, plain {plain_ms:.4f} ms;"
+        f" bitonic_merge_blocks (64Ki blocks) kernel {blk_ms:.4f} ms, plain {blk_plain:.4f} ms"
+        f" (median of {REPS}, CUDA events) [{card}]",
+        flush=True,
+    )
+    return err, ms, plain_ms
+
+
+def run_path(label: str, make_op, counters: dict, phases, card: str, rows: int,
+             absent: dict | None = None):
+    """Drive one operator path once with its launch counts set to 0 just
+    before Run() and read just after (each of ``counters`` must launch, none
+    of ``absent``); then time RUN_REPS fresh runs. Returns (output,
+    launches)."""
+    import torch
+
+    absent = absent or {}
     op = make_op().Prepare()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for mod in counters.values():
+    for mod in (*counters.values(), *absent.values()):
         mod.LAUNCHES = 0
     out = op.Run()
     launches = {name: mod.LAUNCHES for name, mod in counters.items()}
+    stray = {name: mod.LAUNCHES for name, mod in absent.items() if mod.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     require(
         all(v > 0 for v in launches.values()),
         f"{label}: the path did not launch every kernel: {launches}",
     )
+    require(not stray, f"{label}: the path launched kernels of another path: {stray}")
     secs, ph = [], {}
     for _ in range(RUN_REPS):
         op_t = make_op().Prepare()
@@ -374,12 +563,73 @@ def run_path(label: str, make_op, counters: dict, phases, card: str, rows: int):
     return out, launches
 
 
+def host_ms(fn) -> float:
+    """Median host-clock time of fn over RUN_REPS runs, the card synchronised
+    before each start and after each end."""
+    import torch
+
+    times = []
+    for _ in range(RUN_REPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def profile_run(label: str, op, card: str) -> None:
+    """One Run() of a prepared operator under torch.profiler: its wall time,
+    the card's busy time (the union of its kernel and copy intervals), the
+    idle share, and the device events that took longest in all."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        op.Run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    require(bool(spans), f"profile {label}: no device events")
+    busy_us, end, per = 0.0, float("-inf"), {}
+    for s, e, name in spans:
+        busy_us += max(0.0, e - max(s, end))
+        end = max(end, e)
+        per[name] = per.get(name, 0.0) + (e - s) / 1e3
+    busy = busy_us / 1e3
+    top = "; ".join(f"{n[:60]} {v:.4f}" for n, v in sorted(per.items(), key=lambda kv: -kv[1])[:8])
+    print(f"[profile {label}] wall {wall_ms:.3f} ms, device busy {busy:.4f} ms, idle share"
+          f" {1 - busy / wall_ms:.4f}; device ms: {top} [{card}]", flush=True)
+
+
+def result_split(label: str, res, card: str) -> None:
+    """gather-result's parts on a join's padded device result: the copy of
+    every column to the host, the numpy mask there, against masking on the
+    card and copying only the matched rows."""
+    import torch
+
+    fk, lcols, rcols, matched = res
+    cols = (fk, *lcols, *rcols)
+    d2h = host_ms(lambda: [host(c) for c in (matched, *cols)])
+    m, hcols = host(matched), [host(c) for c in cols]
+    mask = host_ms(lambda: [c[m] for c in hcols])
+    dev = host_ms(lambda: [host(c.view(torch.int32)[matched]) for c in cols])
+    print(f"[split {label}] {len(cols)} columns of {len(m)} rows, {int(m.sum())} matched:"
+          f" D2H {d2h:.3f} ms + numpy mask {mask:.3f} ms, against mask on the card + copy of"
+          f" the matched rows {dev:.3f} ms (median of {RUN_REPS}, host clock) [{card}]",
+          flush=True)
+
+
 def phase_join(sf: int, card: str) -> dict:
     import torch
 
     from dpu_olap_tpu_torch.generator import make_join_tables
     from dpu_olap_tpu_torch.operators.join_op import JoinGpu, JoinNative
-    from dpu_olap_tpu_torch.ops import merge, sort_cuda, take_cuda
+    from dpu_olap_tpu_torch.ops import bitonic_cuda, merge, scan_cuda, sort_cuda, take_cuda
     from dpu_olap_tpu_torch.parallel.mesh import DeviceSet
 
     left, right = make_join_tables(sf, SF1_ROWS, SF1_ROWS, seed=SEED)
@@ -387,8 +637,8 @@ def phase_join(sf: int, card: str) -> dict:
     require(JoinGpu(ds, left, right).Prepare().pk_dense, "generator pk not detected dense")
     out, launches = run_path(
         f"join SF={sf}", lambda: JoinGpu(ds, left, right),
-        {"sort": sort_cuda, "gather": take_cuda},
-        ("host-prep", "h2d", "join-total", "gather-result"), card, left.num_rows,
+        {"sort": sort_cuda, "gather": take_cuda}, JOIN_PHASES, card, left.num_rows,
+        absent={"merge": bitonic_cuda, "fill": scan_cuda},
     )
     lc, rc = left.concat(), right.concat()
     if sf == 1:
@@ -425,6 +675,91 @@ def phase_join(sf: int, card: str) -> dict:
         flush=True,
     )
     return launches
+
+
+def _tpch_sf1_tables():
+    """TPC-H SF=1 key shape from seed 42: orders (o_orderkey: the first 8 of
+    every 32 key values, spec §4.2.3; x) and lineitem (1-7 rows per order,
+    l_orderkey; y), each one batch."""
+    from dpu_olap_tpu_torch.columnar import Batch, Table
+
+    rng = np.random.default_rng(SEED)
+    i = np.arange(TPCH_ORDERS, dtype=np.uint32)
+    okey = (i // 8) * 32 + i % 8 + 1
+    per = rng.integers(1, 8, TPCH_ORDERS)
+    lkey = np.repeat(okey, per)
+    left = Table([Batch.from_numpy({
+        "fk": lkey, "y": rng.integers(0, 2**32, len(lkey), dtype=np.uint32)})])
+    right = Table([Batch.from_numpy({
+        "pk": okey, "x": rng.integers(0, 2**32, TPCH_ORDERS, dtype=np.uint32)})])
+    return left, right
+
+
+def _permuted_join_tables(top: int):
+    """BM_JoinDpu SF=1 tables with the build side's rows permuted (seed 42),
+    as a hash-partitioned build side arrives; keys offset by ``top``."""
+    from dpu_olap_tpu_torch.columnar import Batch, Table
+    from dpu_olap_tpu_torch.generator import make_join_tables
+
+    left, right = make_join_tables(1, SF1_ROWS, SF1_ROWS, seed=SEED)
+    lb, rb = left.concat(), right.concat()
+    perm = np.random.default_rng(SEED).permutation(rb.num_rows)
+    off = np.uint32(top)
+    left = Table([Batch.from_numpy({"fk": lb["fk"] + off, "y": lb["y"]})])
+    right = Table([Batch.from_numpy({"pk": rb["pk"][perm] + off, "x": rb["x"][perm]})])
+    return left, right
+
+
+def phase_join_fallbacks(card: str) -> dict:
+    """JoinGpu on a pk that is not dense: each fallback path once with its
+    launch counts zeroed around Run(), against pyarrow."""
+    import torch
+
+    from dpu_olap_tpu_torch.operators.join_op import JoinGpu, JoinNative
+    from dpu_olap_tpu_torch.ops import bitonic_cuda, join, scan_cuda, sort_cuda, take_cuda
+    from dpu_olap_tpu_torch.parallel.mesh import DeviceSet
+
+    ds = DeviceSet.allocate(1)
+    paths = [
+        ("sorted-build TPC-H SF=1", _tpch_sf1_tables(), (True, True),
+         {"sort": sort_cuda, "merge": bitonic_cuda, "fill": scan_cuda}, {"gather": take_cuda}),
+        ("fused keys31 SF=1", _permuted_join_tables(0), (True, False),
+         {"sort": sort_cuda, "fill": scan_cuda}, {"gather": take_cuda, "merge": bitonic_cuda}),
+        ("fused generic SF=1", _permuted_join_tables(0x80000000), (False, False),
+         {"fill": scan_cuda}, {"gather": take_cuda, "merge": bitonic_cuda}),
+    ]
+    total = {"sort": 0, "merge": 0, "fill": 0}
+    for label, (left, right), flags, counters, absent in paths:
+        op = JoinGpu(ds, left, right).Prepare()
+        require((op.keys31, op.pk_sorted, op.pk_dense) == (*flags, False),
+                f"{label}: structure flags {(op.keys31, op.pk_sorted, op.pk_dense)}")
+        out, launches = run_path(
+            f"join {label}", lambda: JoinGpu(ds, left, right), counters, JOIN_PHASES, card,
+            left.num_rows, absent=absent,
+        )
+        for name, n in launches.items():
+            total[name] += n
+        nat = JoinNative(left, right).Prepare().Run()
+        cols = ("fk", "y", "x")
+        require(len(out["fk"]) == nat.num_rows, f"{label}: row count differs from pyarrow")
+        require(
+            np.array_equal(canon([out[c] for c in cols]), canon([nat[c].to_numpy() for c in cols])),
+            f"{label}: JoinGpu != JoinNative",
+        )
+        lc, rc = left.concat(), right.concat()
+        args = (on_card(lc["fk"]), (on_card(lc["y"]),), on_card(rc["pk"]), (on_card(rc["x"]),))
+        torch.cuda.synchronize()
+        dev_ms = cuda_ms(lambda: join.join_shard_auto(*args, keys31=flags[0], pk_sorted=flags[1]))
+        rows = len(out["fk"])
+        print(
+            f"[join {label}] {left.num_rows} x {right.num_rows} rows -> {rows} rows == pyarrow;"
+            f" device join_shard_auto {dev_ms:.4f} ms = {left.num_rows / (dev_ms / 1e3):.1f}"
+            f" rows/s [{card}]",
+            flush=True,
+        )
+        result_split(label, join.join_shard_auto(*args, keys31=flags[0], pk_sorted=flags[1]), card)
+        profile_run(f"join {label}", JoinGpu(ds, left, right).Prepare(), card)
+    return total
 
 
 def phase_filter(sf: int, card: str) -> dict:
@@ -533,15 +868,23 @@ def main() -> dict:
     phase_build()
     rng = np.random.default_rng(SEED)
     phase_glue(rng)
+    phase_join_entry_points(rng)
     measured = phase_sort_gather(rng, card)
     measured["filter_compact"] = phase_filter_kernel(rng, card)
     measured["sum_u64_pair"] = phase_sum_kernel(rng, card)
+    fills = phase_fill_kernels(rng, card)
+    measured["propagate_fill"] = fills["propagate_fill"]
+    measured["propagate_last"] = fills["propagate_last"]
+    measured["bitonic_merge_blocks"] = phase_merge_kernels(rng, card)
 
-    launches = {"sort": 0, "gather": 0, "filter": 0, "sum": 0}
+    launches = {"sort": 0, "gather": 0, "filter": 0, "sum": 0, "merge": 0, "fill": 0}
     for sf in (1, SF8):
         for phase in (phase_join, phase_filter, phase_sum, phase_take):
             for name, n in phase(sf, card).items():
                 launches[name] += n
+    for name, n in phase_join_fallbacks(card).items():
+        launches[name] += n
+    launches["last"] = fills["last_launches"]  # propagate_last is on no operator path
 
     sources = {
         "sort_bitonic": ("sort", "sort.cu", "dpu_olap_tpu/ops/sort_pallas.py:385", [
@@ -556,6 +899,9 @@ def main() -> dict:
             "dpu_olap_tpu/ops/filter_pallas.py:448",
         ]),
         "sum_u64_pair": ("sum", "sum.cu", "dpu_olap_tpu/ops/aggregate.py:113", None),
+        "propagate_fill": ("fill", "scan.cu", "dpu_olap_tpu/ops/scan_pallas.py:178", None),
+        "propagate_last": ("last", "scan.cu", "dpu_olap_tpu/ops/scan_pallas.py:222", None),
+        "bitonic_merge_blocks": ("merge", "sort.cu", "dpu_olap_tpu/ops/bitonic_pallas.py:91", None),
     }
     kernels = []
     for name, (counter, src, replaces, also) in sources.items():

@@ -11,6 +11,20 @@
 //   tile_merge_kernel   <- bitonic_cascade_blocks (_cascade_kernel): the
 //                          stages d < TILE that finish a merge round.
 //
+// The same two network kernels, with every direction ascending, make
+// dpu_merge_blocks_u32, the counterpart of
+// dpu_olap_tpu/ops/bitonic_pallas.py:bitonic_merge_blocks
+// (_merge_block_kernel): the in-block half-cleaner cascade d = block/2 .. 1
+// on each block of a sequence whose blocks are bitonic. The TPU kernel keeps
+// one 64Ki block in VMEM and runs all 16 stages there with sublane and lane
+// rolls; a Hopper block holds 4096 elements in shared memory, so the stages
+// d >= TILE run three to a pass as global_steps_kernel and the rest as one
+// tile_merge_kernel pass (from d = min(block, TILE) / 2). A compare-exchange
+// swaps only when the lower slot's key is greater, so each slot keeps its own
+// pair on a tie, as the TPU kernel's selects do (bitonic_pallas.py:71-72).
+// At 8Mi elements and a 64Ki block: one copy, two global passes and one
+// tile pass over (1 + payloads) planes.
+//
 // Contract (sort_pallas.py:385-471): ascending unsigned order of the key,
 // payloads move with their key, unstable. The host pads the length to a
 // power of two npow >= max(n, MIN_LEN); rows >= n read as key and payload
@@ -241,17 +255,18 @@ global_steps_kernel(uint32_t* __restrict__ key, Payloads pay, long long groups,
     for (int m = 0; m < M; ++m) pay.p[q][base + m * low_d] = pv[q][m];
 }
 
-// Stages d = TILE/2 .. 1 of merge round k > TILE, in place, one tile per
-// block; the whole tile shares one direction. Stages d >= 32 run in shared
-// memory, the rest in registers; each payload plane is then permuted once
-// through shared memory.
+// Stages d = d0 .. 1 (d0 < tile <= TILE) of merge round k, in place, one
+// tile per block of tile / E threads; the whole tile shares one direction
+// (k = 0: ascending). Stages d >= 32 run in shared memory, the rest in
+// registers; each payload plane is then permuted once through shared memory.
 template <int NPAY>
 __global__ void __launch_bounds__(TILE / E)
-tile_merge_kernel(uint32_t* __restrict__ key_g, Payloads pay, long long k) {
+tile_merge_kernel(uint32_t* __restrict__ key_g, Payloads pay, long long k, int tile,
+                  int d0) {
   __shared__ uint32_t key[TILE];
   __shared__ uint16_t pos[TILE];
   __shared__ uint32_t tmp[TILE];
-  const long long base = (long long)blockIdx.x * TILE;
+  const long long base = (long long)blockIdx.x * tile;
 #pragma unroll
   for (int r = 0; r < E; ++r) {
     const int t = threadIdx.x + r * blockDim.x;
@@ -259,7 +274,7 @@ tile_merge_kernel(uint32_t* __restrict__ key_g, Payloads pay, long long k) {
     pos[t] = (uint16_t)t;
   }
   __syncthreads();
-  const int d = smem_stages(key, pos, TILE, TILE / 2, base, k);
+  const int d = smem_stages(key, pos, tile, d0, base, k);
   uint32_t kv[E];
   uint16_t pv[E];
 #pragma unroll
@@ -325,11 +340,31 @@ cudaError_t run_sort(const uint32_t* in_key, ConstPayloads in_pay, uint32_t* key
       if (err != cudaSuccess) return err;
       d = low_d >> 1;
     }
-    tile_merge_kernel<NPAY><<<(unsigned)(npow / TILE), TILE / E, 0, s>>>(key, pay, k);
+    tile_merge_kernel<NPAY><<<(unsigned)(npow / TILE), TILE / E, 0, s>>>(key, pay, k, TILE,
+                                                                         TILE / 2);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+// Stages d = block/2 .. 1, ascending, on each block of n elements in place.
+template <int NPAY>
+cudaError_t run_merge_blocks(uint32_t* key, Payloads pay, long long n, long long block,
+                             cudaStream_t s) {
+  long long d = block >> 1;
+  while (d >= TILE) {
+    int stages = 1;
+    while (stages < MAX_FUSED && (d >> stages) >= TILE) ++stages;
+    const long long low_d = d >> (stages - 1);
+    const cudaError_t err = launch_global_steps<NPAY>(stages, key, pay, n, 0, low_d, s);
+    if (err != cudaSuccess) return err;
+    d = low_d >> 1;
+  }
+  const int tile = block < TILE ? (int)block : TILE;
+  tile_merge_kernel<NPAY><<<(unsigned)(n / tile), tile / E, 0, s>>>(key, pay, 0, tile,
+                                                                    tile / 2);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -365,6 +400,44 @@ extern "C" int dpu_sort_u32(void* const* in_planes, void* const* out_planes,
     case 6: err = run_sort<6>(in_key, in_pay, key, pay, n, npow, s); break;
     case 7: err = run_sort<7>(in_key, in_pay, key, pay, n, npow, s); break;
     default: err = run_sort<8>(in_key, in_pay, key, pay, n, npow, s); break;
+  }
+  return (int)err;
+}
+
+// Runs the ascending half-cleaner cascade d = block/2 .. 1 on each block of
+// the planes (planes[0] the key, planes[1:] following it), from in_planes
+// into out_planes (host arrays of n_planes device pointers, length n). block
+// is a power of two >= MIN_LEN and divides n; each block of the input must
+// be bitonic for the output blocks to come out sorted. in and out may be the
+// same planes. Launches on `stream` and does not synchronise. Returns 0 or
+// the first CUDA error.
+extern "C" int dpu_merge_blocks_u32(void* const* in_planes, void* const* out_planes,
+                                    int n_planes, long long n, long long block,
+                                    void* stream) {
+  if (n_planes < 1 || n_planes > 1 + MAX_PAYLOADS || block < MIN_LEN ||
+      (block & (block - 1)) != 0 || n < block || n % block != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  for (int q = 0; q < n_planes; ++q) {
+    if (in_planes[q] == out_planes[q]) continue;
+    const cudaError_t err = cudaMemcpyAsync(out_planes[q], in_planes[q], n * sizeof(uint32_t),
+                                            cudaMemcpyDeviceToDevice, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  Payloads pay{};
+  for (int q = 0; q < n_planes - 1; ++q) pay.p[q] = static_cast<uint32_t*>(out_planes[1 + q]);
+  uint32_t* key = static_cast<uint32_t*>(out_planes[0]);
+  cudaError_t err;
+  switch (n_planes - 1) {
+    case 0: err = run_merge_blocks<0>(key, pay, n, block, s); break;
+    case 1: err = run_merge_blocks<1>(key, pay, n, block, s); break;
+    case 2: err = run_merge_blocks<2>(key, pay, n, block, s); break;
+    case 3: err = run_merge_blocks<3>(key, pay, n, block, s); break;
+    case 4: err = run_merge_blocks<4>(key, pay, n, block, s); break;
+    case 5: err = run_merge_blocks<5>(key, pay, n, block, s); break;
+    case 6: err = run_merge_blocks<6>(key, pay, n, block, s); break;
+    case 7: err = run_merge_blocks<7>(key, pay, n, block, s); break;
+    default: err = run_merge_blocks<8>(key, pay, n, block, s); break;
   }
   return (int)err;
 }

@@ -2,12 +2,14 @@
 
 JoinGpu — the counterpart of JoinTpu, the reference's JoinDpu
 (host/join/join_dpu.cc): an inner PK/FK join of left (fk, y...) with right
-(pk, x...). This slice ports the single-device dense-pk path: Prepare()
-detects the workload structure on the host, Run() uploads both tables and
-runs ops/merge.join_shard_dense (sort kernel + gather kernel) on the device.
-A pk that is not dense, or more than one device, raises NotImplementedError:
-the sorted-build/fused joins (ROADMAP §1 item 5) and the shuffle join
-(ROADMAP §1 item 10) are not ported yet.
+(pk, x...). This slice ports the single-device path: Prepare() detects the
+workload structure on the host, Run() uploads both tables and runs, on the
+device, ops/merge.join_shard_dense (sort + gather kernels) for a dense pk,
+or else ops/join.join_shard_auto: the sorted-build join (sort, bitonic
+merge and fill kernels) for a sorted pk with 31-bit keys, the fused co-sort
+join (sort and fill kernels, or a stable sort and the fill kernel for keys
+>= 2^31 - 1) otherwise. More than one device raises NotImplementedError:
+the shuffle join is ROADMAP §1 item 10.
 
 JoinNative — pyarrow hash join (host/join/join_native.cc:31-40 oracle).
 """
@@ -152,31 +154,37 @@ class JoinGpu:
     # ---- single-device direct path ----------------------------------------
 
     def _run_single(self) -> Dict[str, np.ndarray]:
-        """One device: the dense-pk join, with the host-detected flags."""
+        """One device: the dense-pk join where it applies, else
+        join_shard_auto with the host-detected flags."""
+        from ..ops.join import join_shard_auto
         from ..ops.merge import join_dense_eligible, join_shard_dense
 
-        if not (
-            self.pk_dense
-            and join_dense_eligible(self.left.num_rows, self.right.num_rows)
-        ):
-            raise NotImplementedError(
-                "JoinGpu runs only the dense-pk join so far; the sorted-build "
-                "and fused joins for this input are ROADMAP §1 item 5"
-            )
+        dense = self.pk_dense and join_dense_eligible(
+            self.left.num_rows, self.right.num_rows
+        )
         with timed(self.timers, "host-prep"):
             lf = self.left.concat()
             rt = self.right.concat()
             host = [_host_u32(lf[c]) for c in (self.fk, *self.left_cols)]
             host += [_host_u32(rt[c]) for c in (self.pk, *self.right_cols)]
-        log(f"join dense: {lf.num_rows} x {rt.num_rows} rows on {self.ds.device}")
+        log(
+            f"join {'dense' if dense else 'auto'} (keys31={self.keys31}, "
+            f"pk_sorted={self.pk_sorted}): {lf.num_rows} x {rt.num_rows} rows "
+            f"on {self.ds.device}"
+        )
         with timed(self.timers, "h2d"):
             cols = [self.ds.scatter(a) for a in host]
         n_l = 1 + len(self.left_cols)
         args = (cols[0], tuple(cols[1:n_l]), cols[n_l], tuple(cols[n_l + 1:]))
         with timed(self.timers, "join-total"):
-            fk, lcols, rcols, matched, ovf = join_shard_dense(*args)
-            if int(ovf.item()) != 0:  # the per-thread gather cannot overflow
-                raise RuntimeError("join_shard_dense reported a gather overflow")
+            if dense:
+                fk, lcols, rcols, matched, ovf = join_shard_dense(*args)
+                if int(ovf.item()) != 0:  # the per-thread gather cannot overflow
+                    raise RuntimeError("join_shard_dense reported a gather overflow")
+            else:
+                fk, lcols, rcols, matched = join_shard_auto(
+                    *args, keys31=self.keys31, pk_sorted=self.pk_sorted
+                )
             m = DeviceSet.gather(matched)
         device_log("join matched rows", [int(m.sum())])
         with timed(self.timers, "gather-result"):

@@ -38,6 +38,12 @@ _SIGNATURES = {
     "dpu_filter_u32": [_P, _LL, ctypes.c_uint, ctypes.c_uint, _P, _P, _P, _P, _P],
     # (x, n, out_u64, stream)
     "dpu_sum_u32": [_P, _LL, _P, _P],
+    # (in_planes, out_planes, n_planes, n, sentinel, alive or NULL, has or NULL, scratch, stream)
+    "dpu_fill_u32": [
+        ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.c_int, _LL, ctypes.c_uint, _P, _P, _P, _P,
+    ],
+    # (in_planes, out_planes, n_planes, n, block, stream)
+    "dpu_merge_blocks_u32": [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.c_int, _LL, _LL, _P],
 }
 
 _lib: ctypes.CDLL | None = None

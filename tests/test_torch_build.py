@@ -44,7 +44,7 @@ def test_build_compiles_each_source_then_links(fake_nvcc):
     assert so == _kernels.library_path() and so.exists()
     calls = fake_nvcc.read_text().splitlines()
     srcs = [s.name for s in _kernels._sources()]
-    assert {"filter.cu", "gather.cu", "sort.cu", "sum.cu"} <= set(srcs)
+    assert {"filter.cu", "gather.cu", "scan.cu", "sort.cu", "sum.cu"} <= set(srcs)
     compiles = [c for c in calls if " -c " in c]
     assert sorted(c.split()[-1].rsplit("/", 1)[-1] for c in compiles) == sorted(srcs)
     (link,) = [c for c in calls if "-shared" in c]

@@ -183,7 +183,8 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "need = ['operators.join_op', 'operators.filter_op', 'operators.aggr_op',\n"
         "        'operators.take_op', 'ops.filter', 'ops.filter_cuda', 'ops.aggregate',\n"
-        "        'ops.sum_cuda', 'ops.take', 'ops.take_cuda', 'parallel.streaming']\n"
+        "        'ops.sum_cuda', 'ops.take', 'ops.take_cuda', 'parallel.streaming',\n"
+        "        'ops.scan_cuda', 'ops.bitonic_cuda', 'ops.join', 'ops.hashing', 'ops.hashtable']\n"
         "missing = [m for m in need if 'dpu_olap_tpu_torch.' + m not in mods]\n"
         "assert not missing, missing\n"
         "print(len(mods))\n"
@@ -193,4 +194,4 @@ def test_port_imports_no_jax():
         timeout=120,
     )
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 21
+    assert int(res.stdout.split()[-1]) >= 25

@@ -1,6 +1,7 @@
-"""Parity of the port's dense-pk join (dpu_olap_tpu_torch.ops.merge and
+"""Parity of the port's joins (dpu_olap_tpu_torch.ops.merge and
 operators.join_op) with the JAX package's join_shard_dense / JoinTpu and the
-pyarrow oracle, on the CPU. Integer data: exact comparison, rows after a
+pyarrow oracle, on the CPU: the dense-pk path and, for any other pk, the
+sorted-build and fused fallbacks. Integer data: exact comparison, rows after a
 canonical sort (both sorts are unstable on ties)."""
 
 import jax.numpy as jnp
@@ -12,7 +13,7 @@ from dpu_olap_tpu.generator import make_join_tables as jax_make_join_tables
 from dpu_olap_tpu.operators.join_op import JoinTpu
 from dpu_olap_tpu.ops.merge_xla import join_shard_dense as jax_join_shard_dense
 from dpu_olap_tpu.parallel.mesh import DeviceSet as JaxDeviceSet
-from dpu_olap_tpu_torch.columnar import Batch, Table
+from dpu_olap_tpu_torch.columnar import Table
 from dpu_olap_tpu_torch.generator import make_join_tables
 from dpu_olap_tpu_torch.operators.join_op import JoinGpu, JoinNative
 from dpu_olap_tpu_torch.ops.merge import join_dense_eligible, join_shard_dense
@@ -138,15 +139,87 @@ def test_join_gpu_wide_payloads_match_join_tpu():
     assert len(out["fk"]) < nb * bl  # some fks lie past the last pk
 
 
-def test_join_gpu_rejects_non_dense_pk():
-    pk = np.array([0, 1, 3, 4], np.uint32)  # sorted, not dense
-    left = Table([Batch.from_numpy({"fk": np.array([0, 1, 3, 4], np.uint32),
-                                    "y": np.arange(4, dtype=np.uint32)})])
-    right = Table([Batch.from_numpy({"pk": pk, "x": np.arange(4, dtype=np.uint32)})])
+def _fallback_tables(case, nb):
+    """(left, right) batches as numpy dicts for the non-dense pk paths."""
+    rng = np.random.default_rng(nb * 10 + len(case))
+    bl, br = (1, 1 << 9) if case == "one_row_left" else (1 << 10, 1 << 9)
+    cols_l, cols_r = [], []
+    for i in range(nb):
+        if case == "sorted_sparse":  # TPC-H o_orderkey: the first 8 of every 32
+            j = np.arange(br, dtype=np.uint32)
+            pk = (i * br // 8 + j // 8) * 32 + j % 8 + 1
+        elif case == "one_row_left":
+            pk = np.arange(i * br, (i + 1) * br, dtype=np.uint32)  # dense
+        else:
+            pk = rng.permutation(np.arange(i * 2 * br, (i + 1) * 2 * br, dtype=np.uint32))[:br]
+            if case.endswith("_sorted"):
+                pk = np.sort(pk)
+        if case.startswith("keys_top"):
+            pk = pk + np.uint32(0x80000000)
+        fk = pk[rng.integers(0, br, bl)]
+        fk[: bl // 8] += np.uint32(3)  # some miss, some hit another row
+        left = {"fk": fk, "y": rng.integers(0, 2**32, bl, dtype=np.uint32)}
+        right = {"pk": pk.astype(np.uint32), "x": rng.integers(0, 2**32, br, dtype=np.uint32)}
+        if case.startswith("wide"):
+            left["y64"] = rng.integers(0, 2**64, bl, dtype=np.uint64)
+            left["yf"] = rng.integers(0, 2**32, bl, dtype=np.uint32).view(np.float32)
+            right["xi"] = rng.integers(-(2**63), 2**63 - 1, br, dtype=np.int64)
+            right["xf"] = rng.integers(0, 2**64, br, dtype=np.uint64).view(np.float64)
+        cols_l.append(left)
+        cols_r.append(right)
+    return cols_l, cols_r
+
+
+def _bits(cols, names):
+    """Rows of bit patterns (NaN payloads are not == themselves)."""
+    return _canon([
+        np.asarray(cols[n]).view(np.uint64) if np.asarray(cols[n]).itemsize == 8
+        else np.asarray(cols[n]).view(np.uint32).astype(np.uint64)
+        for n in names
+    ])
+
+
+@pytest.mark.parametrize("case, nb, path", [
+    ("sorted_sparse", 1, "sorted-build"),
+    ("sorted_sparse", 3, "sorted-build"),
+    ("permuted", 1, "fused keys31"),
+    ("permuted", 3, "fused keys31"),
+    ("keys_top_permuted", 1, "fused generic"),
+    ("keys_top_permuted", 3, "fused generic"),
+    ("keys_top_sorted", 1, "fused generic"),
+    ("one_row_left", 1, "sorted-build"),
+    ("wide_sorted", 2, "sorted-build"),
+    ("wide_permuted", 1, "fused keys31"),
+    ("wide_permuted", 2, "fused keys31"),
+])
+def test_join_gpu_fallback_matches_join_tpu_and_native(case, nb, path):
+    from dpu_olap_tpu import columnar as jcol
+
+    cols_l, cols_r = _fallback_tables(case, nb)
+    jleft = jcol.Table([jcol.Batch.from_numpy(c) for c in cols_l])
+    jright = jcol.Table([jcol.Batch.from_numpy(c) for c in cols_r])
+    left, right = Table.from_reference(jleft), Table.from_reference(jright)
     op = JoinGpu(CPU_SET, left, right).Prepare()
-    assert op.pk_sorted and not op.pk_dense
-    with pytest.raises(NotImplementedError, match="item 5"):
-        op.Run()
+    jop = JoinTpu(JaxDeviceSet.allocate(1), jleft, jright).Prepare()
+    flags = (op.keys31, op.pk_sorted, op.pk_dense)
+    assert flags == (jop.keys31, jop.pk_sorted, jop.pk_dense)
+    assert flags == {
+        "sorted-build": (True, True, case == "one_row_left"),
+        "fused keys31": (True, False, False),
+        "fused generic": (False, case == "keys_top_sorted", False),
+    }[path]
+    out, jout = op.Run(), jop.Run()
+    names = list(cols_l[0]) + [c for c in cols_r[0] if c != "pk"]
+    assert list(out) == list(jout) == names
+    for n in names:
+        assert out[n].dtype == jout[n].dtype
+    np.testing.assert_array_equal(_bits(out, names), _bits(jout, names))
+    nat = JoinNative(left, right).Prepare().Run()
+    assert len(out["fk"]) == nat.num_rows > 0
+    np.testing.assert_array_equal(
+        _bits(out, names), _bits({n: nat[n].to_numpy() for n in names}, names)
+    )
+    assert op.Timers().sum_ns("join-total") > 0 and op.Timers().rank_count("h2d") == 1
 
 
 @pytest.mark.parametrize("rows, path", [(256, "shuffle"), (255, "partitioned")])
