@@ -7,9 +7,22 @@ Run from the root of the repository on a machine with one NVIDIA GPU:
 
 It builds the CUDA kernels from dpu_olap_tpu_torch/csrc, checks each kernel
 against its plain PyTorch version on the card (sort, gather, filter, sum,
-forward fill, block merge), then drives each operator path through
-Prepare().Run() at the reference benchmark shapes, each with the kernels'
-launch counts set to 0 just before its run and read just after:
+forward fill, block merge, radix partition, merge-probe), the partition,
+sort and fill kernels also at the SF=64 main path's shapes, and times each
+beside its bound and the one PyTorch call that computes the same function,
+then
+drives each operator path through Prepare().Run() at the reference benchmark
+shapes, each with the kernels' launch counts set to 0 just before its run
+and read just after:
+  * JoinGpu at BM_JoinDpu SF=64 (128Mi rows a side), above one round's
+    budget: the shuffle join in two resident rounds (partition, sort and
+    fill kernels), against the dense truth; at SF=8 its _run_ici(rounds=2)
+    against pyarrow, impl="sort" at SF=1 against pyarrow, and the
+    host-staged partitioned join at SF=8 against the dense truth;
+  * PartitionGpu on the SF=8 probe table into 16 partitions, both engines,
+    against a numpy oracle;
+  * the sorted-store hash table (sort + merge-probe kernels) on the
+    hashtable micro's 1Mi keys, against numpy;
   * JoinGpu, the BM_JoinDpu dense-pk join (sort + gather kernels): SF=1
     against pyarrow, SF=8 against the dense truth;
   * JoinGpu's fallbacks at SF=1, each against pyarrow: the sorted-build
@@ -50,7 +63,14 @@ FILTER_N = 64 << 20  # one filter round at SF=8 (1024 x 64Ki)
 SUM_N = 16 << 20  # one sum round at SF=8 (8 x 2Mi)
 FILL_N = 8 << 20  # the sorted-build join's merge length at TPC-H SF=1
 TPCH_ORDERS = 1_500_000  # TPC-H SF=1 orders rows (spec §4.2.5)
+SF64 = 64  # BM_JoinDpu above one round's budget: 128Mi rows a side
+PART_N = 16 << 20  # partition_kernel_p8 at SF=8 (run_benchmarks.py:257-288)
+PROBE_N = 2 << 20  # the merge-probe shape merge_pallas.py:49-51 was tuned at
+HT_N = 1 << 20  # the hashtable micro (run_benchmarks.py:177-227)
+MP_ROUNDS = 9  # interleaved timing rounds of merge-probe against searchsorted
 JOIN_PHASES = ("host-prep", "h2d", "join-total", "gather-result")
+PART_PHASES = ("partition", "build-probe-take", "gather-result")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 
 
 class SmokeFailure(Exception):
@@ -102,6 +122,49 @@ def host(t) -> np.ndarray:
 def canon(cols) -> np.ndarray:
     rows = np.stack([np.asarray(c) for c in cols])
     return rows[:, np.lexsort(rows[::-1])]
+
+
+def bound_ms(nbytes: int) -> float:
+    """The least time the card could take to move nbytes through HBM."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def library_ms(label: str, fn):
+    """cuda_ms of one PyTorch call that computes a kernel's function (a
+    yardstick; the port never calls it), or None where CUDA does not take
+    the call."""
+    import torch
+
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        print(f"[library] {label}: no time, the call raised: {e}", flush=True)
+        return None
+    return cuda_ms(fn)
+
+
+def kernel_row(err, ms, plain_ms, nbytes, lib_ms) -> dict:
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms(nbytes),
+            "bound_by": "bytes", "library_ms": lib_ms}
+
+
+def rand_u32(n: int, gen):
+    """n random uint32 values made on the card from the generator."""
+    import torch
+
+    return torch.randint(-2**31, 2**31, (n,), dtype=torch.int32, device="cuda",
+                         generator=gen).view(torch.uint32)
+
+
+def card_equal(got, ref) -> bool:
+    """Every pair of equal-shape tensors holds the same bits (compared on the
+    card: these are too large to copy back)."""
+    import torch
+
+    return len(got) == len(ref) and all(
+        g.shape == r.shape and torch.equal(g.view(torch.int32), r.view(torch.int32))
+        for g, r in zip(got, ref))
 
 
 def max_err(got, ref) -> int:
@@ -234,6 +297,8 @@ def phase_join_entry_points(rng) -> None:
 
 def phase_sort_gather(rng, card: str) -> dict:
     """Sort and gather kernels against their plain versions, on the card."""
+    import torch
+
     from dpu_olap_tpu_torch.ops import sort_cuda, take_cuda
 
     def sort_case(n: int, n_pay: int):
@@ -266,8 +331,14 @@ def phase_sort_gather(rng, card: str) -> dict:
     print("[sort] n=2, 1000, 5000 payloads=2: kernel == plain", flush=True)
     sort_ms = cuda_ms(lambda: sort_cuda.sort_bitonic(timed_planes))
     sort_plain_ms = cuda_ms(lambda: sort_cuda.sort_bitonic_ref(timed_planes))
+    # torch.sort of the key alone (its int32 view: the same 4-byte radix
+    # sort) is a lower bound: no one call sorts payloads along
+    key32 = timed_planes[0].view(torch.int32)
+    sort_lib = library_ms("torch.sort", lambda: torch.sort(key32))
+    sort_bytes = 2 * 2 * 4 * SF1_ROWS  # key + payload, read and written
     print(
-        f"[sort] n={SF1_ROWS} 1 payload: kernel {sort_ms:.4f} ms, plain {sort_plain_ms:.4f} ms"
+        f"[sort] n={SF1_ROWS} 1 payload: kernel {sort_ms:.4f} ms, plain {sort_plain_ms:.4f} ms,"
+        f" torch.sort of the key {sort_lib} ms, bound {bound_ms(sort_bytes):.4f} ms"
         f" (median of {REPS}, CUDA events) [{card}]",
         flush=True,
     )
@@ -284,14 +355,21 @@ def phase_sort_gather(rng, card: str) -> dict:
     require(np.array_equal(gv, rv) and gf.item() == 0, "gather kernel == plain")
     gather_ms = cuda_ms(lambda: take_cuda.gather_sorted(tdata, tsidx))
     gather_plain_ms = cuda_ms(lambda: take_cuda.gather_sorted_ref(tdata, tsidx))
+    # index_select needs in-range indices: the out-of-range tail clipped
+    idx = tsidx.to(torch.int64).clamp(max=n - 1).to(torch.int32)
+    data32 = tdata.view(torch.int32)
+    gather_lib = library_ms("torch.index_select", lambda: torch.index_select(data32, 0, idx))
+    gather_bytes = 3 * 4 * n  # table and positions read, values written
     print(
         f"[gather] {n} sorted queries into {n} rows: kernel == plain; kernel {gather_ms:.4f} ms,"
-        f" plain {gather_plain_ms:.4f} ms (median of {REPS}, CUDA events) [{card}]",
+        f" plain {gather_plain_ms:.4f} ms, torch.index_select {gather_lib} ms,"
+        f" bound {bound_ms(gather_bytes):.4f} ms (median of {REPS}, CUDA events) [{card}]",
         flush=True,
     )
     return {
-        "sort_bitonic": (sort_err, sort_ms, sort_plain_ms),
-        "gather_sorted": (max_err(gv, rv), gather_ms, gather_plain_ms),
+        "sort_bitonic": kernel_row(sort_err, sort_ms, sort_plain_ms, sort_bytes, sort_lib),
+        "gather_sorted": kernel_row(max_err(gv, rv), gather_ms, gather_plain_ms, gather_bytes,
+                                    gather_lib),
     }
 
 
@@ -312,7 +390,7 @@ def _filter_inputs(rng):
     return cases
 
 
-def phase_filter_kernel(rng, card: str) -> tuple:
+def phase_filter_kernel(rng, card: str) -> dict:
     """Filter kernel == plain, bit for bit, on the card; timed at 64Mi."""
     import torch
 
@@ -350,17 +428,24 @@ def phase_filter_kernel(rng, card: str) -> tuple:
     plain_ms = cuda_ms(lambda: filter_cuda.filter_compact_ref(timed))
     idx_ms = cuda_ms(lambda: filter_cuda.filter_with_indices(timed))
     idx_plain_ms = cuda_ms(lambda: filter_cuda.filter_with_indices_ref(timed))
+    t32 = timed.view(torch.int32)
+    lib = library_ms("torch.masked_select",
+                     lambda: torch.masked_select(t32, filter_cuda.below_threshold(timed)))
+    nbytes = 2 * 4 * FILTER_N  # values read, padded values written
     print(
-        f"[filter] n={FILTER_N}: filter_compact kernel {ms:.4f} ms, plain {plain_ms:.4f} ms;"
+        f"[filter] n={FILTER_N}: filter_compact kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+        f" predicate + torch.masked_select {lib} ms, bound {bound_ms(nbytes):.4f} ms;"
         f" filter_with_indices kernel {idx_ms:.4f} ms, plain {idx_plain_ms:.4f} ms"
         f" (median of {REPS}, CUDA events) [{card}]",
         flush=True,
     )
-    return err, ms, plain_ms
+    return kernel_row(err, ms, plain_ms, nbytes, lib)
 
 
-def phase_sum_kernel(rng, card: str) -> tuple:
+def phase_sum_kernel(rng, card: str) -> dict:
     """Sum kernel == plain, exactly, on the card; timed at 16Mi."""
+    import torch
+
     from dpu_olap_tpu_torch.ops import sum_cuda
     from dpu_olap_tpu_torch.ops.aggregate import u64_pair_to_int
 
@@ -383,12 +468,15 @@ def phase_sum_kernel(rng, card: str) -> tuple:
     t = cases[0][1]
     ms = cuda_ms(lambda: sum_cuda.sum_u64_pair(t))
     plain_ms = cuda_ms(lambda: sum_cuda.sum_u64_pair_ref(t))
+    lib = library_ms("uint32 sum(dtype=int64)", lambda: t.sum(dtype=torch.int64))
+    nbytes = 4 * SUM_N
     print(
-        f"[sum] n={SUM_N}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+        f"[sum] n={SUM_N}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+        f" x.sum(dtype=torch.int64) {lib} ms, bound {bound_ms(nbytes):.4f} ms"
         f" (median of {REPS}, CUDA events) [{card}]",
         flush=True,
     )
-    return err, ms, plain_ms
+    return kernel_row(err, ms, plain_ms, nbytes, lib)
 
 
 def phase_fill_kernels(rng, card: str) -> dict:
@@ -451,9 +539,11 @@ def phase_fill_kernels(rng, card: str) -> dict:
         f" (median of {REPS}, CUDA events) [{card}]",
         flush=True,
     )
+    # no PyTorch call computes a segmented forward fill: no library time
     return {
-        "propagate_fill": (err[0], fill_ms, fill_plain),
-        "propagate_last": (err[1], last_ms, last_plain),
+        "propagate_fill": kernel_row(err[0], fill_ms, fill_plain, 2 * 2 * 4 * FILL_N, None),
+        # alive bytes and the plane read, has and the plane written
+        "propagate_last": kernel_row(err[1], last_ms, last_plain, 2 * 5 * FILL_N, None),
         "last_launches": counts["last"],
     }
 
@@ -466,7 +556,7 @@ def _bitonic_planes(rng, n: int, block: int, hi: int, n_pay: int):
     return [key.reshape(n), *(rng.integers(0, 2**32, n, dtype=np.uint32) for _ in range(n_pay))]
 
 
-def phase_merge_kernels(rng, card: str) -> tuple:
+def phase_merge_kernels(rng, card: str) -> dict:
     """bitonic_merge_blocks kernel == plain, bit for bit (ties included), on
     the card; bitonic_merge at the sorted-build join's 8Mi; timed."""
     from dpu_olap_tpu_torch.ops import bitonic_cuda, merge, sort_cuda
@@ -518,24 +608,249 @@ def phase_merge_kernels(rng, card: str) -> tuple:
         f" (median of {REPS}, CUDA events) [{card}]",
         flush=True,
     )
-    return err, ms, plain_ms
+    # no PyTorch call merges a bitonic sequence: no library time
+    return kernel_row(err, ms, plain_ms, 2 * 2 * 4 * FILL_N, None)
+
+
+def phase_partition_kernel(rng, card: str) -> dict:
+    """partition_cells kernel == plain, bit for bit on every lane (cells,
+    selection, counts, flag), on the card; timed at 16Mi keys + 1 payload
+    into 8 cells (partition_kernel_p8 at SF=8)."""
+    import torch
+
+    from dpu_olap_tpu_torch.ops import partition_cuda
+    from dpu_olap_tpu_torch.ops.hashing import bucket_shift, wang_hash
+
+    def check(name, keys, n_pay, p, cell, overflow=False):
+        pays = [on_card(rng.integers(0, 2**32, len(keys), dtype=np.uint32)) for _ in range(n_pay)]
+        tk = on_card(keys)
+        got = partition_cuda.partition_cells(tk, pays, p, cell)
+        ref = partition_cuda.partition_cells_ref(tk, pays, p, cell)
+        g = [host(t) for t in (got[0], *got[1], got[2], got[3])]
+        r = [host(t) for t in (ref[0], *ref[1], ref[2], ref[3])]
+        require(all(np.array_equal(a, b) for a, b in zip(g, r)) and bool(got[4]) == bool(ref[4]),
+                f"partition kernel != plain: {name}")
+        hist = np.bincount(host(wang_hash(tk)) >> np.uint32(bucket_shift(p)), minlength=p)
+        require(np.array_equal(r[-1], hist) and bool(ref[4]) == overflow,
+                f"plain partition counts or flag: {name}")
+        print(f"[partition] {name} (n={len(keys)}, P={p}, cell={cell}, payloads={n_pay}):"
+              f" kernel == plain on every lane", flush=True)
+        return tk, pays, max(max_err(a, b) for a, b in zip(g, r))
+
+    err = 0
+    timed = None
+    for p in (8, 2, 16):
+        keys = rng.integers(0, 2**32, PART_N, dtype=np.uint32)
+        keys[:3] = 0xFFFFFFFF  # an ordinary key here
+        tk, pays, e = check(f"random 16Mi P={p}", keys, 1, p, PART_N // p * 2)
+        err = max(err, e)
+        if p == 8:
+            timed = (tk, pays)
+    odd = 3 * (1 << 20) + 17
+    for n_pay in (0, 3):
+        err = max(err, check(f"random {odd}", rng.integers(0, 2**32, odd, dtype=np.uint32),
+                             n_pay, 8, odd // 8 * 2)[2])
+    one = np.full(odd, 12345, np.uint32)
+    err = max(err, check("one bucket", one, 1, 8, odd)[2])
+    err = max(err, check("one bucket, overflow", one, 1, 8, 1024, overflow=True)[2])
+
+    # the operators' call at the SF=64 main path's shape: one side's 128Mi
+    # keys + 1 payload into P = 2 cells of 128Mi (32768 tiles), no selection
+    # plane; compared on the card
+    n = SF64 * SF1_ROWS
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    big = [rand_u32(n, gen) for _ in range(2)]
+    got = partition_cuda.partition_cells(big[0], big[1:], 2, n, with_sel=False)
+    ref = partition_cuda.partition_cells_ref(big[0], big[1:], 2, n, with_sel=False)
+    require(got[2] is None and ref[2] is None, "partition with_sel=False returned a selection")
+    require(card_equal((got[0], *got[1], got[3]), (ref[0], *ref[1], ref[3]))
+            and not bool(got[4]) and not bool(ref[4]), "partition kernel != plain: SF=64 side")
+    require(int(ref[3].to(torch.int64).sum()) == n, "plain partition counts: SF=64 side")
+    print(f"[partition] one SF=64 side (n={n}, P=2, cell={n}, payloads=1, no selection):"
+          " kernel == plain on every lane", flush=True)
+    del big, got, ref
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    tk, pays = timed
+    cell = PART_N // 8 * 2
+    ms = cuda_ms(lambda: partition_cuda.partition_cells(tk, pays, 8, cell))
+    plain_ms = cuda_ms(lambda: partition_cuda.partition_cells_ref(tk, pays, 8, cell))
+    bucket = (wang_hash(tk).to(torch.int64) >> bucket_shift(8)).to(torch.int32)
+    lib = library_ms("stable torch.sort of the bucket", lambda: torch.sort(bucket, stable=True))
+    # keys and the payload read once; key, payload and selection cells
+    # (8 x cell lanes each, pads included) written once
+    nbytes = 2 * 4 * PART_N + 3 * 4 * 8 * cell
+    print(
+        f"[partition] n={PART_N} P=8 cell={cell} 1 payload + selection: kernel {ms:.4f} ms,"
+        f" plain {plain_ms:.4f} ms, stable torch.sort of the bucket {lib} ms,"
+        f" bound {bound_ms(nbytes):.4f} ms (median of {REPS}, CUDA events) [{card}]",
+        flush=True,
+    )
+    return kernel_row(err, ms, plain_ms, nbytes, lib)
+
+
+def phase_round_kernels(card: str) -> None:
+    """sort_bitonic and propagate_fill against their plain versions at one
+    SF=64 shuffle round's shape, compared on the card: the keys31 co-sort of
+    the round's two 128Mi cell planes (256Mi lanes: the packed key k2 = key
+    << 1 | side and one merged payload plane, half of each side's lanes cell
+    padding) and the fill of its sorted pk rows' key and payload, built as
+    ops/merge.py's _fill_match builds it. Timed once each."""
+    import torch
+
+    from dpu_olap_tpu_torch.ops import scan_cuda, sort_cuda
+    from dpu_olap_tpu_torch.ops.merge import EMPTY, _u32
+
+    cell = SF64 * SF1_ROWS  # a side's round plane: the round's 128Mi cell
+    n, rows = 2 * cell, cell // 2  # co-sort lanes; valid rows a side (slack 2.0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randint(hi, size):
+        return torch.randint(0, hi, (size,), generator=gen, device="cuda")
+
+    pk = torch.arange(rows, device="cuda") * 3  # unique keys < 2^31 - 1
+    fk = pk[randint(rows, rows)]
+    pads = torch.full((cell - rows,), EMPTY, dtype=torch.int64, device="cuda")
+    zeros = torch.zeros_like(pads)
+    k2 = torch.cat([pk << 1, pads - 1, (fk << 1) | 1, pads])  # pads: 0xFFFFFFFE / 0xFFFFFFFF
+    pay = torch.cat([randint(2**32, rows), zeros, randint(2**32, rows), zeros])
+    perm = torch.randperm(n, generator=gen, device="cuda")
+    planes = (_u32(k2[perm]), _u32(pay[perm]))
+    del pk, fk, pads, zeros, k2, pay, perm
+
+    got = sort_cuda.sort_bitonic(planes)
+    ref = sort_cuda.sort_bitonic_ref(planes)
+
+    def rows_sorted(s):
+        return torch.sort((s[0].to(torch.int64) << 32) | s[1].to(torch.int64)).values
+
+    require(bool((ref[0].to(torch.int64).diff() >= 0).all()), "plain sort at the round's shape")
+    require(card_equal(got[:1], ref[:1]) and torch.equal(rows_sorted(got), rows_sorted(ref)),
+            f"sort kernel != plain at one SF=64 round (n={n}, 1 payload)")
+    k2s = got[0].to(torch.int64)
+    sk = torch.where(k2s >= 0xFFFFFFFE, EMPTY, k2s >> 1)
+    fill = (_u32(torch.where((k2s & 1) == 0, sk, EMPTY)), got[1])
+    del k2s, sk, ref
+    require(card_equal(scan_cuda.propagate_fill(fill), scan_cuda.propagate_fill_ref(fill)),
+            f"fill kernel != plain at one SF=64 round (n={n}, key + 1 payload)")
+    del got
+    torch.cuda.synchronize()
+    sort_ms = cuda_ms(lambda: sort_cuda.sort_bitonic(planes))
+    sort_plain = cuda_ms(lambda: sort_cuda.sort_bitonic_ref(planes))
+    fill_ms = cuda_ms(lambda: scan_cuda.propagate_fill(fill))
+    fill_plain = cuda_ms(lambda: scan_cuda.propagate_fill_ref(fill))
+    print(
+        f"[round] one SF=64 round (n={n}, key + 1 payload): sort and fill kernels == plain;"
+        f" sort kernel {sort_ms:.4f} ms, plain {sort_plain:.4f} ms; fill kernel {fill_ms:.4f} ms,"
+        f" plain {fill_plain:.4f} ms; bound of each {bound_ms(2 * 2 * 4 * n):.4f} ms"
+        f" (median of {REPS}, CUDA events) [{card}]",
+        flush=True,
+    )
+    del planes, fill
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_merge_probe_kernel(rng, card: str) -> dict:
+    """merge_probe kernel == plain, bit for bit on every lane, on the card;
+    timed at 2Mi x 2Mi with one payload."""
+    import torch
+
+    from dpu_olap_tpu_torch.ops import merge_cuda
+    from dpu_olap_tpu_torch.ops.hashtable import _signed_view
+
+    empty = np.uint32(0xFFFFFFFF)
+
+    def check(name, left, right, n_pay):
+        pays = [on_card(rng.integers(0, 2**32, len(right), dtype=np.uint32)) for _ in range(n_pay)]
+        tl, tr = on_card(left), on_card(right)
+        got = merge_cuda.merge_probe(tl, tr, pays)
+        ref = merge_cuda.merge_probe_ref(tl, tr, pays)
+        g = [host(t) for t in (got[0], got[1], *got[2])]
+        r = [host(t) for t in (ref[0], ref[1], *ref[2])]
+        require(all(np.array_equal(a, b) for a, b in zip(g, r)), f"merge_probe kernel != plain: {name}")
+        j = np.searchsorted(right, left, side="right") - 1
+        require(np.array_equal(r[0], j >= 0) and np.array_equal(
+            r[1], np.where(j >= 0, right[np.maximum(j, 0)] if len(right) else empty, empty)),
+            f"plain merge_probe keys: {name}")
+        print(f"[merge_probe] {name} ({len(left)} x {len(right)}, payloads={n_pay}):"
+              f" kernel == plain on every lane", flush=True)
+        return tl, tr, pays, max(max_err(a, b) for a, b in zip(g, r))
+
+    def build(n):
+        return np.sort(rng.choice(2**31, n, replace=False).astype(np.uint32))
+
+    right = build(PROBE_N)
+    left = np.sort(rng.integers(0, 2**31, PROBE_N, dtype=np.uint32))
+    tl, tr, pays, err = check("2Mi x 2Mi", left, right, 1)
+    timed = (tl, tr, pays)
+    small = build(HT_N)
+    cases = [
+        ("1Mi x 1Mi all present", np.sort(small), small, 1),
+        ("repeated keys", np.sort(small[rng.integers(0, HT_N, 3 * HT_N)]), small, 3),
+        ("absent and below every key", np.sort(rng.integers(0, 2**31, 3 * 10**6 + 7,
+                                                            dtype=np.uint32)), small + 1000, 1),
+        ("empty build side", left[:5000], np.zeros(0, np.uint32), 1),
+    ]
+    tails_l, tails_r = left.copy(), right.copy()
+    tails_l[-1000:] = empty
+    tails_r[-77:] = empty
+    cases.append(("EMPTY tails on both sides", tails_l, tails_r, 3))
+    for name, lft, rgt, n_pay in cases:
+        err = max(err, check(name, lft, rgt, n_pay)[3])
+    torch.cuda.synchronize()
+
+    tl, tr, pays = timed
+    plain_ms = cuda_ms(lambda: merge_cuda.merge_probe_ref(tl, tr, pays))
+    sl, sr = _signed_view(tl), _signed_view(tr)
+    require(library_ms("torch.searchsorted", lambda: torch.searchsorted(sr, sl, right=True))
+            is not None, "torch.searchsorted did not run")
+    j = (torch.searchsorted(sr, sl, right=True) - 1).clamp(min=0)
+    r32, p32 = tr.view(torch.int32), pays[0].view(torch.int32)
+    # sub-0.1 ms times spread between calls: MP_ROUNDS rounds, each timing
+    # the kernel, searchsorted and its two gathers one after another
+    times = {"kernel": [], "searchsorted": [], "gathers": []}
+    for _ in range(MP_ROUNDS):
+        times["kernel"].append(cuda_ms(lambda: merge_cuda.merge_probe(tl, tr, pays)))
+        times["searchsorted"].append(cuda_ms(lambda: torch.searchsorted(sr, sl, right=True)))
+        times["gathers"].append(cuda_ms(lambda: (r32[j], p32[j])))
+    ms, lib = float(np.median(times["kernel"])), float(np.median(times["searchsorted"]))
+    lib_total = [s + g for s, g in zip(times["searchsorted"], times["gathers"])]
+    faster = sum(k < t for k, t in zip(times["kernel"], lib_total))
+    spread = "; ".join(f"{k} min {min(v):.4f} median {np.median(v):.4f} max {max(v):.4f}"
+                       for k, v in (*times.items(), ("searchsorted + gathers", lib_total)))
+    # probe, build keys and payload read once; has, key, payload written
+    nbytes = 4 * PROBE_N + 2 * 4 * PROBE_N + (1 + 4 + 4) * PROBE_N
+    print(
+        f"[merge_probe] {PROBE_N} x {PROBE_N} 1 payload: kernel {ms:.4f} ms, plain"
+        f" {plain_ms:.4f} ms, torch.searchsorted(right=True) {lib:.4f} ms + its two index"
+        f" gathers {float(np.median(times['gathers'])):.4f} ms, bound {bound_ms(nbytes):.4f} ms"
+        f" (medians over {MP_ROUNDS} rounds of a median of {REPS}, CUDA events) [{card}]",
+        flush=True,
+    )
+    print(f"[merge_probe] spread over {MP_ROUNDS} rounds, ms: {spread}; the kernel beat"
+          f" searchsorted + gathers in {faster} of {MP_ROUNDS} rounds [{card}]", flush=True)
+    return kernel_row(err, ms, plain_ms, nbytes, lib)
 
 
 def run_path(label: str, make_op, counters: dict, phases, card: str, rows: int,
-             absent: dict | None = None):
+             absent: dict | None = None, run=None, reps: int = RUN_REPS):
     """Drive one operator path once with its launch counts set to 0 just
     before Run() and read just after (each of ``counters`` must launch, none
-    of ``absent``); then time RUN_REPS fresh runs. Returns (output,
-    launches)."""
+    of ``absent``); then time ``reps`` fresh runs. ``run(op)`` replaces
+    op.Run() where a path is driven through another entry point. Returns
+    (output, launches)."""
     import torch
 
     absent = absent or {}
+    run = run or (lambda o: o.Run())
     op = make_op().Prepare()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for mod in (*counters.values(), *absent.values()):
         mod.LAUNCHES = 0
-    out = op.Run()
+    out = run(op)
     launches = {name: mod.LAUNCHES for name, mod in counters.items()}
     stray = {name: mod.LAUNCHES for name, mod in absent.items() if mod.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
@@ -545,11 +860,11 @@ def run_path(label: str, make_op, counters: dict, phases, card: str, rows: int,
     )
     require(not stray, f"{label}: the path launched kernels of another path: {stray}")
     secs, ph = [], {}
-    for _ in range(RUN_REPS):
+    for _ in range(reps):
         op_t = make_op().Prepare()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        op_t.Run()
+        run(op_t)
         secs.append(time.perf_counter() - t)
         for name in phases:
             ph.setdefault(name, []).append(op_t.Timers().sum_ms(name))
@@ -557,7 +872,7 @@ def run_path(label: str, make_op, counters: dict, phases, card: str, rows: int,
     phase_ms = {k: round(float(np.median(v)), 3) for k, v in ph.items()}
     print(
         f"[{label}] launches {launches}; Run() {run_s * 1e3:.3f} ms = {rows / run_s:.1f} rows/s"
-        f" (median of {RUN_REPS}; phases ms {phase_ms}); peak device memory {peak} B [{card}]",
+        f" (median of {reps}; phases ms {phase_ms}); peak device memory {peak} B [{card}]",
         flush=True,
     )
     return out, launches
@@ -578,10 +893,11 @@ def host_ms(fn) -> float:
     return float(np.median(times))
 
 
-def profile_run(label: str, op, card: str) -> None:
-    """One Run() of a prepared operator under torch.profiler: its wall time,
-    the card's busy time (the union of its kernel and copy intervals), the
-    idle share, and the device events that took longest in all."""
+def profile_run(label: str, run, card: str) -> None:
+    """One run(), e.g. a prepared operator's Run, under torch.profiler: its
+    wall time, the card's busy time (the union of its kernel and copy
+    intervals), the idle share, and the device events that took longest in
+    all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -589,7 +905,7 @@ def profile_run(label: str, op, card: str) -> None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        op.Run()
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
@@ -629,7 +945,9 @@ def phase_join(sf: int, card: str) -> dict:
 
     from dpu_olap_tpu_torch.generator import make_join_tables
     from dpu_olap_tpu_torch.operators.join_op import JoinGpu, JoinNative
-    from dpu_olap_tpu_torch.ops import bitonic_cuda, merge, scan_cuda, sort_cuda, take_cuda
+    from dpu_olap_tpu_torch.ops import (
+        bitonic_cuda, merge, merge_cuda, partition_cuda, scan_cuda, sort_cuda, take_cuda,
+    )
     from dpu_olap_tpu_torch.parallel.mesh import DeviceSet
 
     left, right = make_join_tables(sf, SF1_ROWS, SF1_ROWS, seed=SEED)
@@ -638,7 +956,8 @@ def phase_join(sf: int, card: str) -> dict:
     out, launches = run_path(
         f"join SF={sf}", lambda: JoinGpu(ds, left, right),
         {"sort": sort_cuda, "gather": take_cuda}, JOIN_PHASES, card, left.num_rows,
-        absent={"merge": bitonic_cuda, "fill": scan_cuda},
+        absent={"merge": bitonic_cuda, "fill": scan_cuda, "partition": partition_cuda,
+                "merge_probe": merge_cuda},
     )
     lc, rc = left.concat(), right.concat()
     if sf == 1:
@@ -716,10 +1035,13 @@ def phase_join_fallbacks(card: str) -> dict:
     import torch
 
     from dpu_olap_tpu_torch.operators.join_op import JoinGpu, JoinNative
-    from dpu_olap_tpu_torch.ops import bitonic_cuda, join, scan_cuda, sort_cuda, take_cuda
+    from dpu_olap_tpu_torch.ops import (
+        bitonic_cuda, join, merge_cuda, partition_cuda, scan_cuda, sort_cuda, take_cuda,
+    )
     from dpu_olap_tpu_torch.parallel.mesh import DeviceSet
 
     ds = DeviceSet.allocate(1)
+    others = {"partition": partition_cuda, "merge_probe": merge_cuda}
     paths = [
         ("sorted-build TPC-H SF=1", _tpch_sf1_tables(), (True, True),
          {"sort": sort_cuda, "merge": bitonic_cuda, "fill": scan_cuda}, {"gather": take_cuda}),
@@ -735,7 +1057,7 @@ def phase_join_fallbacks(card: str) -> dict:
                 f"{label}: structure flags {(op.keys31, op.pk_sorted, op.pk_dense)}")
         out, launches = run_path(
             f"join {label}", lambda: JoinGpu(ds, left, right), counters, JOIN_PHASES, card,
-            left.num_rows, absent=absent,
+            left.num_rows, absent={**absent, **others},
         )
         for name, n in launches.items():
             total[name] += n
@@ -758,7 +1080,7 @@ def phase_join_fallbacks(card: str) -> dict:
             flush=True,
         )
         result_split(label, join.join_shard_auto(*args, keys31=flags[0], pk_sorted=flags[1]), card)
-        profile_run(f"join {label}", JoinGpu(ds, left, right).Prepare(), card)
+        profile_run(f"join {label}", JoinGpu(ds, left, right).Prepare().Run, card)
     return total
 
 
@@ -854,6 +1176,253 @@ def phase_take(sf: int, card: str) -> dict:
     return launches
 
 
+def packed_rows(fk, y) -> np.ndarray:
+    """(fk, y) pairs packed into uint64: one sort key for a row multiset."""
+    return (np.asarray(fk).astype(np.uint64) << np.uint64(32)) | np.asarray(y).astype(np.uint64)
+
+
+def check_rows(label: str, out, fk, y, x) -> None:
+    """out's (fk, y, x) rows equal the given rows as multisets: both sorted
+    by the packed (fk, y) pair (an argsort, seconds at 16Mi rows where a
+    lexsort of three columns takes far longer); x follows, pk being unique."""
+    require(len(out["fk"]) == len(fk), f"{label}: {len(out['fk'])} rows, expected {len(fk)}")
+    a, b = packed_rows(out["fk"], out["y"]), packed_rows(fk, y)
+    oa, ob = np.argsort(a), np.argsort(b)
+    require(np.array_equal(a[oa], b[ob]), f"{label}: (fk, y) rows differ")
+    require(np.array_equal(np.asarray(out["x"])[oa], np.asarray(x)[ob]), f"{label}: x differs")
+
+
+def check_dense_truth(label: str, out, lc, rc) -> None:
+    """A BM_JoinDpu join result against the dense truth: every left row
+    once, with x = right_x[fk - pk0]; the (fk, y) multisets compared by a
+    sort of the packed pair."""
+    pk0 = int(rc["pk"][0])
+    fk_out = out["fk"].astype(np.int64)
+    require(len(fk_out) == lc.num_rows, f"{label}: {len(fk_out)} rows != {lc.num_rows} left rows")
+    require(np.array_equal(out["x"], rc["x"][fk_out - pk0]), f"{label}: x != right_x[fk - pk0]")
+    require(np.array_equal(np.sort(packed_rows(out["fk"], out["y"])),
+                           np.sort(packed_rows(lc["fk"], lc["y"]))),
+            f"{label}: (fk, y) multiset differs from the input")
+
+
+def _join_kernels():
+    from dpu_olap_tpu_torch.ops import (
+        bitonic_cuda, merge_cuda, partition_cuda, scan_cuda, sort_cuda, take_cuda,
+    )
+
+    return {"partition": partition_cuda, "sort": sort_cuda, "fill": scan_cuda,
+            "gather": take_cuda, "merge": bitonic_cuda, "merge_probe": merge_cuda}
+
+
+def _split(kernels: dict, names) -> tuple:
+    """(counters, absent): the named kernels and all the others."""
+    return ({k: m for k, m in kernels.items() if k in names},
+            {k: m for k, m in kernels.items() if k not in names})
+
+
+def phase_join_shuffle_sf64(card: str) -> dict:
+    """The slice's main path: JoinGpu on BM_JoinDpu at SF=64, 128Mi rows a
+    side, above one round's budget (SINGLE_ROUND_ROWS): _run_any routes it
+    to the shuffle join in two resident rounds, which launches the partition
+    kernel once per side and the sort and fill kernels once per round.
+    Checked against the dense truth; one counted and one timed Run()."""
+    from dpu_olap_tpu_torch.generator import make_join_tables
+    from dpu_olap_tpu_torch.operators.join_op import JoinGpu
+    from dpu_olap_tpu_torch.parallel.mesh import DeviceSet
+
+    t0 = time.perf_counter()
+    left, right = make_join_tables(SF64, SF1_ROWS, SF1_ROWS, seed=SEED)
+    ds = DeviceSet.allocate(1)
+    op = JoinGpu(ds, left, right).Prepare()
+    rows = max(left.num_rows, right.num_rows)
+    require(op.keys31 and op.pk_dense, "SF=64: structure flags")
+    require(op.SINGLE_ROUND_ROWS < rows <= op.MAX_RESIDENT_ROWS and op._ici_rounds() == 2,
+            f"SF=64: {rows} rows do not route to the shuffle join in 2 rounds")
+    print(f"[join SF={SF64} shuffle] tables and Prepare() {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    counters, absent = _split(_join_kernels(), ("partition", "sort", "fill"))
+    out, launches = run_path(
+        f"join SF={SF64} shuffle", lambda: JoinGpu(ds, left, right), counters, JOIN_PHASES, card,
+        left.num_rows, absent=absent, reps=1,
+    )
+    require(launches == {"partition": 2, "sort": 2, "fill": 2},
+            f"SF=64: not the two-round shuffle join (one partition per side, one sort and"
+            f" fill per round): {launches}")
+    t0 = time.perf_counter()
+    check_dense_truth(f"SF={SF64} shuffle", out, left.concat(), right.concat())
+    print(f"[join SF={SF64} shuffle] {len(out['fk'])} rows == the dense truth"
+          f" (check {time.perf_counter() - t0:.1f} s) [{card}]", flush=True)
+    return launches
+
+
+def phase_join_shuffle_sf8(card: str) -> dict:
+    """JoinGpu._run_ici(rounds=2) at SF=8 against pyarrow, with a profile;
+    impl="sort" at SF=1 through _run_any (the shuffle join in one round)
+    against pyarrow."""
+    from dpu_olap_tpu_torch.generator import make_join_tables
+    from dpu_olap_tpu_torch.operators.join_op import JoinGpu, JoinNative
+    from dpu_olap_tpu_torch.parallel.mesh import DeviceSet
+
+    ds = DeviceSet.allocate(1)
+    left, right = make_join_tables(SF8, SF1_ROWS, SF1_ROWS, seed=SEED)
+    counters, absent = _split(_join_kernels(), ("partition", "sort", "fill"))
+    label = f"join SF={SF8} _run_ici(rounds=2)"
+    out, launches = run_path(label, lambda: JoinGpu(ds, left, right), counters, JOIN_PHASES, card,
+                             left.num_rows, absent=absent, run=lambda o: o._run_ici(rounds=2))
+    require(launches == {"partition": 2, "sort": 2, "fill": 2}, f"{label}: launches {launches}")
+    nat = JoinNative(left, right).Prepare().Run()
+    check_rows(label, out, *(nat[c].to_numpy() for c in ("fk", "y", "x")))
+    print(f"[{label}] {len(out['fk'])} rows == pyarrow [{card}]", flush=True)
+    op = JoinGpu(ds, left, right).Prepare()
+    profile_run(label, lambda: op._run_ici(rounds=2), card)
+
+    # impl="sort": _run_any routes to the shuffle join with rounds = 1, one
+    # partition (no partition kernel below P = 2, as in the JAX package) and
+    # the sort + searchsorted probe of join_shard
+    left, right = make_join_tables(1, SF1_ROWS, SF1_ROWS, seed=SEED)
+    op = JoinGpu(ds, left, right, impl="sort").Prepare()
+    require(op._ici_rounds() == 1, "impl=sort SF=1: rounds")
+    label = "join SF=1 impl=sort"
+    out, sort_launches = run_path(label, lambda: JoinGpu(ds, left, right, impl="sort"), {},
+                                  JOIN_PHASES, card, left.num_rows, absent=_join_kernels())
+    nat = JoinNative(left, right).Prepare().Run()
+    check_rows(label, out, *(nat[c].to_numpy() for c in ("fk", "y", "x")))
+    print(f"[{label}] {len(out['fk'])} rows == pyarrow through _run_ici, rounds 1 [{card}]",
+          flush=True)
+    return launches
+
+
+def phase_join_partitioned_sf8(card: str) -> dict:
+    """JoinGpu's host-staged partitioned path at SF=8 (MAX_RESIDENT_ROWS
+    shrunk on the instance): 8 partitions of the 8 batches a side, the
+    partition kernel once per batch and side, the fused join once per
+    partition. Checked against the dense truth."""
+    from dpu_olap_tpu_torch.generator import make_join_tables
+    from dpu_olap_tpu_torch.operators.join_op import JoinGpu
+    from dpu_olap_tpu_torch.parallel.mesh import DeviceSet
+
+    ds = DeviceSet.allocate(1)
+    left, right = make_join_tables(SF8, SF1_ROWS, SF1_ROWS, seed=SEED)
+
+    def make():
+        op = JoinGpu(ds, left, right)
+        op.MAX_RESIDENT_ROWS = 1 << 10  # everything "too big"
+        return op
+
+    counters, absent = _split(_join_kernels(), ("partition", "sort", "fill"))
+    label = f"join SF={SF8} partitioned"
+    out, launches = run_path(label, make, counters, PART_PHASES, card, left.num_rows,
+                             absent=absent)
+    require(launches == {"partition": 2 * SF8, "sort": SF8, "fill": SF8},
+            f"{label}: launches {launches}")
+    check_dense_truth(label, out, left.concat(), right.concat())
+    print(f"[{label}] {len(out['fk'])} rows == the dense truth [{card}]", flush=True)
+    return launches
+
+
+def phase_partition_sf8(card: str) -> dict:
+    """PartitionGpu on the BM_JoinDpu SF=8 probe table (JoinDpu's Phase A
+    input, join_dpu.cc:82-142): fk keyed, y carried, 16 partitions; the
+    resident engine (one launch) and the host-staged one (one per batch),
+    each exactly against a numpy oracle."""
+    from dpu_olap_tpu_torch.generator import make_join_tables
+    from dpu_olap_tpu_torch.operators import PartitionGpu
+    from dpu_olap_tpu_torch.ops.hashing import bucket_shift, wang_hash_np
+    from dpu_olap_tpu_torch.parallel.mesh import DeviceSet
+
+    p = 16
+    ds = DeviceSet.allocate(1)
+    left, _ = make_join_tables(SF8, SF1_ROWS, SF1_ROWS, seed=SEED)
+    lc = left.concat()
+    b = wang_hash_np(lc["fk"]) >> np.uint32(bucket_shift(p))
+    order = np.argsort(b, kind="stable")
+    ends = np.cumsum(np.bincount(b, minlength=p))
+    oracle = [{c: lc[c][order[e - n:e]] for c in ("fk", "y")}
+              for n, e in zip(np.bincount(b, minlength=p), ends)]
+
+    def check(label, parts):
+        require(len(parts) == p, f"{label}: {len(parts)} partitions")
+        for q, (got, want) in enumerate(zip(parts, oracle)):
+            require(all(np.array_equal(got[c], want[c]) for c in ("fk", "y")),
+                    f"{label}: partition {q} != the numpy oracle")
+
+    counters, absent = _split(_join_kernels(), ("partition",))
+    total = {"partition": 0}
+    for resident, n_launch, phases in ((True, 1, ("partition-resident",)),
+                                       (False, SF8, ("stage", "dispatch", "collect"))):
+        label = f"partition SF={SF8} {'resident' if resident else 'host-staged'}"
+        out, launches = run_path(label, lambda: PartitionGpu(ds, left, "fk", p, resident=resident),
+                                 counters, phases, card, left.num_rows, absent=absent)
+        require(launches == {"partition": n_launch}, f"{label}: launches {launches}")
+        check(label, out.to_host() if resident else out)
+        print(f"[{label}] {p} partitions == the numpy oracle [{card}]", flush=True)
+        total["partition"] += launches["partition"]
+    return total
+
+
+def phase_hashtable(card: str) -> dict:
+    """The sorted-store hash table on the hashtable micro's inputs
+    (run_benchmarks.py:177-227): 1Mi unique keys from a seed-42 permutation
+    of 4Mi, random values. Build (sort kernel), probe of every key and of
+    1Mi queries half absent (sort, merge-probe, sort), and the order-free
+    stream probe, against numpy; device times of each."""
+    import torch
+
+    from dpu_olap_tpu_torch.ops.hashtable import (
+        ht_build_sorted, ht_probe_sorted, ht_probe_sorted_stream,
+    )
+
+    n = HT_N
+    rng = np.random.default_rng(SEED)
+    keys = rng.permutation(np.uint32(4 * n))[:n].astype(np.uint32)
+    vals = rng.integers(0, 2**32, n, dtype=np.uint32)
+    queries = np.concatenate([keys[rng.integers(0, n, n // 2)],
+                              rng.integers(4 * n, 2**32 - 1, n // 2, dtype=np.uint32)])
+    rng.shuffle(queries)
+    tk, tv, tq = on_card(keys), on_card(vals), on_card(queries)
+    counters, absent = _split(_join_kernels(), ("sort", "merge_probe"))
+    torch.cuda.synchronize()
+    for mod in (*counters.values(), *absent.values()):
+        mod.LAUNCHES = 0
+    table = ht_build_sorted(tk, tv)
+    got_all, found_all = ht_probe_sorted(table, tk)
+    got_q, found_q = ht_probe_sorted(table, tq)
+    pos, got_s, found_s = ht_probe_sorted_stream(table, tq)
+    torch.cuda.synchronize()
+    launches = {k: m.LAUNCHES for k, m in counters.items()}
+    stray = {k: m.LAUNCHES for k, m in absent.items() if m.LAUNCHES}
+    require(launches == {"sort": 6, "merge_probe": 3} and not stray,
+            f"hashtable: launches {launches}, stray {stray}")
+    order = np.argsort(keys)
+    sk, sv = keys[order], vals[order]
+    require(np.array_equal(host(table.keys), sk) and np.array_equal(host(table.values), sv),
+            "hashtable: the sorted store")
+    require(host(found_all).all() and np.array_equal(host(got_all), vals), "hashtable: probe of every key")
+    j = np.minimum(np.searchsorted(sk, queries), n - 1)
+    hit = sk[j] == queries
+    want = np.where(hit, sv[j], 0).astype(np.uint32)
+    require(np.array_equal(host(found_q), hit) and np.array_equal(host(got_q), want),
+            "hashtable: probe of half-absent queries")
+    pos_h = host(pos)
+    require(pos_h.shape == (n,) and np.array_equal(np.sort(pos_h), np.arange(n)),
+            "hashtable: stream positions")
+    sv_h, sf_h = np.zeros(n, np.uint32), np.zeros(n, bool)
+    sv_h[pos_h], sf_h[pos_h] = host(got_s), host(found_s)
+    require(np.array_equal(sf_h, hit) and np.array_equal(sv_h, want), "hashtable: stream probe")
+    build_ms = cuda_ms(lambda: ht_build_sorted(tk, tv))
+    probe_ms = cuda_ms(lambda: ht_probe_sorted(table, tk))
+    mix_ms = cuda_ms(lambda: ht_probe_sorted(table, tq))
+    stream_ms = cuda_ms(lambda: ht_probe_sorted_stream(table, tq))
+    print(
+        f"[hashtable] {n} keys: launches {launches}; == numpy (build, probe of every key, half"
+        f" absent, stream as a set on pos); device ms build {build_ms:.4f}, probe {probe_ms:.4f},"
+        f" probe half absent {mix_ms:.4f}, stream {stream_ms:.4f} = {n / (probe_ms / 1e3):.1f}"
+        f" probes/s (median of {REPS}, CUDA events) [{card}]",
+        flush=True,
+    )
+    return launches
+
+
 def main() -> dict:
     import torch
 
@@ -876,14 +1445,23 @@ def main() -> dict:
     measured["propagate_fill"] = fills["propagate_fill"]
     measured["propagate_last"] = fills["propagate_last"]
     measured["bitonic_merge_blocks"] = phase_merge_kernels(rng, card)
+    measured["partition_cells"] = phase_partition_kernel(rng, card)
+    phase_round_kernels(card)
+    measured["merge_probe"] = phase_merge_probe_kernel(rng, card)
 
-    launches = {"sort": 0, "gather": 0, "filter": 0, "sum": 0, "merge": 0, "fill": 0}
-    for sf in (1, SF8):
-        for phase in (phase_join, phase_filter, phase_sum, phase_take):
-            for name, n in phase(sf, card).items():
-                launches[name] += n
-    for name, n in phase_join_fallbacks(card).items():
-        launches[name] += n
+    launches = {"sort": 0, "gather": 0, "filter": 0, "sum": 0, "merge": 0, "fill": 0,
+                "partition": 0, "merge_probe": 0}
+    paths = [lambda sf=sf, ph=ph: ph(sf, card)
+             for sf in (1, SF8) for ph in (phase_join, phase_filter, phase_sum, phase_take)]
+    paths.append(lambda: phase_join_fallbacks(card))
+    # this slice's paths, the SF=64 shuffle join (its main path) first
+    paths += [lambda ph=ph: ph(card) for ph in (
+        phase_join_shuffle_sf64, phase_join_shuffle_sf8, phase_join_partitioned_sf8,
+        phase_partition_sf8, phase_hashtable,
+    )]
+    for path in paths:
+        for name, n in path().items():
+            launches[name] += n
     launches["last"] = fills["last_launches"]  # propagate_last is on no operator path
 
     sources = {
@@ -902,19 +1480,20 @@ def main() -> dict:
         "propagate_fill": ("fill", "scan.cu", "dpu_olap_tpu/ops/scan_pallas.py:178", None),
         "propagate_last": ("last", "scan.cu", "dpu_olap_tpu/ops/scan_pallas.py:222", None),
         "bitonic_merge_blocks": ("merge", "sort.cu", "dpu_olap_tpu/ops/bitonic_pallas.py:91", None),
+        "partition_cells": ("partition", "partition.cu",
+                            "dpu_olap_tpu/ops/partition_pallas.py:161", None),
+        "merge_probe": ("merge_probe", "merge_probe.cu", "dpu_olap_tpu/ops/merge_pallas.py:250",
+                        None),
     }
     kernels = []
     for name, (counter, src, replaces, also) in sources.items():
-        err, ms, plain_ms = measured[name]
         entry = {
             "name": name,
             "route": "cuda",
             "source": f"dpu_olap_tpu_torch/csrc/{src}",
             "replaces": replaces,
             "launches": launches[counter],
-            "max_abs_err": err,
-            "ms": ms,
-            "plain_ms": plain_ms,
+            **measured[name],
         }
         if also:
             entry["replaces_kernels"] = also

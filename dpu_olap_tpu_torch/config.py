@@ -1,8 +1,10 @@
 """Runtime configuration (counterpart of ``dpu_olap_tpu/config.py``).
 
 The same env tiers as the JAX package: NR_DEVICES (or NR_DPUS), SF and
-MAX_THREADS, plus the feature flags the port reads. Flags of modules not yet
-ported arrive with those modules.
+MAX_THREADS, plus the feature flags the port reads. The JAX package's
+``shuffle_counts_inband`` (the multi-device exchange, ROADMAP §1 item 10)
+and ``join_timers`` (bench/device_time.py, item 11) arrive with those
+items.
 """
 
 from __future__ import annotations
@@ -48,9 +50,16 @@ class Flags:
     """Feature flags (reference shared/umq/cflags.h).
 
     enable_log -> verbose operator logging (ENABLE_LOG)
+    shuffle_slack   -> padding factor for the ragged all-to-all partition
+                       exchange (reference sizes partitions with 1.5-2x slack,
+                       host/join/join_dpu.cc:97-100)
+
+    The bucket mapping is always the radix top-bits one (the reference's
+    USE_RADIX_PARTITIONING=1, cflags.h:28-30): no caller asks for modulo.
     """
 
     enable_log: bool = False
+    shuffle_slack: float = 2.0
     # Round streaming (the reference's batch-round outer loop,
     # filter_dpu.cc:127-156): max rows resident per dispatched round.
     stream_round_rows: int = 64 << 20

@@ -2,14 +2,24 @@
 
 JoinGpu — the counterpart of JoinTpu, the reference's JoinDpu
 (host/join/join_dpu.cc): an inner PK/FK join of left (fk, y...) with right
-(pk, x...). This slice ports the single-device path: Prepare() detects the
-workload structure on the host, Run() uploads both tables and runs, on the
-device, ops/merge.join_shard_dense (sort + gather kernels) for a dense pk,
-or else ops/join.join_shard_auto: the sorted-build join (sort, bitonic
-merge and fill kernels) for a sorted pk with 31-bit keys, the fused co-sort
-join (sort and fill kernels, or a stable sort and the fill kernel for keys
->= 2^31 - 1) otherwise. More than one device raises NotImplementedError:
-the shuffle join is ROADMAP §1 item 10.
+(pk, x...). Prepare() detects the workload structure on the host; Run()
+routes as JoinTpu does (join_op.py:402-423):
+  * one round on one device (``_run_single``, the default ``impl`` and at
+    most SINGLE_ROUND_ROWS rows a side): ops/merge.join_shard_dense (sort +
+    gather kernels) for a dense pk, else ops/join.join_shard_auto — the
+    sorted-build join (sort, bitonic merge and fill kernels) for a sorted pk
+    with 31-bit keys, the fused co-sort join (sort and fill kernels, or a
+    stable sort and the fill kernel) otherwise;
+  * the shuffle join (``_run_ici``, parallel/dist_join.py) for another
+    ``impl`` or a larger table up to MAX_RESIDENT_ROWS: both sides
+    radix-partitioned (partition kernel) into ``rounds`` resident partition
+    pairs, joined one round after another — the reference JoinDpu's Phase A
+    and Phase B on one device;
+  * the host-staged partitioned join (``_run_partitioned``) beyond that:
+    the Partitioner splits both tables into one hash partition per batch on
+    the host, and each partition pair is joined on the device.
+The shuffle join's exchange across several devices is ROADMAP §1 item 10:
+more than one device raises NotImplementedError.
 
 JoinNative — pyarrow hash join (host/join/join_native.cc:31-40 oracle).
 """
@@ -21,7 +31,9 @@ from typing import Dict
 import numpy as np
 
 from ..columnar import Batch, Table, to_numpy
+from ..config import FLAGS
 from ..metrics import device_log, log
+from ..ops.hashtable import EMPTY
 from ..parallel.mesh import DeviceSet
 from ..timer import Timers, timed
 
@@ -109,9 +121,11 @@ class JoinGpu:
         right: Table,
         fk: str = "fk",
         pk: str = "pk",
+        impl: str = "cosort",
     ):
         self.ds, self.left, self.right = ds, left, right
         self.fk, self.pk = fk, pk
+        self.impl = impl
         self.timers = Timers()
 
     def Prepare(self):
@@ -163,19 +177,18 @@ class JoinGpu:
             self.left.num_rows, self.right.num_rows
         )
         with timed(self.timers, "host-prep"):
-            lf = self.left.concat()
-            rt = self.right.concat()
-            host = [_host_u32(lf[c]) for c in (self.fk, *self.left_cols)]
-            host += [_host_u32(rt[c]) for c in (self.pk, *self.right_cols)]
+            lf = self._host_columns(self.left, self.fk, self.left_cols)
+            rt = self._host_columns(self.right, self.pk, self.right_cols)
         log(
             f"join {'dense' if dense else 'auto'} (keys31={self.keys31}, "
-            f"pk_sorted={self.pk_sorted}): {lf.num_rows} x {rt.num_rows} rows "
-            f"on {self.ds.device}"
+            f"pk_sorted={self.pk_sorted}): {self.left.num_rows} x {self.right.num_rows} "
+            f"rows on {self.ds.device}"
         )
         with timed(self.timers, "h2d"):
-            cols = [self.ds.scatter(a) for a in host]
-        n_l = 1 + len(self.left_cols)
-        args = (cols[0], tuple(cols[1:n_l]), cols[n_l], tuple(cols[n_l + 1:]))
+            lf = {c: self.ds.scatter(a) for c, a in lf.items()}
+            rt = {c: self.ds.scatter(a) for c, a in rt.items()}
+        args = (lf[self.fk], tuple(lf[c] for c in self.left_cols),
+                rt[self.pk], tuple(rt[c] for c in self.right_cols))
         with timed(self.timers, "join-total"):
             if dense:
                 fk, lcols, rcols, matched, ovf = join_shard_dense(*args)
@@ -188,30 +201,152 @@ class JoinGpu:
             m = DeviceSet.gather(matched)
         device_log("join matched rows", [int(m.sum())])
         with timed(self.timers, "gather-result"):
-            out = {self.fk: DeviceSet.gather(fk)[m]}
-            for name, col in zip(self.left_cols, lcols):
-                out[name] = DeviceSet.gather(col)[m]
-            for name, col in zip(self.right_cols, rcols):
-                out[name] = DeviceSet.gather(col)[m]
+            return self._gather_result(m, fk, lcols, rcols)
+
+    def _host_columns(self, table: Table, key: str, cols) -> Dict[str, np.ndarray]:
+        """The key and payload columns of a table, concatenated, as host
+        uint32."""
+        b = table.concat()
+        return {c: _host_u32(b[c]) for c in (key, *cols)}
+
+    def _gather_result(self, m: np.ndarray, fk, lcols, rcols) -> Dict[str, np.ndarray]:
+        """The matched rows of a padded device result, on the host (m: the
+        matched mask, already on the host)."""
+        out = {self.fk: DeviceSet.gather(fk)[m]}
+        for name, col in zip(self.left_cols, lcols):
+            out[name] = DeviceSet.gather(col)[m]
+        for name, col in zip(self.right_cols, rcols):
+            out[name] = DeviceSet.gather(col)[m]
         return out
 
-    # ---- multi-device paths (not ported yet) ------------------------------
+    # ---- shuffle join: resident partition rounds -------------------------
 
-    def _run_ici(self) -> Dict[str, np.ndarray]:
-        raise NotImplementedError(
-            "the single-round shuffle join is not ported yet (ROADMAP §1 item 10)"
-        )
+    def _run_ici(self, rounds: int | None = None) -> Dict[str, np.ndarray]:
+        from ..parallel.dist_join import dist_join
+        from ..parallel.shuffle import default_cell_size
+
+        n_dev = self.ds.nr_devices
+        if rounds is None:
+            rounds = self._ici_rounds()
+        with timed(self.timers, "host-prep"):
+            lf = self._host_columns(self.left, self.fk, self.left_cols)
+            rt = self._host_columns(self.right, self.pk, self.right_cols)
+        slack = FLAGS.shuffle_slack
+        cell_l = default_cell_size(self.left.num_rows // n_dev, n_dev * rounds, slack)
+        cell_r = default_cell_size(self.right.num_rows // n_dev, n_dev * rounds, slack)
+        log(f"join shuffle impl={self.impl} rounds={rounds}: {self.left.num_rows} x "
+            f"{self.right.num_rows} rows, cells {cell_l} / {cell_r}")
+        with timed(self.timers, "h2d"):
+            lf = {c: self.ds.scatter(a) for c, a in lf.items()}
+            rt = {c: self.ds.scatter(a) for c, a in rt.items()}
+        with timed(self.timers, "join-total"):
+            # Skew handling: on fragment overflow, double the cell capacity
+            # and retry (the reference instead throws, partition.cc:19-26)
+            for attempt in range(4):
+                fk, lcols, rcols, matched, overflow = dist_join(
+                    self.ds,
+                    lf[self.fk], tuple(lf[c] for c in self.left_cols),
+                    rt[self.pk], tuple(rt[c] for c in self.right_cols),
+                    impl=self.impl, cell_left=cell_l, cell_right=cell_r,
+                    keys31=self.keys31, rounds=rounds,
+                )
+                if not bool(overflow.any()):
+                    break
+                device_log(f"join shuffle overflow (attempt {attempt})", overflow.cpu().numpy())
+                cell_l, cell_r = cell_l * 2, cell_r * 2
+            else:
+                raise OverflowError("shuffle cell overflow after retries")
+            m = DeviceSet.gather(matched)
+        device_log("join matched rows", [int(m.sum())])
+        with timed(self.timers, "gather-result"):
+            return self._gather_result(m, fk, lcols, rcols)
+
+    # ---- host-staged partitioned path ------------------------------------
 
     def _run_partitioned(self) -> Dict[str, np.ndarray]:
-        raise NotImplementedError(
-            "the host-staged partitioned join is not ported yet (ROADMAP §1 item 10)"
-        )
+        from ..ops.join import join_shard, join_shard_fused
+        from ..parallel.partitioner import Partitioner
+
+        if self.ds.nr_devices != 1:
+            raise NotImplementedError(
+                "the host-staged partitioned join on several devices is not ported yet "
+                "(ROADMAP §1 item 10)"
+            )
+        nparts = len(self.left)  # one partition per input batch pair
+        with timed(self.timers, "partition"):
+            parter = Partitioner(self.ds, nparts, timers=self.timers)
+            left_parts = parter.partition_table(self.left, self.fk, self.left_cols)
+            right_parts = parter.partition_table(self.right, self.pk, self.right_cols)
+
+        def padded(cols, key, m):
+            """Partition columns padded to m rows (EMPTY keys, 0 payloads)
+            on the device, with the valid mask."""
+            n = len(cols[key])
+            out = {}
+            for c, a in cols.items():
+                buf = np.full(m, EMPTY if c == key else 0, dtype=np.uint32)
+                buf[:n] = a
+                out[c] = self.ds.scatter(buf)
+            return out, self.ds.scatter(np.arange(m) < n)
+
+        chunks: List[Dict[str, np.ndarray]] = []
+        for r, (lp, rp) in enumerate(zip(left_parts, right_parts)):
+            # lane-aligned round maxima, as the JAX package pads them
+            ml = max(128, -(-len(lp[self.fk]) // 128) * 128)
+            mr = max(128, -(-len(rp[self.pk]) // 128) * 128)
+            with timed(self.timers, "build-probe-take", r):
+                lcols, lvalid = padded(lp, self.fk, ml)
+                rcols, rvalid = padded(rp, self.pk, mr)
+                args = (
+                    lcols[self.fk], tuple(lcols[c] for c in self.left_cols),
+                    rcols[self.pk], tuple(rcols[c] for c in self.right_cols),
+                )
+                kw = dict(left_valid=lvalid, right_valid=rvalid)
+                if self.impl == "cosort":
+                    res = join_shard_fused(*args, keys31=self.keys31, **kw)
+                else:
+                    res = join_shard(*args, impl=self.impl, **kw)
+            with timed(self.timers, "gather-result", r):
+                fk, lres, rres, matched = res
+                chunks.append(self._gather_result(DeviceSet.gather(matched), fk, lres, rres))
+        names = [self.fk, *self.left_cols, *self.right_cols]
+        return {n: np.concatenate([c[n] for c in chunks]) for n in names}
+
+    # Per-round working-set budget of the fused join (JoinTpu's, about ten
+    # uint32 temporaries a row): above it a one-device join runs in rounds.
+    SINGLE_ROUND_ROWS = 64 << 20
+    # Device-resident ceiling: inputs and shuffle cells stay on the device
+    # while the rounds join them; beyond it the host-staged Partitioner
+    # streams out-of-core rounds (the reference's virtual-DPU outer loop,
+    # join_dpu.cc:191,254).
+    MAX_RESIDENT_ROWS = 256 << 20
+
+    def _ici_rounds(self) -> int:
+        # SINGLE_ROUND_ROWS is a per-device budget: each round joins
+        # rows / (d * rounds) rows per device
+        rows = max(self.left.num_rows, self.right.num_rows)
+        per_dev = -(-rows // self.ds.nr_devices)
+        return max(1, -(-per_dev // self.SINGLE_ROUND_ROWS))
 
     def _run_any(self) -> Dict[str, np.ndarray]:
         d = self.ds.nr_devices
-        if d == 1:
+        fits = (
+            self.left.num_rows % d == 0
+            and self.right.num_rows % d == 0
+            and max(self.left.num_rows, self.right.num_rows) <= self.MAX_RESIDENT_ROWS
+        )
+        # join_shard_auto ignores impl, so the single-round path serves only
+        # the default cosort impl; any other impl runs through the shuffle
+        # join's join_shard(impl=...) even on one device, as do working sets
+        # that need several resident rounds
+        if (
+            fits
+            and d == 1
+            and self.impl == "cosort"
+            and max(self.left.num_rows, self.right.num_rows) <= self.SINGLE_ROUND_ROWS
+        ):
             return self._run_single()
-        if self.left.num_rows % d == 0 and self.right.num_rows % d == 0:
+        if fits:
             return self._run_ici()
         return self._run_partitioned()
 

@@ -9,13 +9,17 @@
                 propagate_last)
   bitonic_cuda - in-block merge cascade, csrc/sort.cu
                                               (ops/bitonic_pallas.py:bitonic_merge_blocks)
+  partition_cuda - radix partition into padded cells, csrc/partition.cu
+                                              (ops/partition_pallas.py:partition_cells_pallas)
+  merge_cuda  - merge-probe, csrc/merge_probe.cu (ops/merge_pallas.py:merge_probe_pallas)
   filter      - filter_compact / filter_with_indices (ops/filter.py)
   aggregate   - sums, min/max, aggregators    (ops/aggregate.py)
   take        - row gather, take_fast         (ops/take.py)
   merge       - bitonic merge, sorted-build and dense-pk joins (ops/merge_xla.py)
   join        - fused co-sort join, join_shard_auto, join_shard (ops/join.py)
-  hashing     - Wang hash                     (ops/hashing.py:wang_hash)
-  hashtable   - EMPTY and the cuckoo table    (ops/hashtable.py:54-204)
+  partition   - radix_partition, the cell layout (ops/partition.py)
+  hashing     - Wang hash, radix bucket       (ops/hashing.py)
+  hashtable   - EMPTY, the cuckoo table and the sorted store (ops/hashtable.py)
   _kernels   - nvcc build + ctypes loading of csrc/*.cu
 
 Modules import no kernel library and run no compiler until a CUDA tensor

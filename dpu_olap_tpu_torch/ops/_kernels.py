@@ -44,6 +44,16 @@ _SIGNATURES = {
     ],
     # (in_planes, out_planes, n_planes, n, block, stream)
     "dpu_merge_blocks_u32": [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.c_int, _LL, _LL, _P],
+    # (keys, payloads, n_pay, n, parts, cell, cells_k, cells_pay, cells_sel or NULL,
+    #  counts, overflow, scratch, stream)
+    "dpu_partition_u32": [
+        _P, ctypes.POINTER(_P), ctypes.c_int, _LL, ctypes.c_int, _LL, _P, ctypes.POINTER(_P), _P,
+        _P, _P, _P, _P,
+    ],
+    # (left, nl, right, nr, payloads, n_pay, has, pkey, out_pays, stream)
+    "dpu_merge_probe_u32": [
+        _P, _LL, _P, _LL, ctypes.POINTER(_P), ctypes.c_int, _P, _P, ctypes.POINTER(_P), _P,
+    ],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,4 +1,5 @@
-"""Cuckoo hash table (counterpart of ``dpu_olap_tpu/ops/hashtable.py:54-204``).
+"""Hash tables (counterpart of ``dpu_olap_tpu/ops/hashtable.py``): the cuckoo
+table (:54-204) and the sorted store (:229-377).
 
 The d-ary cuckoo table of the JAX package, in plain PyTorch: each key has
 d = 3 candidate slots from independent multiply-shift mixes of its Wang hash
@@ -12,7 +13,14 @@ Pallas too. When several lanes scatter to one slot, one arbitrary lane wins
 (on the CPU and on the card alike), so two builds of the same keys may lay
 the table out differently; lookups (values, found) and convergence (ok)
 agree. Keys must be unique; 0xFFFFFFFF is reserved as the EMPTY sentinel.
-The sorted store (``ht_build_sorted`` and its probes) is ROADMAP §1 item 8.
+
+The sorted store, the JAX package's default table, is the sorted (key,
+value) array itself: ``ht_build_sorted`` is one sort (the ported bitonic
+sort, sort_cuda.py), and a probe sorts the queries with their positions,
+runs one merge-probe over the store (merge_cuda.py) and, for
+``ht_probe_sorted``, sorts back by position with ``found`` packed into the
+restore key's bit 0. On the CPU the same algorithm runs over the plain
+versions of the two kernels.
 
 The table's state is kept in int64 (uint32 values, EMPTY as 0xFFFFFFFF):
 torch has no uint32 scatter on the CPU.
@@ -26,6 +34,7 @@ import numpy as np
 import torch
 
 from .hashing import wang_hash
+from .sort_cuda import sort_bitonic, sortable_bitonic
 
 # Reserved key: the EMPTY slot marker and the sort pad key. Real keys equal
 # to it are outside the fast paths' contract.
@@ -164,3 +173,122 @@ def ht_probe(table: HashTable, queries: torch.Tensor, n_ways: int = 3):
     # the EMPTY sentinel marks unoccupied slots; it is never a real key
     found = found & (q != _EMPTY)
     return val.to(torch.uint32), found
+
+
+# ---------------------------------------------------------------------------
+# Sorted-store hash table (hashtable.py:229-377 of the JAX package): build =
+# one sort of (keys, values); probe = sort (query, pos) -> merge-probe ->
+# restore sort. Store keys must be unique (the reference's PK contract);
+# queries may repeat. 0xFFFFFFFF stays the EMPTY/invalid sentinel.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SortedTable:
+    keys: torch.Tensor  # uint32[n] ascending; EMPTY-padded tail for invalid
+    values: torch.Tensor  # uint32[n]
+
+    @property
+    def capacity(self) -> int:
+        return self.keys.shape[0]
+
+    def stats(self) -> dict:
+        occupied = int((self.keys.to(torch.int64) != _EMPTY).sum())
+        return {
+            "capacity": self.capacity,
+            "occupied": occupied,
+            "load_factor": occupied / max(1, self.capacity),
+            "build_rounds": 1,
+            "converged": True,
+        }
+
+
+def ht_build_sorted(
+    keys: torch.Tensor, values: torch.Tensor, valid: torch.Tensor | None = None
+) -> SortedTable:
+    """Sort (keys, values) ascending; invalid lanes become the EMPTY tail.
+
+    Load factor 1.0: no slack slots, no convergence loop, no overflow (the
+    reference's assert(ok) at hash_build.c:31 cannot fire)."""
+    from .merge import _as_u32  # merge imports this module
+
+    k = _as_u32(keys)
+    v = _as_u32(values)
+    if valid is not None:
+        k = torch.where(valid, k.view(torch.int32), -1).view(torch.uint32)
+    if sortable_bitonic(k.shape[0]):
+        k, v = sort_bitonic((k, v))
+    return SortedTable(keys=k, values=v)
+
+
+def _probe_sorted_stream(table: SortedTable, q: torch.Tensor):
+    """The sort -> merge core for k >= 2 queries: (spos, pval, found_s) of
+    length npow = next_pow2(k) in sorted-query order, spos each entry's
+    original position. The queries are padded here to the sort's
+    power-of-two length with EMPTY keys and the distinct positions k..npow-1:
+    real queries may be EMPTY too, and the sort's own anonymous pads would
+    interleave with them (hashtable.py:290-301)."""
+    from .merge_cuda import merge_probe
+
+    k = q.shape[0]
+    dev = q.device
+    npow = 1 << (k - 1).bit_length()
+    q_p = q
+    if npow != k:
+        q_p = torch.cat([q, torch.full((npow - k,), -1, dtype=torch.int32, device=dev)
+                         .view(torch.uint32)])
+    pos_p = torch.arange(npow, device=dev).to(torch.uint32)
+    sq, spos = sort_bitonic((q_p, pos_p))
+    has, pkey, (pval,) = merge_probe(sq, table.keys, (table.values,))
+    found_s = has & (pkey.view(torch.int32) == sq.view(torch.int32)) & (sq.to(torch.int64) != _EMPTY)
+    return spos, pval, found_s
+
+
+def _probe_one(table: SortedTable, q: torch.Tensor):
+    """(values, found) for k < 2 queries: one merge-probe (a single query is
+    sorted)."""
+    from .merge_cuda import merge_probe
+
+    has, pkey, (pval,) = merge_probe(q, table.keys, (table.values,))
+    found = has & (pkey.view(torch.int32) == q.view(torch.int32)) & (q.to(torch.int64) != _EMPTY)
+    return torch.where(found, pval.view(torch.int32), 0).view(torch.uint32), found
+
+
+def ht_probe_sorted(table: SortedTable, queries: torch.Tensor):
+    """(values, found) per query against a SortedTable, in query order."""
+    from .merge import _as_u32
+
+    q = _as_u32(queries)
+    k = q.shape[0]
+    if not sortable_bitonic(k):
+        return _probe_one(table, q)
+    spos, pval, found_s = _probe_sorted_stream(table, q)
+    # the restore key packs found into bit 0: one payload plane, 2-op sort
+    rk = (spos.to(torch.int64) << 1) | found_s.to(torch.int64)
+    rk2, vout = sort_bitonic(((rk & 0xFFFFFFFF).to(torch.uint32), pval))
+    found = (rk2[:k].to(torch.int64) & 1) == 1
+    return torch.where(found, vout[:k].view(torch.int32), 0).view(torch.uint32), found
+
+
+def ht_probe_sorted_stream(table: SortedTable, queries: torch.Tensor):
+    """Order-free probe: (pos, values, found) in sorted-QUERY stream order,
+    skipping ht_probe_sorted's restore sort. Every real query appears
+    exactly once; pos is its original position. The arrays have length
+    next_pow2(k): pad entries (only when k is not a power of two) carry
+    pos >= k and found False. The stream order is unspecified by contract
+    (hashtable.py:366-368): consumers key on pos."""
+    from .merge import _as_u32
+
+    q = _as_u32(queries)
+    k = q.shape[0]
+    if not sortable_bitonic(k):
+        val, found = _probe_one(table, q)
+        return torch.arange(k, device=q.device).to(torch.uint32), val, found
+    spos, pval, found_s = _probe_sorted_stream(table, q)
+    return spos, torch.where(found_s, pval.view(torch.int32), 0).view(torch.uint32), found_s
+
+
+def _signed_view(x: torch.Tensor) -> torch.Tensor:
+    """uint32 order mapped onto int32 order (x ^ 0x80000000 as int32), for
+    searchsorted, which compares signed values."""
+    return x.view(torch.int32) ^ -0x80000000

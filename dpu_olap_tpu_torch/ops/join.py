@@ -11,9 +11,9 @@
     with 31-bit keys, the fused join otherwise.
   * ``join_shard`` / ``probe_indices`` — one output row per left row in left
     order, with the "cosort" (co-sort + fill + restore sort), "cuckoo"
-    (hashtable.py) or "sort" (sort + searchsorted) probe: the per-device
-    join of the JAX package's shuffle join for a non-default ``impl``
-    (dist_join.join_shuffled), whose port (ROADMAP §1 item 10) calls them.
+    (hashtable.py) or "sort" (sort + searchsorted) probe: the per-partition
+    join of the shuffle join for a non-default ``impl``
+    (parallel/dist_join.join_shuffled, ``JoinGpu(impl=...)``).
 
 The stable multi-key sorts (the generic fused path, ``_cosort_probe``) are
 ``jax.lax.sort`` in the JAX package, an XLA sort and not a Pallas kernel;

@@ -5,7 +5,9 @@ Reference: dpu::DpuSet (host/dpuext/dpuext.hpp:664-929) — allocate devices,
 scatter/gather buffers, sync. This slice runs on one device: ``allocate``
 hands out one CUDA device and raises when there is none; a CPU DeviceSet
 exists only where a caller such as a test constructs it explicitly.
-Multi-device sets (the JAX package's mesh) arrive with the shuffle join.
+Multi-device sets (the JAX package's mesh, over a process group) arrive with
+the shuffle join's exchange across devices (ROADMAP §1 item 10); the
+one-device shuffle join (parallel/dist_join.py) runs on this set.
 """
 
 from __future__ import annotations

@@ -184,7 +184,9 @@ def test_port_imports_no_jax():
         "need = ['operators.join_op', 'operators.filter_op', 'operators.aggr_op',\n"
         "        'operators.take_op', 'ops.filter', 'ops.filter_cuda', 'ops.aggregate',\n"
         "        'ops.sum_cuda', 'ops.take', 'ops.take_cuda', 'parallel.streaming',\n"
-        "        'ops.scan_cuda', 'ops.bitonic_cuda', 'ops.join', 'ops.hashing', 'ops.hashtable']\n"
+        "        'ops.scan_cuda', 'ops.bitonic_cuda', 'ops.join', 'ops.hashing', 'ops.hashtable',\n"
+        "        'ops.partition', 'ops.partition_cuda', 'ops.merge_cuda', 'parallel.shuffle',\n"
+        "        'parallel.dist_join', 'parallel.partitioner', 'operators.partition_op']\n"
         "missing = [m for m in need if 'dpu_olap_tpu_torch.' + m not in mods]\n"
         "assert not missing, missing\n"
         "print(len(mods))\n"

@@ -233,3 +233,110 @@ def test_join_gpu_multi_device_raises(rows, path):
     op = JoinGpu(TwoDevices(torch.device("cpu")), left, right).Prepare()
     with pytest.raises(NotImplementedError, match=f"{path}.*item 10"):
         op.Run()
+
+
+# ---- the shuffle join and the partitioned join (parallel/dist_join.py,
+# parallel/partitioner.py) against JoinTpu on a one-device mesh ------------
+
+
+def _join_tables(nb=4, bl=1 << 10, br=1 << 9):
+    jleft, jright = jax_make_join_tables(nb, bl, br)
+    return jleft, jright, Table.from_reference(jleft), Table.from_reference(jright)
+
+
+def _check_join(out, jout, left, right):
+    cols = ("fk", "y", "x")
+    assert list(out) == list(jout)
+    np.testing.assert_array_equal(_rows(out, cols), _rows(jout, cols))
+    nat = JoinNative(left, right).Prepare().Run()
+    assert len(out["fk"]) == nat.num_rows > 0
+    np.testing.assert_array_equal(_rows(out, cols), _canon([nat[c].to_numpy() for c in cols]))
+
+
+@pytest.mark.parametrize("rounds", [1, 2, 4])
+def test_join_gpu_run_ici_matches_join_tpu(rounds):
+    jleft, jright, left, right = _join_tables()
+    op = JoinGpu(CPU_SET, left, right).Prepare()
+    out = op._run_ici(rounds=rounds)
+    jout = JoinTpu(JaxDeviceSet.allocate(1), jleft, jright).Prepare()._run_ici(rounds=rounds)
+    _check_join(out, jout, left, right)
+    assert op.Timers().sum_ns("join-total") > 0 and op.Timers().rank_count("gather-result") == 1
+
+
+@pytest.mark.parametrize("impl", ["sort", "cuckoo"])
+def test_join_gpu_impl_runs_the_shuffle_join_like_join_tpu(impl):
+    jleft, jright, left, right = _join_tables()
+    op = JoinGpu(CPU_SET, left, right, impl=impl).Prepare()
+    out = op.Run()
+    jout = JoinTpu(JaxDeviceSet.allocate(1), jleft, jright, impl=impl).Prepare().Run()
+    _check_join(out, jout, left, right)
+    assert op.Timers().sum_ns("join-total") > 0  # the shuffle join ran (_run_ici)
+
+
+@pytest.mark.parametrize("impl", ["cosort", "sort"])
+def test_join_gpu_partitioned_path_matches_join_tpu(impl):
+    # tests/test_operators.py:80-89: shrink the residency budget on the
+    # instance so that the host-staged Partitioner + rounds path runs
+    jleft, jright, left, right = _join_tables(nb=4, bl=1 << 10, br=1 << 9)
+    op = JoinGpu(CPU_SET, left, right, impl=impl).Prepare()
+    jop = JoinTpu(JaxDeviceSet.allocate(1), jleft, jright, impl=impl).Prepare()
+    op.MAX_RESIDENT_ROWS = jop.MAX_RESIDENT_ROWS = 1 << 10
+    out, jout = op.Run(), jop.Run()
+    _check_join(out, jout, left, right)
+    assert op.Timers().rank_count("build-probe-take") == len(left)
+    assert op.Timers().sum_ns("partition") > 0
+
+
+def test_join_gpu_wide_payloads_on_the_shuffle_join_match_join_tpu():
+    # u64 / f64 / f32 payloads ride the shuffle join as u32 planes
+    from dpu_olap_tpu import columnar as jcol
+    from dpu_olap_tpu.operators.join_op import _recombine_u64 as jax_recombine_u64
+    from dpu_olap_tpu_torch.operators.join_op import _recombine_u64
+
+    cols_l, cols_r = _fallback_tables("wide_permuted", 2)
+    jleft = jcol.Table([jcol.Batch.from_numpy(c) for c in cols_l])
+    jright = jcol.Table([jcol.Batch.from_numpy(c) for c in cols_r])
+    left, right = Table.from_reference(jleft), Table.from_reference(jright)
+    op = JoinGpu(CPU_SET, left, right).Prepare()
+    jop = JoinTpu(JaxDeviceSet.allocate(1), jleft, jright).Prepare()
+    assert op._l_u64 and op._r_u64  # the wide columns were split
+    out = _recombine_u64(op._run_ici(rounds=2), {**op._l_u64, **op._r_u64})
+    jout = jax_recombine_u64(jop._run_ici(rounds=2), {**jop._l_u64, **jop._r_u64})
+    names = list(cols_l[0]) + [c for c in cols_r[0] if c != "pk"]
+    assert list(out) == list(jout) == names
+    for n in names:
+        assert out[n].dtype == jout[n].dtype
+    np.testing.assert_array_equal(_bits(out, names), _bits(jout, names))
+    nat = JoinNative(left, right).Prepare().Run()
+    np.testing.assert_array_equal(
+        _bits(out, names), _bits({n: nat[n].to_numpy() for n in names}, names)
+    )
+
+
+@pytest.mark.parametrize("rows, impl", [
+    ((512, 256), "cosort"),   # one round fits: the single-round join
+    ((512, 256), "sort"),     # another impl: the shuffle join
+    ((512, 256), "cuckoo"),
+    ((2048, 256), "cosort"),  # above SINGLE_ROUND_ROWS: resident rounds
+    ((4096, 256), "cosort"),  # above MAX_RESIDENT_ROWS: host-staged
+    ((4096, 4096), "sort"),
+])
+def test_join_gpu_routes_like_join_tpu(rows, impl):
+    from dpu_olap_tpu.columnar import Batch as JaxBatch
+    from dpu_olap_tpu.columnar import Table as JaxTable
+
+    bl, br = rows
+    jleft = JaxTable([JaxBatch.from_numpy({"fk": np.zeros(bl, np.uint32), "y": np.zeros(bl, np.uint32)})])
+    jright = JaxTable([JaxBatch.from_numpy({"pk": np.arange(br, dtype=np.uint32),
+                                            "x": np.zeros(br, np.uint32)})])
+    op = JoinGpu(CPU_SET, Table.from_reference(jleft), Table.from_reference(jright), impl=impl).Prepare()
+    jop = JoinTpu(JaxDeviceSet.allocate(1), jleft, jright, impl=impl).Prepare()
+    picked = []
+    for o in (op, jop):
+        o.SINGLE_ROUND_ROWS, o.MAX_RESIDENT_ROWS = 1024, 2048
+        o._run_single = lambda: picked.append("single")
+        o._run_ici = lambda: picked.append("ici")
+        o._run_partitioned = lambda: picked.append("partitioned")
+        o._run_any()
+    assert picked[0] == picked[1]
+    assert op._ici_rounds() == jop._ici_rounds() == -(-max(rows) // 1024)
