@@ -7,11 +7,11 @@ Run from the root of the repository on a machine with one NVIDIA GPU:
 
 It builds the CUDA kernels from dpu_olap_tpu_torch/csrc, checks each kernel
 against its plain PyTorch version on the card (sort, gather, filter, sum,
-forward fill, block merge, radix partition, merge-probe), the partition,
-sort and fill kernels also at the SF=64 main path's shapes, and times each
-beside its bound and the one PyTorch call that computes the same function,
-then
-drives each operator path through Prepare().Run() at the reference benchmark
+forward fill, block merge, radix partition, merge-probe, the filter
+alternates and stage ablation), the partition, sort and fill kernels also
+at the SF=64 main path's shapes, and times each beside its bound and the
+one PyTorch call that computes the same function, then drives each
+operator path through Prepare().Run() at the reference benchmark
 shapes, each with the kernels' launch counts set to 0 just before its run
 and read just after:
   * JoinGpu at BM_JoinDpu SF=64 (128Mi rows a side), above one round's
@@ -34,7 +34,13 @@ and read just after:
   * SumGpu, BM_Aggr and its small-batch shape (sum kernel): the exact
     integer against pyarrow;
   * TakeGpu, BM_Take (sort + gather kernels): against pyarrow, batch by
-    batch.
+    batch;
+  * the filter-kernel measurement entry point
+    (python -m dpu_olap_tpu_torch.bench.measure_filter: e2e, parts, v3, v4,
+    defaultab), the only path of the filter alternates v2, v3, v4 and the
+    stage ablation, after those kernels are held bit for bit against their
+    plain versions and v1's kernel (phase_filter_alternates,
+    phase_filter_stages); no reading may lie under its floor.
 For each fallback it also splits the result's readback (copy, numpy mask,
 against masking on the card) and profiles one Run() (device busy time, idle
 share, the longest device events).
@@ -440,6 +446,182 @@ def phase_filter_kernel(rng, card: str) -> dict:
         flush=True,
     )
     return kernel_row(err, ms, plain_ms, nbytes, lib)
+
+
+ALTERNATES = (("v2", "filter2.cu", "dpu_olap_tpu/ops/filter_pallas2.py:220"),
+              ("v3", "filter3.cu", "dpu_olap_tpu/ops/filter_pallas3.py:215"),
+              ("v4", "filter4.cu", "dpu_olap_tpu/ops/filter_pallas4.py:200"))
+MF_N = 8 << 20  # measure_filter's smaller size: every section times the kernels there
+
+
+def card_err(got, ref) -> int:
+    """Largest absolute difference of equal-shape uint32 tensors, on the card."""
+    import torch
+
+    err = 0
+    for g, r in zip(got, ref):
+        if g.numel():
+            err = max(err, int((g.to(torch.int64) - r.to(torch.int64)).abs().max()))
+    return err
+
+
+def phase_filter_alternates(rng, card: str) -> dict:
+    """The filter alternates v2, v3 and v4 bit for bit on the card against
+    their plain versions, whole arrays with their tails, with and without
+    indices, and against v1's kernel where v1 computes the same function
+    (threshold 2^30): 64Mi and 8Mi random (measure_filter's two sizes),
+    3·2^20+17, 1, all pass, none pass, one kept value at the end; thresholds
+    2^30, 0, 2^31 and 0xFFFFFFFF; the _padded wrappers with fill 7. Timed
+    at 64Mi beside the bound, the plain version and predicate +
+    masked_select."""
+    import torch
+
+    from dpu_olap_tpu_torch.ops import filter_alt_cuda as alt
+    from dpu_olap_tpu_torch.ops import filter_cuda
+
+    t = filter_cuda.THRESHOLD
+    odd = 3 * (1 << 20) + 17
+    one_end = np.full(odd, 0xC0000000, np.uint32)
+    one_end[-1] = 5
+    cases = [
+        ("random 64Mi", rng.integers(0, 2**32, FILTER_N, dtype=np.uint32), (t, 1 << 31)),
+        ("random 8Mi", rng.integers(0, 2**32, MF_N, dtype=np.uint32), (t, 1 << 31)),
+        (f"random {odd}", rng.integers(0, 2**32, odd, dtype=np.uint32),
+         (t, 0, 1 << 31, 0xFFFFFFFF)),
+        ("random 1", rng.integers(0, 2**32, 1, dtype=np.uint32), (t, 0, 1 << 31, 0xFFFFFFFF)),
+        ("all pass", rng.integers(0, t, odd, dtype=np.uint32), (t,)),
+        ("none pass", rng.integers(t, 2**32, odd, dtype=np.uint32), (t,)),
+        ("one kept value at the end", one_end, (t,)),
+    ]
+    errs = dict.fromkeys(alt.VERSIONS, 0)
+    timed = None
+    for name, v, thresholds in cases:
+        tv = on_card(v)
+        n = len(v)
+        if n == FILTER_N:
+            timed = tv
+        v1 = filter_cuda.filter_compact(tv, 7), filter_cuda.filter_with_indices(tv)
+        for thr in thresholds:
+            keep = v < thr
+            c = int(keep.sum())
+            for ver in alt.VERSIONS:
+                got = alt.filter_compact(tv, ver, thr, 7), alt.filter_with_indices(tv, ver, thr)
+                ref = (alt.filter_compact_ref(tv, ver, thr, 7),
+                       alt.filter_with_indices_ref(tv, ver, thr))
+                require(all(card_equal(g, r) for g, r in zip(got, ref)),
+                        f"filter {ver} kernel != plain: {name} threshold {thr:#x}")
+                require(int(got[0][1]) == c, f"filter {ver} count != numpy: {name} threshold {thr:#x}")
+                if thr == t:
+                    require(card_equal(got[1], v1[1]), f"filter {ver} with indices != v1: {name}")
+                    if ver != "v2":  # v2 has no _padded wrapper, as in the JAX package
+                        got = (*got, alt.filter_padded(tv, ver, 7))
+                        require(card_equal(got[2], v1[0]), f"filter {ver} padded != v1: {name}")
+                    require(card_equal(got[0], v1[0]), f"filter {ver} != v1: {name}")
+                errs[ver] = max(errs[ver], card_err(got[0], ref[0]), card_err(got[1], ref[1]))
+        got = host(v1[1][1])[: int(v1[1][2])]
+        require(np.array_equal(got, np.flatnonzero(v < t)), f"v1 rows != numpy: {name}")
+        print(f"[filter alternates] {name} (n={n}), thresholds"
+              f" {', '.join(f'{x:#x}' for x in thresholds)}: v2, v3, v4 == plain (and == v1 at"
+              f" 2^30, padded with fill 7 too), with and without indices", flush=True)
+    torch.cuda.synchronize()
+    t32 = timed.view(torch.int32)
+    lib = library_ms("torch.masked_select",
+                     lambda: torch.masked_select(t32, filter_cuda.below_threshold(timed)))
+    rows = {}
+    for ver in alt.VERSIONS:
+        ms = cuda_ms(lambda: alt.filter_compact(timed, ver))
+        plain_ms = cuda_ms(lambda: alt.filter_compact_ref(timed, ver))
+        wi_ms = cuda_ms(lambda: alt.filter_with_indices(timed, ver))
+        wi_plain = cuda_ms(lambda: alt.filter_with_indices_ref(timed, ver))
+        rows[ver] = {**kernel_row(errs[ver], ms, plain_ms, 8 * FILTER_N, lib),
+                     "indices_ms": wi_ms, "indices_plain_ms": wi_plain,
+                     "indices_bound_ms": bound_ms(12 * FILTER_N)}
+        print(f"[filter {ver}] n={FILTER_N}: filter_compact kernel {ms:.4f} ms, plain"
+              f" {plain_ms:.4f} ms, bound {bound_ms(8 * FILTER_N):.4f} ms; filter_with_indices"
+              f" kernel {wi_ms:.4f} ms, plain {wi_plain:.4f} ms, bound"
+              f" {bound_ms(12 * FILTER_N):.4f} ms; predicate + torch.masked_select {lib} ms"
+              f" (median of {REPS}, CUDA events) [{card}]", flush=True)
+    return rows
+
+
+def phase_filter_stages(rng, card: str) -> dict:
+    """The stage ablation (copy, count, scan, full) bit for bit against its
+    plain version on the card at 64Mi, 8Mi (the size measure_filter's parts
+    section runs it at), 3·2^20+17 and 1; each stage timed at
+    64Mi beside its bound (copy 8n, count and scan 4n, full 8n bytes); copy,
+    the pure-IO stage, against torch's clone of the same values in
+    interleaved rounds."""
+    import torch
+
+    from dpu_olap_tpu_torch.ops import filter_stages
+
+    err, timed = 0, None
+    for n in (FILTER_N, MF_N, 3 * (1 << 20) + 17, 1):
+        tv = on_card(rng.integers(0, 2**32, n, dtype=np.uint32))
+        timed = timed if timed is not None else tv
+        for stage in filter_stages.STAGES:
+            got = [g for g in filter_stages.filter_stage(tv, stage) if g is not None]
+            ref = [r for r in filter_stages.filter_stage_ref(tv, stage) if r is not None]
+            require(card_equal(got, ref), f"filter stage {stage} kernel != plain (n={n})")
+            err = max(err, card_err(got, ref))
+        print(f"[filter stages] n={n}: copy, count, scan, full == plain", flush=True)
+    torch.cuda.synchronize()
+    stage_bytes = {"copy": 8, "count": 4, "scan": 4, "full": 8}
+    stages = {}
+    for stage, b in stage_bytes.items():
+        stages[stage] = {"ms": cuda_ms(lambda: filter_stages.filter_stage(timed, stage)),
+                         "plain_ms": cuda_ms(lambda: filter_stages.filter_stage_ref(timed, stage)),
+                         "bound_ms": bound_ms(b * FILTER_N)}
+    # copy against torch.clone, the same bytes: single readings spread
+    # between calls, so MP_ROUNDS rounds, each timing one after the other
+    times = {"copy": [], "clone": []}
+    for _ in range(MP_ROUNDS):
+        times["copy"].append(cuda_ms(lambda: filter_stages.filter_stage(timed, "copy")))
+        times["clone"].append(cuda_ms(lambda: timed.clone()))
+    stages["copy"]["ms"] = float(np.median(times["copy"]))
+    lib = float(np.median(times["clone"]))
+    faster = sum(c < t for c, t in zip(times["copy"], times["clone"]))
+    print(f"[filter stages] n={FILTER_N}: "
+          + "; ".join(f"{s} kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, bound"
+                      f" {r['bound_ms']:.4f}" for s, r in stages.items())
+          + f"; torch.clone {lib:.4f} ms (median of {REPS}, CUDA events; copy and clone:"
+          f" medians over {MP_ROUNDS} interleaved rounds) [{card}]", flush=True)
+    print(f"[filter stages] copy against torch.clone over {MP_ROUNDS} rounds, ms: "
+          + "; ".join(f"{k} min {min(v):.4f} median {np.median(v):.4f} max {max(v):.4f}"
+                      for k, v in times.items())
+          + f"; copy faster in {faster} of {MP_ROUNDS} rounds [{card}]", flush=True)
+    copy = stages["copy"]
+    return {**kernel_row(err, copy["ms"], copy["plain_ms"], 8 * FILTER_N, lib), "stages": stages}
+
+
+def phase_measure_filter(card: str) -> dict:
+    """The filter-kernel measurement entry point
+    (python -m dpu_olap_tpu_torch.bench.measure_filter), all five sections at
+    their own sizes, with the alternates' and the ablation's launch counts set
+    to 0 just before and read just after: each must launch, and no reading may
+    lie under its floor."""
+    import torch
+
+    from dpu_olap_tpu_torch.bench import measure_filter
+    from dpu_olap_tpu_torch.ops import filter_alt_cuda, filter_stages
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    filter_alt_cuda.LAUNCHES.update(dict.fromkeys(filter_alt_cuda.VERSIONS, 0))
+    filter_stages.LAUNCHES = 0
+    t0 = time.perf_counter()
+    results = measure_filter.run()
+    launches = {f"filter{v[1]}": n for v, n in filter_alt_cuda.LAUNCHES.items()}
+    launches["stages"] = filter_stages.LAUNCHES
+    require(all(v > 0 for v in launches.values()), f"measure_filter: launches {launches}")
+    low = [f"{s} {n}" for s, sec in results.items() for n, e in sec.items() if e.get("suspect")]
+    require(not low, f"measure_filter: readings under their floor: {low}")
+    print(f"[measure_filter] sections {list(results)}: launches {launches}, none under its floor;"
+          f" {time.perf_counter() - t0:.1f} s, peak device memory"
+          f" {torch.cuda.max_memory_allocated()} B [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_sum_kernel(rng, card: str) -> dict:
@@ -1448,6 +1630,13 @@ def main() -> dict:
     measured["partition_cells"] = phase_partition_kernel(rng, card)
     phase_round_kernels(card)
     measured["merge_probe"] = phase_merge_probe_kernel(rng, card)
+    # the filter alternates and the stage ablation lie on no operator path:
+    # their launches are counted around the measurement entry point's run
+    rng_alt = np.random.default_rng(SEED + 5)
+    for ver, row in phase_filter_alternates(rng_alt, card).items():
+        measured[f"filter_compact_{ver}"] = row
+    measured["filter_stages"] = phase_filter_stages(rng_alt, card)
+    filter_launches = phase_measure_filter(card)
 
     launches = {"sort": 0, "gather": 0, "filter": 0, "sum": 0, "merge": 0, "fill": 0,
                 "partition": 0, "merge_probe": 0}
@@ -1463,6 +1652,7 @@ def main() -> dict:
         for name, n in path().items():
             launches[name] += n
     launches["last"] = fills["last_launches"]  # propagate_last is on no operator path
+    launches.update(filter_launches)
 
     sources = {
         "sort_bitonic": ("sort", "sort.cu", "dpu_olap_tpu/ops/sort_pallas.py:385", [
@@ -1484,6 +1674,10 @@ def main() -> dict:
                             "dpu_olap_tpu/ops/partition_pallas.py:161", None),
         "merge_probe": ("merge_probe", "merge_probe.cu", "dpu_olap_tpu/ops/merge_pallas.py:250",
                         None),
+        **{f"filter_compact_{ver}": (f"filter{ver[1]}", src, replaces, None)
+           for ver, src, replaces in ALTERNATES},
+        "filter_stages": ("stages", "filter.cu", "scripts/measure_filter.py:387",
+                          ["scripts/measure_filter.py:304"]),
     }
     kernels = []
     for name, (counter, src, replaces, also) in sources.items():

@@ -12,6 +12,8 @@ reference this port is tested against; this package never imports jax.
   - ``csrc/``      the CUDA sources, built with nvcc at first use.
   - ``parallel/``  DeviceSet over a torch device (``dpu_olap_tpu/parallel``).
   - ``operators/`` the operators (``dpu_olap_tpu/operators``).
+  - ``bench/``     chained device timing and the filter-kernel measurement
+                   (``dpu_olap_tpu/bench``, ``scripts/measure_filter.py``).
   - ``columnar``, ``generator``, ``config``, ``timer``, ``metrics``: the
     counterparts of the JAX package's modules of the same names.
 """

@@ -1,0 +1,261 @@
+"""The filter kernels' A/B and stage ablation on the card (counterpart of
+``scripts/measure_filter.py``, sections ``e2e``, ``parts``, ``v3``, ``v4``
+and ``defaultab``).
+
+    python -m dpu_olap_tpu_torch.bench.measure_filter [e2e parts v3 v4 defaultab] [--out FILE]
+
+  e2e       v1 (``ops/filter_cuda.py``) at 8Mi and 64Mi; beside it the chain
+            step alone (``chain``) and v1's chain run eagerly (``v1_eager``,
+            the launch gap).
+  parts     the v1 skeleton cut at a stage (``ops/filter_stages.py``: copy,
+            count, scan, full) at 8Mi, interleaved with ``torch.clone``
+            (``clone``), the pure-IO yardstick of the copy stage.
+  v3        v1 against v3 and v2, and v1 against v3 with indices,
+            interleaved, at 8Mi and 64Mi.
+  v4        v4's parity with numpy on the card at 2Mi first, then v4
+            against v3 and v1, with and without indices, interleaved.
+  defaultab v1 against v3 twice over (v1, v3, v1b, v3b), interleaved.
+
+Inputs are random uint32 from ``np.random.default_rng(0)``; each step is
+the filter on the carry, then ``c ^ (out & 1) ^ cnt`` (``^ (sel & 2)`` with
+indices), timed by ``bench/device_time.py`` (CUDA graphs, (T(2k) - T(k)) /
+k). Names follow the JAX script's without its TPU block geometry
+(``r256``, ``h4``): one candidate per version. Each reading prints one line
+and lands in the returned dict; one under its floor (4n bytes at the
+H100's 3.35 TB/s, or 0.004 ms) is flagged ``suspect``. A JSON file is
+written only with ``--out``. It runs on the card; ``device="cpu"`` and
+small ``sizes`` exist for the tests.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+
+ROOFLINE_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+FLOOR_MS = 0.004
+SECTIONS = ("e2e", "parts", "v3", "v4", "defaultab")
+REPS = 5
+PARITY_N = 2 << 20
+# (n, tag, k) for each section, the JAX script's sizes and chain lengths
+SIZES = {
+    "e2e": ((8 << 20, "8Mi", 64), (64 << 20, "64Mi", 8)),
+    "parts": ((8 << 20, "8Mi", 32),),
+    "v3": ((8 << 20, "8Mi", 32), (64 << 20, "64Mi", 4)),
+    "v4": ((8 << 20, "8Mi", 32), (64 << 20, "64Mi", 4)),
+    "defaultab": ((8 << 20, "8Mi", 32), (64 << 20, "64Mi", 8)),
+}
+
+
+def record(results: dict, section: str, name: str, ms: float, note: str = "",
+           nbytes: int | None = None, spread_ms: list | None = None) -> dict:
+    """Keep one reading under results[section][name] and print it; flag it
+    ``suspect`` when it lies under its floor."""
+    entry = {"ms": ms, "note": note}
+    if spread_ms:
+        entry["spread_ms"] = [min(spread_ms), max(spread_ms)]
+    floor_ms = FLOOR_MS
+    if nbytes is not None:
+        floor_ms = max(floor_ms, nbytes / ROOFLINE_BYTES_PER_S * 1e3)
+    if ms < floor_ms:
+        entry["suspect"] = True
+        entry["floor_ms"] = floor_ms
+        print(f"[measure_filter] {section} {name}: {ms:.6f} ms BELOW FLOOR {floor_ms:.4f}",
+              flush=True)
+    else:
+        spread = f" (reps {entry['spread_ms'][0]:.4f}-{entry['spread_ms'][1]:.4f})" if spread_ms else ""
+        print(f"[measure_filter] {section} {name}: {ms:.4f} ms{spread}  {note}", flush=True)
+    results.setdefault(section, {})[name] = entry
+    return entry
+
+
+def _values(n: int, device: str, seed: int = 0):
+    import torch
+
+    a = np.random.default_rng(seed).integers(0, 2**32, n, dtype=np.uint32)
+    return torch.from_numpy(a).to(device)
+
+
+def _mix(c, out, cnt, sel=None):
+    """c ^ (out & 1) ^ cnt [^ (sel & 2)], in int32 bits."""
+    import torch
+
+    r = c.view(torch.int32) ^ (out.view(torch.int32) & 1) ^ cnt.view(torch.int32)
+    if sel is not None:
+        r = r ^ (sel.view(torch.int32) & 2)
+    return r.view(torch.uint32)
+
+
+def _cstep(f):
+    return lambda c: _mix(c, *f(c))
+
+
+def _wstep(f):
+    def step(c):
+        out, sel, cnt = f(c)
+        return _mix(c, out, cnt, sel)
+    return step
+
+
+def _stage_step(stage):
+    from ..ops import filter_stages
+
+    def step(c):
+        out, tiles, cnt = filter_stages.filter_stage(c, stage)
+        return _mix(c, out if out is not None else tiles[:1], cnt)
+    return step
+
+
+def _steps():
+    from ..ops import filter_alt_cuda, filter_cuda
+
+    def alt(f, version):
+        return lambda c: f(c, version)
+
+    return {
+        "v1": _cstep(filter_cuda.filter_compact),
+        **{v: _cstep(alt(filter_alt_cuda.filter_compact, v)) for v in ("v2", "v3", "v4")},
+        "v1wi": _wstep(filter_cuda.filter_with_indices),
+        **{f"{v}wi": _wstep(alt(filter_alt_cuda.filter_with_indices, v)) for v in ("v3", "v4")},
+    }
+
+
+def _ab(results, section, cands, sizes, device, reps, suffix=""):
+    """Time the candidates, (name, step) pairs of _steps(), interleaved at
+    each size and record them as {name}_{tag}{suffix}."""
+    from .device_time import time_chained_multi
+
+    steps = _steps()
+    for n, tag, k in sizes:
+        x = _values(n, device)
+        specs = [(f"{name}_{tag}{suffix}", steps[kind], x, k) for name, kind in cands]
+        spread = {}
+        res = time_chained_multi(specs, reps=reps, spread=spread)
+        for name, sec in res.items():
+            record(results, section, name, sec * 1e3, f"{n * 4 / sec / 1e9:.0f} GB/s",
+                   nbytes=n * 4, spread_ms=[s * 1e3 for s in spread[name]])
+        del x
+    return results[section]
+
+
+def measure_e2e(results, device="cuda", sizes=SIZES["e2e"], reps=REPS):
+    """v1 and the chain step alone, interleaved; v1's chain run eagerly."""
+    import torch
+
+    from ..ops import filter_cuda
+    from .device_time import time_chained, time_chained_multi
+
+    v1 = _cstep(filter_cuda.filter_compact)
+    for n, tag, k in sizes:
+        x = _values(n, device)
+        zero = torch.zeros((), dtype=torch.uint32, device=device)
+        spread = {}
+        res = time_chained_multi([(f"v1_{tag}", v1, x, k),
+                                  (f"chain_{tag}", lambda c: _mix(c, c, zero), x, k)],
+                                 reps=reps, spread=spread)
+        res[f"v1_eager_{tag}"] = time_chained(v1, x, k=k, reps=reps, graph=False)
+        for name, sec in res.items():
+            record(results, "e2e", name, sec * 1e3, f"{n * 4 / sec / 1e9:.0f} GB/s",
+                   nbytes=n * 4, spread_ms=[s * 1e3 for s in spread.get(name, ())])
+        del x
+    return results["e2e"]
+
+
+def measure_parts(results, device="cuda", sizes=SIZES["parts"], reps=REPS):
+    """The v1 skeleton cut at each stage and torch.clone, interleaved."""
+    import torch
+
+    from ..ops.filter_stages import STAGES
+    from .device_time import time_chained_multi
+
+    for n, tag, k in sizes:
+        x = _values(n, device)
+        zero = torch.zeros((), dtype=torch.uint32, device=device)
+        spread = {}
+        specs = [(f"{s}_{tag}", _stage_step(s), x, k) for s in STAGES]
+        specs.append((f"clone_{tag}", lambda c: _mix(c, c.clone(), zero), x, k))
+        res = time_chained_multi(specs, reps=reps, spread=spread)
+        for name, sec in res.items():
+            record(results, "parts", name, sec * 1e3, f"{n * 4 / sec / 1e9:.0f} GB/s",
+                   nbytes=n * 4, spread_ms=[s * 1e3 for s in spread[name]])
+        del x
+    return results["parts"]
+
+
+def measure_v3(results, device="cuda", sizes=SIZES["v3"], reps=REPS):
+    cands = [(c, c) for c in ("v1", "v3", "v2", "v1wi", "v3wi")]
+    return _ab(results, "v3", cands, sizes, device, reps)
+
+
+def check_v4_parity(n: int = PARITY_N, device: str = "cuda") -> None:
+    """v4 with and without indices against numpy, on ``device``."""
+    import torch
+
+    from ..ops import filter_alt_cuda
+
+    thr = 1 << 30
+    xs = np.random.default_rng(7).integers(0, 2**32, n, dtype=np.uint32)
+    ref, refi = xs[xs < thr], np.flatnonzero(xs < thr).astype(np.uint32)
+    x = torch.from_numpy(xs).to(device)
+    out, cnt = filter_alt_cuda.filter_compact(x, "v4", thr)
+    c = int(cnt)
+    if c != len(ref) or not np.array_equal(out.cpu().numpy()[:c], ref):
+        raise RuntimeError("v4 compact device parity FAILED")
+    _, sel, c2 = filter_alt_cuda.filter_with_indices(x, "v4", thr)
+    if int(c2) != len(ref) or not np.array_equal(sel.cpu().numpy()[: int(c2)], refi):
+        raise RuntimeError("v4 with_indices device parity FAILED")
+    print(f"[measure_filter] v4 parity with numpy ok (n={n}, on {device})", flush=True)
+
+
+def measure_v4(results, device="cuda", sizes=SIZES["v4"], reps=REPS, parity_n=PARITY_N):
+    check_v4_parity(parity_n, device)
+    cands = [(c, c) for c in ("v4", "v3", "v1", "v4wi", "v1wi")]
+    return _ab(results, "v4", cands, sizes, device, reps)
+
+
+def measure_defaultab(results, device="cuda", sizes=SIZES["defaultab"], reps=REPS):
+    run_id = len([k for k in results.get("defaultab", {}) if k.startswith(f"v1_{sizes[0][1]}")])
+    cands = [("v1", "v1"), ("v3", "v3"), ("v1b", "v1"), ("v3b", "v3")]
+    return _ab(results, "defaultab", cands, sizes, device, reps, suffix=f"#{run_id}")
+
+
+def run(sections=SECTIONS, device: str = "cuda", sizes=None, reps: int = REPS,
+        parity_n: int = PARITY_N) -> dict:
+    """Run the named sections; ``sizes`` ((n, tag, k), ...) replaces every
+    section's own. Returns {section: {name: reading}}."""
+    bad = [s for s in sections if s not in SECTIONS]
+    if bad:
+        raise ValueError(f"unknown section {bad[0]!r}; sections are {SECTIONS}")
+    results: dict = {}
+    for s in sections:
+        kw = {"device": device, "sizes": sizes or SIZES[s], "reps": reps}
+        if s == "v4":
+            kw["parity_n"] = parity_n
+        globals()[f"measure_{s}"](results, **kw)
+    return results
+
+
+def main(argv=None) -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("sections", nargs="*", metavar="SECTION",
+                    help=f"any of {' '.join(SECTIONS)} (default: all)")
+    ap.add_argument("--out", help="also write the readings to this JSON file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("measure_filter needs a CUDA device", file=sys.stderr)
+        return 1
+    card = torch.cuda.get_device_name(0)
+    results = run(args.sections or SECTIONS)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"device": card, **results}, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -32,67 +32,13 @@
 // single-pass decoupled look-back scan, which reads the input once, is
 // later work.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "filter_tiles.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = COUNT_THREADS;
 constexpr int WARPS = THREADS / 32;
-constexpr int ITEMS = 16;  // elements per thread per tile
-constexpr int TILE = THREADS * ITEMS;  // ops/filter_cuda.py TILE
-constexpr int SCAN_THREADS = 1024;
-constexpr unsigned FULL = 0xFFFFFFFFu;
-
-__global__ void tile_count_kernel(const uint32_t* __restrict__ x, long long n,
-                                  uint32_t thr, uint32_t* __restrict__ tile_counts) {
-  __shared__ unsigned warp_count[WARPS];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long base = (long long)blockIdx.x * TILE;
-  unsigned c = 0;
-#pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    const long long i = base + j * THREADS + threadIdx.x;
-    const bool keep = i < n && x[i] < thr;
-    c += __popc(__ballot_sync(FULL, keep));
-  }
-  if (lane == 0) warp_count[warp] = c;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned t = 0;
-#pragma unroll
-    for (int k = 0; k < WARPS; ++k) t += warp_count[k];
-    tile_counts[blockIdx.x] = t;
-  }
-}
-
-// One block: exclusive scan of ntiles counts in place; *count = the total.
-__global__ void tile_scan_kernel(uint32_t* __restrict__ offs, long long ntiles,
-                                 uint32_t* __restrict__ count) {
-  __shared__ unsigned part[SCAN_THREADS];
-  const int t = threadIdx.x;
-  const long long per = (ntiles + SCAN_THREADS - 1) / SCAN_THREADS;
-  const long long lo = t * per;
-  const long long hi = lo + per < ntiles ? lo + per : ntiles;
-  unsigned s = 0;
-  for (long long i = lo; i < hi; ++i) s += offs[i];
-  part[t] = s;
-  __syncthreads();
-  for (int d = 1; d < SCAN_THREADS; d <<= 1) {  // inclusive Hillis-Steele scan
-    const unsigned v = t >= d ? part[t - d] : 0u;
-    __syncthreads();
-    part[t] += v;
-    __syncthreads();
-  }
-  unsigned run = t ? part[t - 1] : 0u;
-  for (long long i = lo; i < hi; ++i) {
-    const unsigned c = offs[i];
-    offs[i] = run;
-    run += c;
-  }
-  if (t == SCAN_THREADS - 1) *count = part[t];
-}
+constexpr int ITEMS = COUNT_ITEMS;  // elements per thread per tile
 
 __global__ void tile_compact_kernel(const uint32_t* __restrict__ x, long long n,
                                     uint32_t thr, uint32_t fill,
@@ -159,18 +105,80 @@ extern "C" int dpu_filter_u32(const void* x, long long n, unsigned thr,
   if (n < 0 || n > 0xFFFFFFFFLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 0) return (int)cudaMemsetAsync(count, 0, sizeof(uint32_t), s);
-  const long long ntiles = (n + TILE - 1) / TILE;
+  const long long ntiles = tiles_of(n);
   const uint32_t* xs = static_cast<const uint32_t*>(x);
   uint32_t* offs = static_cast<uint32_t*>(tile_offs);
   uint32_t* cnt = static_cast<uint32_t*>(count);
-  tile_count_kernel<<<(unsigned)ntiles, THREADS, 0, s>>>(xs, n, thr, offs);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  tile_scan_kernel<<<1, SCAN_THREADS, 0, s>>>(offs, ntiles, cnt);
-  err = cudaGetLastError();
+  const cudaError_t err = count_and_scan(xs, n, thr, offs, cnt, s);
   if (err != cudaSuccess) return (int)err;
   tile_compact_kernel<<<(unsigned)ntiles, THREADS, 0, s>>>(
       xs, n, thr, fill, offs, cnt, static_cast<uint32_t*>(out),
       static_cast<uint32_t*>(sel));
+  return (int)cudaGetLastError();
+}
+
+// ---- the stage ablation ----------------------------------------------------
+// Counterpart of the TPU filter's stage-ablated variants
+// (scripts/measure_filter.py _variant_kernel/_variant, section `parts`): the
+// v1 skeleton above cut at a stage, so that differences of stage times
+// attribute v1's time. Every stage writes what its caller reads:
+//   STAGE_COPY  reads each tile and writes it to out (pure IO, 8n bytes);
+//               *count = 0;
+//   STAGE_COUNT the tile-count pass: tile_offs[t] = tile t's kept values
+//               (4n bytes read); *count = 0;
+//   STAGE_SCAN  count + the tile scan: tile_offs = exclusive tile offsets,
+//               *count = the total (the TPU's `prefix` stage);
+//   STAGE_FULL  the whole v1 filter into out (fill 0, no indices).
+// The TPU stages `lane_levels` and `row_levels` time the butterfly network's
+// levels, which this kernel does not have; they have no counterpart.
+
+namespace {
+
+enum Stage { STAGE_COPY = 0, STAGE_COUNT = 1, STAGE_SCAN = 2, STAGE_FULL = 3 };
+constexpr uint32_t STAGE_THRESHOLD = 1u << 30;  // the TPU variants' predicate v < 2^30
+
+// The compaction's read and write pattern with no selection.
+__global__ void tile_copy_kernel(const uint32_t* __restrict__ x, long long n,
+                                 uint32_t* __restrict__ out) {
+  const long long base = (long long)blockIdx.x * TILE;
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const long long i = base + j * THREADS + threadIdx.x;
+    if (i < n) out[i] = x[i];
+  }
+}
+
+}  // namespace
+
+// Run the v1 filter of the n values at x (predicate v < 2^30) up to `stage`
+// (0 copy, 1 count, 2 scan, 3 full; see above). out (n uint32) is written by
+// copy and full and may be null for count and scan; tile_offs holds
+// ceil(n / TILE) uint32; count is one device uint32. Launches on `stream`,
+// does not synchronise; returns 0 or the first CUDA error.
+extern "C" int dpu_filter_stage_u32(const void* x, long long n, int stage, void* out,
+                                    void* tile_offs, void* count, void* stream) {
+  if (n < 0 || n > 0xFFFFFFFFLL || stage < STAGE_COPY || stage > STAGE_FULL)
+    return (int)cudaErrorInvalidValue;
+  if ((stage == STAGE_COPY || stage == STAGE_FULL) && out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const uint32_t thr = STAGE_THRESHOLD;
+  if (stage == STAGE_FULL)
+    return dpu_filter_u32(x, n, thr, 0u, out, nullptr, tile_offs, count, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* xs = static_cast<const uint32_t*>(x);
+  uint32_t* offs = static_cast<uint32_t*>(tile_offs);
+  uint32_t* cnt = static_cast<uint32_t*>(count);
+  if (n == 0 || stage != STAGE_SCAN) {
+    const cudaError_t err = cudaMemsetAsync(cnt, 0, sizeof(uint32_t), s);
+    if (err != cudaSuccess || n == 0) return (int)err;
+  }
+  const long long ntiles = tiles_of(n);
+  if (stage == STAGE_COPY) {
+    tile_copy_kernel<<<(unsigned)ntiles, THREADS, 0, s>>>(xs, n, static_cast<uint32_t*>(out));
+  } else if (stage == STAGE_COUNT) {
+    tile_count_kernel<<<(unsigned)ntiles, COUNT_THREADS, 0, s>>>(xs, n, thr, offs);
+  } else {
+    return (int)count_and_scan(xs, n, thr, offs, cnt, s);
+  }
   return (int)cudaGetLastError();
 }

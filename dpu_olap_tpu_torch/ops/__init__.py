@@ -4,6 +4,10 @@
   take_cuda   - sorted gather, csrc/gather.cu  (ops/take_pallas.py:gather_sorted_pallas),
                 and the sorted-stream take    (take_pallas.py:take_sorted*)
   filter_cuda - filter compaction, csrc/filter.cu (ops/filter_pallas.py v1)
+  filter_alt_cuda - the filter alternates v2, v3, v4, csrc/filter2.cu,
+                filter3.cu, filter4.cu (ops/filter_pallas2.py, filter_pallas3.py,
+                filter_pallas4.py)
+  filter_stages - v1 cut at a stage, csrc/filter.cu (scripts/measure_filter.py _variant)
   sum_cuda    - exact u64 sum, csrc/sum.cu    (ops/aggregate.py:_sum_pallas_pair)
   scan_cuda   - forward fill, csrc/scan.cu    (ops/scan_pallas.py:propagate_fill,
                 propagate_last)

@@ -3,7 +3,7 @@
 All sources compile with nvcc into one shared library with a plain C
 interface, loaded with ctypes: one nvcc per source, all started together,
 then one link. The build happens at first use, never at import, and is keyed
-on a hash of the sources and flags: the library lands in
+on a hash of the sources, their headers and the flags: the library lands in
 ``dpu_olap_tpu_torch/_build/`` (git-ignored) and is reused while the sources
 are unchanged. A failed build raises with nvcc's output; nothing falls back.
 """
@@ -36,6 +36,13 @@ _SIGNATURES = {
     "dpu_gather_sorted_u32": [_P, _LL, _P, _P, _LL, _P],
     # (x, n, threshold, fill, out, sel or NULL, tile_offs, count, stream)
     "dpu_filter_u32": [_P, _LL, ctypes.c_uint, ctypes.c_uint, _P, _P, _P, _P, _P],
+    # (x, n, threshold, fill, out, sel or NULL, scratch, count, stream): the
+    # filter alternates v2 (scratch: ticket + tile words), v3 and v4 (tile offsets)
+    "dpu_filter2_u32": [_P, _LL, ctypes.c_uint, ctypes.c_uint, _P, _P, _P, _P, _P],
+    "dpu_filter3_u32": [_P, _LL, ctypes.c_uint, ctypes.c_uint, _P, _P, _P, _P, _P],
+    "dpu_filter4_u32": [_P, _LL, ctypes.c_uint, ctypes.c_uint, _P, _P, _P, _P, _P],
+    # (x, n, stage, out or NULL, tile_offs, count, stream)
+    "dpu_filter_stage_u32": [_P, _LL, ctypes.c_int, _P, _P, _P, _P],
     # (x, n, out_u64, stream)
     "dpu_sum_u32": [_P, _LL, _P, _P],
     # (in_planes, out_planes, n_planes, n, sentinel, alive or NULL, has or NULL, scratch, stream)
@@ -76,9 +83,10 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
+    """Where the library for the current sources and headers lives (built or
+    not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*_sources(), *SRC_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libdpu_olap_kernels_{h.hexdigest()[:16]}.so"

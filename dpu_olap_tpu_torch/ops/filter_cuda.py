@@ -17,6 +17,9 @@ any length below 2^32, so nothing is padded.
 ``compact_scatter`` is the plain algorithm behind both plain versions (an
 inclusive scan of the mask gives each kept value its slot, then one scatter)
 and serves ``ops/filter.py`` for other predicates.
+``below``, ``check_threshold``, ``on_cpu`` and ``run_entry`` serve the
+filter alternates too (``ops/filter_alt_cuda.py``), whose threshold is a
+runtime argument.
 """
 
 from __future__ import annotations
@@ -68,12 +71,36 @@ def compact_scatter(
     return out[:n].view(torch.uint32), sel[:n].to(torch.uint32), count
 
 
+def below(values: torch.Tensor, threshold: int) -> torch.Tensor:
+    """The mask ``values < threshold`` of a uint32 column for any threshold
+    in [0, 2^32), compared in int64 (torch has no uint32 compare on the
+    CPU)."""
+    return values.to(torch.int64) < threshold
+
+
+def check_threshold(threshold) -> int:
+    """The threshold as an int, or raise if it is no uint32."""
+    t = int(threshold)
+    if not 0 <= t <= 0xFFFFFFFF:
+        raise ValueError(f"filter threshold must be a uint32, got {threshold}")
+    return t
+
+
 def _check(values: torch.Tensor) -> torch.device:
     if values.dtype != torch.uint32 or values.dim() != 1:
         raise ValueError("filter values must be a 1-D uint32 tensor")
     if values.shape[0] >= 1 << 32:
         raise ValueError("filter takes fewer than 2^32 values (uint32 counts and rows)")
     return values.device
+
+
+def on_cpu(values: torch.Tensor, what: str) -> bool:
+    """Check a filter input: True for a CPU tensor (the plain version's),
+    False for a CUDA tensor (the kernel's); any other device raises."""
+    dev = _check(values)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu tensors, got {dev}")
+    return dev.type == "cpu"
 
 
 def filter_compact_ref(values: torch.Tensor, fill: int = 0):
@@ -86,36 +113,43 @@ def filter_with_indices_ref(values: torch.Tensor):
     return compact_scatter(values, below_threshold(values), 0, with_indices=True)
 
 
-def _launch(values: torch.Tensor, fill: int, with_indices: bool):
-    global LAUNCHES
+def run_entry(entry: str, values: torch.Tensor, threshold: int, fill: int,
+              with_indices: bool, scratch: torch.Tensor, what: str):
+    """Launch one of the filter kernels' C entry points (all take x, n,
+    threshold, fill, out, sel or NULL, scratch, count, stream) on a CUDA
+    tensor; raise if the launch fails. Returns ``(out, count)`` or ``(out,
+    sel, count)``."""
     dev = values.device
     if not values.is_contiguous():
-        raise ValueError("filter values must be contiguous")
+        raise ValueError(f"{what}: filter values must be contiguous")
     n = values.shape[0]
     out = torch.empty(n, dtype=torch.uint32, device=dev)
     sel = torch.empty(n, dtype=torch.uint32, device=dev) if with_indices else None
-    offs = torch.empty(max(1, -(-n // TILE)), dtype=torch.uint32, device=dev)
     count = torch.empty((), dtype=torch.uint32, device=dev)
     with torch.cuda.device(dev):
-        rc = _kernels.library().dpu_filter_u32(
-            values.data_ptr(), n, THRESHOLD, int(fill) & 0xFFFFFFFF,
+        rc = getattr(_kernels.library(), entry)(
+            values.data_ptr(), n, threshold, int(fill) & 0xFFFFFFFF,
             out.data_ptr(), None if sel is None else sel.data_ptr(),
-            offs.data_ptr(), count.data_ptr(), _kernels.stream_handle(dev),
+            scratch.data_ptr(), count.data_ptr(), _kernels.stream_handle(dev),
         )
-    _kernels.check(rc, "filter_compact")
-    LAUNCHES += 1
+    _kernels.check(rc, what)
     return (out, count) if sel is None else (out, sel, count)
+
+
+def _launch(values: torch.Tensor, fill: int, with_indices: bool):
+    global LAUNCHES
+    offs = torch.empty(max(1, -(-values.shape[0] // TILE)), dtype=torch.uint32, device=values.device)
+    res = run_entry("dpu_filter_u32", values, THRESHOLD, fill, with_indices, offs, "filter_compact")
+    LAUNCHES += 1
+    return res
 
 
 def filter_compact(values: torch.Tensor, fill: int = 0):
     """(padded_values, count) of the stable compaction of ``values < 2^30``.
     CUDA tensors go to the kernel (on the current stream, without
     synchronising), CPU tensors to ``filter_compact_ref``."""
-    dev = _check(values)
-    if dev.type == "cpu":
+    if on_cpu(values, "filter_compact"):
         return filter_compact_ref(values, fill)
-    if dev.type != "cuda":
-        raise ValueError(f"filter_compact runs on cuda or cpu tensors, got {dev}")
     return _launch(values, fill, with_indices=False)
 
 
@@ -123,9 +157,6 @@ def filter_with_indices(values: torch.Tensor):
     """(padded_values, padded_indices, count): filter_compact with fill 0,
     plus the kept rows' numbers (tail n). CUDA tensors go to the kernel, CPU
     tensors to ``filter_with_indices_ref``."""
-    dev = _check(values)
-    if dev.type == "cpu":
+    if on_cpu(values, "filter_with_indices"):
         return filter_with_indices_ref(values)
-    if dev.type != "cuda":
-        raise ValueError(f"filter_with_indices runs on cuda or cpu tensors, got {dev}")
     return _launch(values, 0, with_indices=True)

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, bit for
-bit on every lane: the partition kernel (csrc/partition.cu) and the
-merge-probe kernel (csrc/merge_probe.cu). A CUDA kernel has no CPU mode, so
+bit on every lane: the partition kernel (csrc/partition.cu), the
+merge-probe kernel (csrc/merge_probe.cu), the filter alternates
+(csrc/filter2.cu, filter3.cu, filter4.cu) and the filter stage ablation
+(csrc/filter.cu), and the graph-captured chain timing around them. A CUDA kernel has no CPU mode, so
 every test here is marked ``cuda`` and skips without a device. This file
 imports no jax (the machine with the card has none) and takes no fixture of
 tests/conftest.py, which imports jax; on that machine run
@@ -12,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from dpu_olap_tpu_torch.ops import merge_cuda, partition_cuda
+from dpu_olap_tpu_torch.bench import device_time
+from dpu_olap_tpu_torch.ops import filter_alt_cuda, filter_cuda, filter_stages, merge_cuda, partition_cuda
 
 EMPTY = np.uint32(0xFFFFFFFF)
 EDGE_KEYS = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF], np.uint32)
@@ -73,3 +76,59 @@ def test_merge_probe_kernel_matches_plain(cuda_device, nl, nr, n_pay):
     assert merge_cuda.LAUNCHES == before + 1
     ref = merge_cuda.merge_probe_ref(dev[0], dev[1], tuple(dev[2:]))
     _same((got[0], got[1], *got[2]), (ref[0], ref[1], *ref[2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", filter_alt_cuda.VERSIONS)
+@pytest.mark.parametrize("n", [1, 4096, 100_003, 1 << 20, 8 << 20])
+@pytest.mark.parametrize("threshold", [0, 1 << 30, 1 << 31, 0xFFFFFFFF])
+def test_filter_alternate_matches_plain(cuda_device, version, n, threshold):
+    rng = np.random.default_rng(n)
+    v = rng.integers(0, 2**32, n, dtype=np.uint32)
+    v[: min(n, len(EDGE_KEYS))] = EDGE_KEYS[:n]
+    x = torch.from_numpy(v).to(cuda_device)
+    before = filter_alt_cuda.LAUNCHES[version]
+    got = filter_alt_cuda.filter_compact(x, version, threshold, fill=7)
+    got_i = filter_alt_cuda.filter_with_indices(x, version, threshold)
+    assert filter_alt_cuda.LAUNCHES[version] == before + 2
+    _same(got, filter_alt_cuda.filter_compact_ref(x, version, threshold, fill=7))
+    _same(got_i, filter_alt_cuda.filter_with_indices_ref(x, version, threshold))
+    keep = v < threshold
+    assert int(got[1]) == keep.sum()
+    assert np.array_equal(got_i[1].cpu().numpy()[: keep.sum()], np.flatnonzero(keep))
+    if threshold == filter_cuda.THRESHOLD:  # v1's kernel computes the same function
+        _same(got_i, filter_cuda.filter_with_indices(x))
+        _same(filter_alt_cuda.filter_padded(x, version, 7), filter_cuda.filter_compact(x, 7))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", filter_stages.STAGES)
+@pytest.mark.parametrize("n", [1, 3 * 4096 + 17, 1 << 20, 8 << 20])
+def test_filter_stage_matches_plain(cuda_device, stage, n):
+    v = np.random.default_rng(3).integers(0, 2**32, n, dtype=np.uint32)
+    x = torch.from_numpy(v).to(cuda_device)
+    before = filter_stages.LAUNCHES
+    got = filter_stages.filter_stage(x, stage)
+    assert filter_stages.LAUNCHES == before + 1
+    ref = filter_stages.filter_stage_ref(x, stage)
+    assert [g is None for g in got] == [r is None for r in ref]
+    _same([g for g in got if g is not None], [r for r in ref if r is not None])
+
+
+@pytest.mark.cuda
+def test_chain_timing_captures_a_graph(cuda_device):
+    x = torch.from_numpy(np.arange(1 << 16, dtype=np.uint32)).to(cuda_device)
+
+    def step(c):
+        out, cnt = filter_alt_cuda.filter_compact(c, "v3")
+        return (c.view(torch.int32) ^ (out.view(torch.int32) & 1) ^ cnt.view(torch.int32)).view(torch.uint32)
+
+    before = filter_alt_cuda.LAUNCHES["v3"]
+    assert device_time.time_chained(step, x, k=4, reps=3) > 0
+    assert filter_alt_cuda.LAUNCHES["v3"] == before + 2 + 4 + 8  # a warm step, then one capture, per chain
+
+    def syncs(c):
+        return c + 0 if int(c[0]) >= 0 else c  # a readback: cannot be captured
+
+    with pytest.raises(RuntimeError):
+        device_time.time_chained(syncs, x.view(torch.int32), k=2, reps=1)

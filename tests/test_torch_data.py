@@ -186,7 +186,9 @@ def test_port_imports_no_jax():
         "        'ops.sum_cuda', 'ops.take', 'ops.take_cuda', 'parallel.streaming',\n"
         "        'ops.scan_cuda', 'ops.bitonic_cuda', 'ops.join', 'ops.hashing', 'ops.hashtable',\n"
         "        'ops.partition', 'ops.partition_cuda', 'ops.merge_cuda', 'parallel.shuffle',\n"
-        "        'parallel.dist_join', 'parallel.partitioner', 'operators.partition_op']\n"
+        "        'parallel.dist_join', 'parallel.partitioner', 'operators.partition_op',\n"
+        "        'bench.device_time', 'bench.measure_filter', 'ops.filter_alt_cuda',\n"
+        "        'ops.filter_stages']\n"
         "missing = [m for m in need if 'dpu_olap_tpu_torch.' + m not in mods]\n"
         "assert not missing, missing\n"
         "print(len(mods))\n"
