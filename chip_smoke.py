@@ -8,7 +8,8 @@ Run from the root of the repository on a machine with one NVIDIA GPU:
 It builds the CUDA kernels from dpu_olap_tpu_torch/csrc, checks each kernel
 against its plain PyTorch version on the card (sort, gather, filter, sum,
 forward fill, block merge, radix partition, merge-probe, the filter
-alternates and stage ablation), the partition, sort and fill kernels also
+alternates and stage ablation, the block ops, the probe primitives and the
+sort's tile stage), the partition, sort and fill kernels also
 at the SF=64 main path's shapes, and times each beside its bound and the
 one PyTorch call that computes the same function, then drives each
 operator path through Prepare().Run() at the reference benchmark
@@ -37,10 +38,19 @@ and read just after:
     batch;
   * the filter-kernel measurement entry point
     (python -m dpu_olap_tpu_torch.bench.measure_filter: e2e, parts, v3, v4,
-    defaultab), the only path of the filter alternates v2, v3, v4 and the
-    stage ablation, after those kernels are held bit for bit against their
-    plain versions and v1's kernel (phase_filter_alternates,
-    phase_filter_stages); no reading may lie under its floor.
+    defaultab, ops, cops, sort), the only path of the filter alternates v2,
+    v3, v4, the stage ablation, the in-block primitive ops (block_ops.cu)
+    and the sort's tile stage, after those kernels are held bit for bit
+    against their plain versions and v1's kernel (phase_filter_alternates,
+    phase_filter_stages, phase_block_ops, phase_sort_tiles); no reading may
+    lie under its floor;
+  * the take/sum/probe/dense measurement entry point
+    (python -m dpu_olap_tpu_torch.bench.measure_r3), the only path of the
+    lane gather (probes.cu), held against its plain version first
+    (phase_probes); no reading may lie under its floor;
+  * the lowering-probe entry point
+    (python -m dpu_olap_tpu_torch.bench.probe_lowering): every probe of the
+    TPU lowering scripts built on the card and equal to numpy.
 For each fallback it also splits the result's readback (copy, numpy mask,
 against masking on the card) and profiles one Run() (device busy time, idle
 share, the longest device events).
@@ -77,6 +87,11 @@ MP_ROUNDS = 9  # interleaved timing rounds of merge-probe against searchsorted
 JOIN_PHASES = ("host-prep", "h2d", "join-total", "gather-result")
 PART_PHASES = ("partition", "build-probe-take", "gather-result")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+BLOCK_N = 2 << 20  # the ops and cops probes: 64 (256, 128) blocks, 128 (128, 128) tiles
+OP_REPS = 16  # chained ops in one ops/cops call (scripts/measure_filter.py)
+EDGE_I32 = np.array([0, 1, -1, 2**31 - 1, -2**31, 2**31 - 2, -2**31 + 1, 127, 128, 2**30,
+                     2**30 + 1, -129], np.int32)  # the wrapping adds and the clip run on these
 
 
 class SmokeFailure(Exception):
@@ -596,25 +611,33 @@ def phase_filter_stages(rng, card: str) -> dict:
 
 def phase_measure_filter(card: str) -> dict:
     """The filter-kernel measurement entry point
-    (python -m dpu_olap_tpu_torch.bench.measure_filter), all five sections at
-    their own sizes, with the alternates' and the ablation's launch counts set
-    to 0 just before and read just after: each must launch, and no reading may
-    lie under its floor."""
+    (python -m dpu_olap_tpu_torch.bench.measure_filter), all eight sections
+    at their own sizes, with the launch counts of the alternates, the
+    ablation, the block ops and the sort's tile stage set to 0 just before
+    and read just after: each must launch, and no reading may lie under its
+    floor."""
     import torch
 
     from dpu_olap_tpu_torch.bench import measure_filter
-    from dpu_olap_tpu_torch.ops import filter_alt_cuda, filter_stages
+    from dpu_olap_tpu_torch.ops import block_ops_cuda, filter_alt_cuda, filter_stages, sort_cuda
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     filter_alt_cuda.LAUNCHES.update(dict.fromkeys(filter_alt_cuda.VERSIONS, 0))
     filter_stages.LAUNCHES = 0
+    block_ops_cuda.LAUNCHES.update(dict.fromkeys(block_ops_cuda.LAUNCHES, 0))
+    sort_cuda.TILE_LAUNCHES = 0
     t0 = time.perf_counter()
     results = measure_filter.run()
     launches = {f"filter{v[1]}": n for v, n in filter_alt_cuda.LAUNCHES.items()}
     launches["stages"] = filter_stages.LAUNCHES
+    launches["block_ops"] = sum(block_ops_cuda.LAUNCHES[op] for op in block_ops_cuda.OPS)
+    launches["block_cops"] = sum(block_ops_cuda.LAUNCHES[op] for op in block_ops_cuda.COPS)
+    launches["tiles"] = sort_cuda.TILE_LAUNCHES
     require(all(v > 0 for v in launches.values()), f"measure_filter: launches {launches}")
+    require(all(block_ops_cuda.LAUNCHES.values()),
+            f"measure_filter: block op launches {block_ops_cuda.LAUNCHES}")
     low = [f"{s} {n}" for s, sec in results.items() for n, e in sec.items() if e.get("suspect")]
     require(not low, f"measure_filter: readings under their floor: {low}")
     print(f"[measure_filter] sections {list(results)}: launches {launches}, none under its floor;"
@@ -622,6 +645,245 @@ def phase_measure_filter(card: str) -> dict:
           f" {torch.cuda.max_memory_allocated()} B [{card}]", flush=True)
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_measure_r3(card: str) -> dict:
+    """The take/sum/probe/dense measurement entry point
+    (python -m dpu_olap_tpu_torch.bench.measure_r3), all four sections, with
+    the lane gather's launch count set to 0 just before and read just after:
+    it must launch, and no reading may lie under its floor."""
+    import torch
+
+    from dpu_olap_tpu_torch.bench import measure_r3
+    from dpu_olap_tpu_torch.ops import probes_cuda
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    probes_cuda.LAUNCHES["lane_gather"] = 0
+    t0 = time.perf_counter()
+    results = measure_r3.run()
+    launches = {"lane_gather": probes_cuda.LAUNCHES["lane_gather"]}
+    require(launches["lane_gather"] > 0, f"measure_r3: launches {launches}")
+    low = [f"{s} {n}" for s, sec in results.items() for n, e in sec.items() if e.get("suspect")]
+    require(not low, f"measure_r3: readings under their floor: {low}")
+    print(f"[measure_r3] sections {list(results)}: launches {launches}, none under its floor;"
+          f" {time.perf_counter() - t0:.1f} s, peak device memory"
+          f" {torch.cuda.max_memory_allocated()} B [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_probe_lowering(card: str) -> dict:
+    """The lowering-probe entry point (python -m
+    dpu_olap_tpu_torch.bench.probe_lowering), with the probe primitives'
+    launch counts set to 0 just before and read just after: every probe OK,
+    every primitive launched."""
+    from dpu_olap_tpu_torch.bench import probe_lowering
+    from dpu_olap_tpu_torch.ops import probes_cuda
+
+    probes_cuda.LAUNCHES.update(dict.fromkeys(probes_cuda.LAUNCHES, 0))
+    res = probe_lowering.run()
+    require(all(res.values()), f"probe_lowering: FAIL {[k for k, ok in res.items() if not ok]}")
+    require(all(probes_cuda.LAUNCHES.values()), f"probe_lowering: launches {probes_cuda.LAUNCHES}")
+    print(f"[probe_lowering] {len(res)} probes OK: launches {probes_cuda.LAUNCHES} [{card}]",
+          flush=True)
+    return {"lowering": sum(probes_cuda.LAUNCHES.values())}
+
+
+def graph_ms(fn) -> float:
+    """cuda_ms of fn's calls captured once in one CUDA graph (the torch
+    chain's time without the host's launch gaps)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return cuda_ms(g.replay)
+
+
+def work_row(err, ms, plain_ms, nbytes, flops, lib_ms) -> dict:
+    """kernel_row for work that also does bf16 tensor-core flops: the bound
+    is the larger of the bytes' and the flops' times."""
+    t_ops = flops / BF16_FLOPS * 1e3
+    row = kernel_row(err, ms, plain_ms, nbytes, lib_ms)
+    if t_ops > row["bound_ms"]:
+        row.update(bound_ms=t_ops, bound_by="operations")
+    return row
+
+
+def _sum_rows(rows: dict, err: int, nbytes: int, flops: int) -> dict:
+    """One kernels-line entry for several calls: each time the sum of one
+    call of each, the bound that of the calls' bytes and flops together."""
+    lib = [r["library_ms"] for r in rows.values()]
+    return {**work_row(err, sum(r["ms"] for r in rows.values()),
+                       sum(r["plain_ms"] for r in rows.values()), nbytes, flops,
+                       None if None in lib else sum(lib)),
+            "calls": rows}
+
+
+def phase_block_ops(rng, card: str) -> dict:
+    """Every block op at its probe's block shape (OPS at 256 rows, COPS at
+    128), reps 2 and 16, bit for bit against its plain version on the card,
+    at 2Mi int32 values with the +-2^31 edges in them; each op timed at reps
+    16, one call replayed from a CUDA graph (an eager call's time is mostly
+    the host's), beside its bound (8 bytes an element for the ops that never
+    read idx, 12 for the others), its plain version (eager) and the same
+    torch chain captured in one CUDA graph (torch.roll, torch.where,
+    torch.gather, .transpose, a bf16 batched matmul of the 0/1 planes)."""
+    import torch
+
+    from dpu_olap_tpu_torch.ops import block_ops_cuda as bo
+
+    xs = rng.integers(-2**31, 2**31, BLOCK_N, dtype=np.int64).astype(np.int32)
+    xs[: len(EDGE_I32)] = EDGE_I32
+    xs[-len(EDGE_I32):] = EDGE_I32
+    x = on_card(xs).view(-1, 128)
+    idx = on_card(rng.integers(0, 128, BLOCK_N, dtype=np.int32)).view(-1, 128)
+    errs = dict.fromkeys(bo.OPS + bo.COPS, 0)
+    for op in bo.OPS + bo.COPS:
+        for reps in (2, OP_REPS):
+            got = bo.block_op(x, idx, op, reps)
+            ref = bo.block_op_ref(x, idx, op, reps)
+            require(card_equal([got], [ref]), f"block op {op} != plain: reps {reps}")
+            errs[op] = max(errs[op], card_err([got.view(-1)], [ref.view(-1)]))
+        print(f"[block ops] {op}: kernel == plain at {BLOCK_N} values, blocks of"
+              f" {bo.ROWS[op]} rows, reps 2 and {OP_REPS}", flush=True)
+    torch.cuda.synchronize()
+    out = {}
+    for entry, ops in (("block_ops", bo.OPS), ("block_cops", bo.COPS)):
+        calls, nbytes = {}, {}
+        for op in ops:
+            flops = 2 * 128**3 * OP_REPS * (BLOCK_N // (128 * 128)) if op == "count_matmul" else 0
+            nbytes[op] = (8 if op in bo.IDX_FREE else 12) * BLOCK_N
+            calls[op] = work_row(
+                errs[op], graph_ms(lambda: bo.block_op(x, idx, op, OP_REPS)),
+                cuda_ms(lambda: bo.block_op_ref(x, idx, op, OP_REPS)), nbytes[op], flops,
+                graph_ms(lambda: bo.block_op_ref(x, idx, op, OP_REPS,
+                                                 matmul_dtype=torch.bfloat16)))
+        total_flops = 2 * 128**3 * OP_REPS * (BLOCK_N // (128 * 128)) * ("count_matmul" in ops)
+        out[entry] = _sum_rows(calls, max(errs[op] for op in ops), sum(nbytes.values()),
+                               total_flops)
+        print(f"[{entry}] {BLOCK_N} values in {bo.ROWS[ops[0]]}-row blocks, {OP_REPS} ops a call: "
+              + "; ".join(f"{op} kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, torch chain"
+                          f" in one graph {r['library_ms']:.4f}, bound {r['bound_ms']:.4f}"
+                          f" ({r['bound_by']})" for op, r in calls.items())
+              + f" (median of {REPS}; kernel and chain: graph replays) [{card}]", flush=True)
+    return out
+
+
+def phase_probes(rng, card: str) -> dict:
+    """The lane gather at measure_r3's shapes (8192 and 32768 rows of 128
+    int32) and the lowering probes' primitives at theirs, each bit for bit
+    against its plain version on the card (out-of-range gather indices and
+    rows too), and timed beside its bound, its plain version and one torch
+    call (torch.gather, .t().contiguous(), a bf16 torch.matmul,
+    index_select): each replayed from a CUDA graph, since an eager call of
+    these small kernels times the host's launch, not the card."""
+    import torch
+
+    from dpu_olap_tpu_torch.ops import probes_cuda as pc
+
+    def u32(shape):
+        return on_card(rng.integers(0, 2**32, shape, dtype=np.uint32))
+
+    gathers = {}
+    for rows in (8192, 32768):
+        x = on_card(rng.integers(0, 2**31, (rows, 128), dtype=np.int32))
+        i = rng.integers(0, 128, (rows, 128), dtype=np.int32)
+        i[0, :3] = [-1, 128, 2**31 - 1]
+        i = on_card(i)
+        got, ref = pc.lane_gather(x, i), pc.lane_gather_ref(x, i)
+        require(card_equal([got], [ref]), f"lane_gather != plain: {rows} rows")
+        i64 = i.to(torch.int64).clamp(0, 127)
+        gathers[rows] = kernel_row(
+            card_err([got.view(-1)], [ref.view(-1)]), graph_ms(lambda: pc.lane_gather(x, i)),
+            graph_ms(lambda: pc.lane_gather_ref(x, i)), 12 * rows * 128,
+            graph_ms(lambda: torch.gather(x, 1, i64)))
+    a, b = (on_card(rng.integers(0, 2, s).astype(np.float32)).to(torch.bfloat16)
+            for s in ((128, 128), (128, 256)))
+    wx, wi = u32((128, 128)), on_card(rng.integers(0, 128, (128, 256), dtype=np.int32))
+    wi64 = wi.to(torch.int64)
+    dx = u32((512, 128))
+    rows = {f"dyn_row {r}": on_card(np.array([r], np.int32)) for r in (317, -1)}
+    probes = {  # name: (kernel call, plain call, library call, bytes, flops)
+        **{f"transpose {s[0]}x{s[1]} {dt}": (
+            lambda t=t: pc.transpose(t), lambda t=t: pc.transpose_ref(t),
+            lambda t=t: t.t().contiguous(), 8 * s[0] * s[1], 0)
+           for s, dt, t in (((128, 128), "u32", u32((128, 128))),
+                            ((128, 128), "i32", u32((128, 128)).view(torch.int32)),
+                            ((512, 128), "u32", u32((512, 128))))},
+        "gather idx(128,256) over vals(128,128)": (
+            lambda: pc.lane_gather(wx, wi), lambda: pc.lane_gather_ref(wx, wi),
+            lambda: torch.gather(wx.view(torch.int32), 1, wi64),
+            4 * (128 * 128 + 2 * 128 * 256), 0),
+        "one-hot (128,128)^T@(128,256)": (
+            lambda: pc.onehot_matmul(a, b), lambda: pc.onehot_matmul_ref(a, b),
+            lambda: torch.matmul(a.t(), b), 2 * 128 * (128 + 256) + 4 * 128 * 256,
+            2 * 128 * 128 * 256),
+        **{name: (lambda r=r: pc.dyn_row(dx, r), lambda r=r: pc.dyn_row_ref(dx, r),
+                  lambda r=r: dx.view(torch.int32).index_select(0, r.clamp(0, 511).long()),
+                  8 * 128, 0) for name, r in rows.items()},
+    }
+    calls, err, nbytes, flops = {}, 0, 0, 0
+    for name, (kern, plain, lib, nb, fl) in probes.items():
+        got, ref = kern(), plain()
+        require(card_equal([got], [ref]), f"lowering probe {name}: kernel != plain")
+        require(got.dtype == ref.dtype, f"lowering probe {name}: dtype {got.dtype} != {ref.dtype}")
+        e = card_err([got.reshape(-1).view(torch.int32)], [ref.reshape(-1).view(torch.int32)])
+        err = max(err, e)
+        calls[name] = work_row(e, graph_ms(kern), graph_ms(plain), nb, fl, graph_ms(lib))
+        nbytes, flops = nbytes + nb, flops + fl
+    print("[lane_gather] " + "; ".join(
+        f"{r} rows: kernel == plain, kernel {g['ms']:.4f} ms, plain {g['plain_ms']:.4f},"
+        f" torch.gather {g['library_ms']:.4f}, bound {g['bound_ms']:.4f}"
+        for r, g in gathers.items())
+        + f" (median of {REPS} graph replays, CUDA events) [{card}]", flush=True)
+    print("[lowering probes] " + "; ".join(
+        f"{n}: kernel == plain, kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, library"
+        f" {r['library_ms']:.4f}, bound {r['bound_ms']:.6f}" for n, r in calls.items())
+        + f" (median of {REPS} graph replays, CUDA events) [{card}]", flush=True)
+    return {"lane_gather": {**gathers[32768], "rows_8192": gathers[8192]},
+            "lowering_probes": _sum_rows(calls, err, nbytes, flops)}
+
+
+def phase_sort_tiles(rng, card: str) -> dict:
+    """The sort's tile stage against its plain version on the card: keys
+    equal as they are, payloads after a canonical order of each tile (the
+    tile sort is unstable); at 2Mi with 1 payload (measure_filter's sort
+    section), 3*4096+5 with 3 and 100 with 0; timed at 2Mi beside its bound,
+    its plain version and torch.sort of the key's 4096-element rows."""
+    import torch
+
+    from dpu_olap_tpu_torch.ops import sort_cuda
+
+    err, timed = 0, None
+    for n, n_pay in ((SF1_ROWS, 1), (3 * 4096 + 5, 3), (100, 0)):
+        key = rng.integers(0, 2**31, n, dtype=np.uint32)
+        key[-min(n, 64):] = key[0]  # ties
+        planes = tuple(on_card(p) for p in (key, *(rng.integers(0, 2**32, n, dtype=np.uint32)
+                                                   for _ in range(n_pay))))
+        got, ref = sort_cuda.sort_tiles(planes), sort_cuda.sort_tiles_ref(planes)
+        require(card_equal(got[:1], ref[:1]), f"sort_tiles keys != plain (n={n})")
+        cg, cr = sort_cuda.canonical_tiles(got), sort_cuda.canonical_tiles(ref)
+        require(card_equal(cg, cr), f"sort_tiles rows != plain (n={n}, payloads {n_pay})")
+        err = max(err, card_err(cg, cr))
+        timed = timed or planes
+        print(f"[sort_tiles] n={n} payloads={n_pay}: kernel == plain", flush=True)
+    torch.cuda.synchronize()
+    k32 = timed[0].view(torch.int32).view(-1, sort_cuda.TILE)
+    row = kernel_row(err, cuda_ms(lambda: sort_cuda.sort_tiles(timed)),
+                     cuda_ms(lambda: sort_cuda.sort_tiles_ref(timed)), 16 * SF1_ROWS,
+                     library_ms("torch.sort of 4096-element rows", lambda: torch.sort(k32, dim=1)))
+    print(f"[sort_tiles] n={SF1_ROWS} 1 payload: kernel {row['ms']:.4f} ms, plain"
+          f" {row['plain_ms']:.4f} ms, torch.sort of the key's rows {row['library_ms']} ms, bound"
+          f" {row['bound_ms']:.4f} ms (median of {REPS}, CUDA events) [{card}]", flush=True)
+    return row
 
 
 def phase_sum_kernel(rng, card: str) -> dict:
@@ -1636,7 +1898,15 @@ def main() -> dict:
     for ver, row in phase_filter_alternates(rng_alt, card).items():
         measured[f"filter_compact_{ver}"] = row
     measured["filter_stages"] = phase_filter_stages(rng_alt, card)
+    # the probe kernels and the sort's tile stage lie on no operator path
+    # either: their launches are counted around the entry points that run them
+    rng_probe = np.random.default_rng(SEED + 6)
+    measured.update(phase_block_ops(rng_probe, card))
+    measured.update(phase_probes(rng_probe, card))
+    measured["sort_tiles"] = phase_sort_tiles(rng_probe, card)
     filter_launches = phase_measure_filter(card)
+    filter_launches.update(phase_measure_r3(card))
+    filter_launches.update(phase_probe_lowering(card))
 
     launches = {"sort": 0, "gather": 0, "filter": 0, "sum": 0, "merge": 0, "fill": 0,
                 "partition": 0, "merge_probe": 0}
@@ -1678,6 +1948,22 @@ def main() -> dict:
            for ver, src, replaces in ALTERNATES},
         "filter_stages": ("stages", "filter.cu", "scripts/measure_filter.py:387",
                           ["scripts/measure_filter.py:304"]),
+        "block_ops": ("block_ops", "block_ops.cu", "scripts/measure_filter.py:459", [
+            "scripts/measure_filter.py:439", "scripts/measure_filter.py:469",
+            "scripts/measure_filter.py:474", "scripts/measure_filter.py:492",
+        ]),
+        "block_cops": ("block_cops", "block_ops.cu", "scripts/measure_filter.py:264", [
+            "scripts/measure_filter.py:237", "scripts/measure_filter.py:274",
+        ]),
+        "lane_gather": ("lane_gather", "probes.cu", "scripts/measure_r3.py:219",
+                        ["scripts/measure_r3.py:226"]),
+        "lowering_probes": ("lowering", "probes.cu", "measurements/_probe_v4_lowering.py:50", [
+            "measurements/_probe_v4_lowering.py:33", "measurements/_probe_v4_lowering.py:37",
+            "measurements/_probe_v4_lowering.py:41", "measurements/_proto_lower.py:27",
+            "measurements/_proto_lower.py:15", "measurements/_proto_lower2.py:10",
+        ]),
+        "sort_tiles": ("tiles", "sort.cu", "dpu_olap_tpu/ops/sort_pallas.py:286",
+                       ["scripts/measure_filter.py:562"]),
     }
     kernels = []
     for name, (counter, src, replaces, also) in sources.items():

@@ -1,8 +1,9 @@
-"""The filter kernels' A/B and stage ablation on the card (counterpart of
-``scripts/measure_filter.py``, sections ``e2e``, ``parts``, ``v3``, ``v4``
-and ``defaultab``).
+"""The filter kernels' A/B and stage ablation, the in-block primitive probes
+and the sort's stage split on the card (counterpart of
+``scripts/measure_filter.py``, sections ``e2e``, ``parts``, ``v3``, ``v4``,
+``defaultab``, ``ops``, ``cops`` and ``sort``).
 
-    python -m dpu_olap_tpu_torch.bench.measure_filter [e2e parts v3 v4 defaultab] [--out FILE]
+    python -m dpu_olap_tpu_torch.bench.measure_filter [SECTION ...] [--out FILE]
 
   e2e       v1 (``ops/filter_cuda.py``) at 8Mi and 64Mi; beside it the chain
             step alone (``chain``) and v1's chain run eagerly (``v1_eager``,
@@ -15,16 +16,29 @@ and ``defaultab``).
   v4        v4's parity with numpy on the card at 2Mi first, then v4
             against v3 and v1, with and without indices, interleaved.
   defaultab v1 against v3 twice over (v1, v3, v1b, v3b), interleaved.
+  ops       the in-block primitives (``ops/block_ops_cuda.py`` OPS) on 64
+            (256, 128) int32 blocks, 2Mi elements, 16 chained in a call:
+            the kernel first held against its plain version on one block at
+            2 ops (lane_gather, lane_roll, row_roll, sublane_gather; a
+            mismatch raises), then each op timed, interleaved.
+  cops      the same for COPS on 128 (128, 128) tiles.
+  sort      the sort's tile stage (``sort_cuda.sort_tiles``, key + 1
+            payload), the whole sort (``full``) and the key-only sort
+            (``full1op``) at 2Mi.
 
-Inputs are random uint32 from ``np.random.default_rng(0)``; each step is
-the filter on the carry, then ``c ^ (out & 1) ^ cnt`` (``^ (sel & 2)`` with
-indices), timed by ``bench/device_time.py`` (CUDA graphs, (T(2k) - T(k)) /
-k). Names follow the JAX script's without its TPU block geometry
-(``r256``, ``h4``): one candidate per version. Each reading prints one line
-and lands in the returned dict; one under its floor (4n bytes at the
-H100's 3.35 TB/s, or 0.004 ms) is flagged ``suspect``. A JSON file is
-written only with ``--out``. It runs on the card; ``device="cpu"`` and
-small ``sizes`` exist for the tests.
+Inputs are random from ``np.random.default_rng(0)``, as in the JAX script.
+A filter step is the filter on the carry, then ``c ^ (out & 1) ^ cnt`` (``^
+(sel & 2)`` with indices); an ops/cops step is the op's call on the carry
+with idx as a const, then ``^ 1``; a sort step ``c ^ (a & 1) ^ (b & 2)``.
+Each is timed by ``bench/device_time.py`` (CUDA graphs, (T(2k) - T(k)) /
+k). Names follow the JAX script's without its TPU block geometry (``r256``,
+``h4``), except ops/cops' ``{op}_r256x16``, whose block shape is part of
+the function. The JAX script's ``leaf{2048,4096,8192}`` readings and its
+``sort2`` section sweep only the TPU's leaf and ``block_rows``, which have
+no counterpart here. Each reading prints one line and lands in the returned
+dict; one under its floor (4n bytes at the H100's 3.35 TB/s, or 0.004 ms)
+is flagged ``suspect``. A JSON file is written only with ``--out``. It runs
+on the card; ``device="cpu"`` and small ``sizes`` exist for the tests.
 """
 
 from __future__ import annotations
@@ -37,9 +51,13 @@ import numpy as np
 
 ROOFLINE_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FLOOR_MS = 0.004
-SECTIONS = ("e2e", "parts", "v3", "v4", "defaultab")
+SECTIONS = ("e2e", "parts", "v3", "v4", "defaultab", "ops", "cops", "sort")
 REPS = 5
 PARITY_N = 2 << 20
+LANES = 128
+OP_REPS = 16  # chained ops in one ops/cops call (the JAX script's reps)
+PARITY_REPS = 2
+PARITY_OPS = ("lane_gather", "lane_roll", "row_roll", "sublane_gather")
 # (n, tag, k) for each section, the JAX script's sizes and chain lengths
 SIZES = {
     "e2e": ((8 << 20, "8Mi", 64), (64 << 20, "64Mi", 8)),
@@ -47,13 +65,17 @@ SIZES = {
     "v3": ((8 << 20, "8Mi", 32), (64 << 20, "64Mi", 4)),
     "v4": ((8 << 20, "8Mi", 32), (64 << 20, "64Mi", 4)),
     "defaultab": ((8 << 20, "8Mi", 32), (64 << 20, "64Mi", 8)),
+    "ops": ((2 << 20, "2Mi", 16),),
+    "cops": ((2 << 20, "2Mi", 16),),
+    "sort": ((2 << 20, "2Mi", 16),),
 }
 
 
 def record(results: dict, section: str, name: str, ms: float, note: str = "",
-           nbytes: int | None = None, spread_ms: list | None = None) -> dict:
-    """Keep one reading under results[section][name] and print it; flag it
-    ``suspect`` when it lies under its floor."""
+           nbytes: int | None = None, spread_ms: list | None = None,
+           script: str = "measure_filter") -> dict:
+    """Keep one reading under results[section][name] and print it, tagged
+    with ``script``; flag it ``suspect`` when it lies under its floor."""
     entry = {"ms": ms, "note": note}
     if spread_ms:
         entry["spread_ms"] = [min(spread_ms), max(spread_ms)]
@@ -63,11 +85,10 @@ def record(results: dict, section: str, name: str, ms: float, note: str = "",
     if ms < floor_ms:
         entry["suspect"] = True
         entry["floor_ms"] = floor_ms
-        print(f"[measure_filter] {section} {name}: {ms:.6f} ms BELOW FLOOR {floor_ms:.4f}",
-              flush=True)
+        print(f"[{script}] {section} {name}: {ms:.6f} ms BELOW FLOOR {floor_ms:.4f}", flush=True)
     else:
         spread = f" (reps {entry['spread_ms'][0]:.4f}-{entry['spread_ms'][1]:.4f})" if spread_ms else ""
-        print(f"[measure_filter] {section} {name}: {ms:.4f} ms{spread}  {note}", flush=True)
+        print(f"[{script}] {section} {name}: {ms:.4f} ms{spread}  {note}", flush=True)
     results.setdefault(section, {})[name] = entry
     return entry
 
@@ -220,6 +241,123 @@ def measure_defaultab(results, device="cuda", sizes=SIZES["defaultab"], reps=REP
     run_id = len([k for k in results.get("defaultab", {}) if k.startswith(f"v1_{sizes[0][1]}")])
     cands = [("v1", "v1"), ("v3", "v3"), ("v1b", "v1"), ("v3b", "v3")]
     return _ab(results, "defaultab", cands, sizes, device, reps, suffix=f"#{run_id}")
+
+
+def _i32(rng, n, hi):
+    """n random int32 in [0, hi) from rng, as numpy."""
+    return rng.integers(0, hi, n, dtype=np.int32)
+
+
+def check_ops_parity(x, idx) -> None:
+    """The gather and roll ops against their plain versions at PARITY_REPS,
+    on x's device (measure_filter.py:467-482 holds the TPU kernel to
+    interpret mode the same way)."""
+    import torch
+
+    from ..ops import block_ops_cuda as bo
+
+    for op in PARITY_OPS:
+        got = bo.block_op(x, idx, op, PARITY_REPS)
+        ok = torch.equal(got, bo.block_op_ref(x, idx, op, PARITY_REPS))
+        print(f"[measure_filter] ops parity {op}: {ok}", flush=True)
+        if not ok:
+            raise RuntimeError(f"ops parity FAILED: {op} kernel != plain")
+
+
+def _op_step(op):
+    from ..ops import block_ops_cuda as bo
+
+    def step(c, ids):
+        return bo.block_op(c.view(-1, LANES), ids, op, OP_REPS).view(-1) ^ 1
+    return step
+
+
+def _block_ops(results, section, ops, device, sizes, reps):
+    """Each op on nblk blocks of its (rows, 128) shape, OP_REPS to a call,
+    interleaved; the ops section checks parity on one block first."""
+    import torch
+
+    from ..ops.block_ops_cuda import ROWS
+    from .device_time import time_chained_multi
+
+    rows = ROWS[ops[0]]
+    for n, tag, k in sizes:
+        nblk = max(1, n // (rows * LANES))
+        n = nblk * rows * LANES
+        rng = np.random.default_rng(0)
+        if section == "ops":
+            block = [torch.from_numpy(_i32(rng, (rows, LANES), hi)).to(device)
+                     for hi in (2**31, LANES)]
+            check_ops_parity(*block)
+        xs = torch.from_numpy(_i32(rng, n, 2**31)).to(device)
+        ids = torch.from_numpy(_i32(rng, n, LANES)).to(device).view(-1, LANES)
+        spread = {}
+        specs = [(f"{op}_r{rows}x{OP_REPS}", _op_step(op), xs, k, (ids,)) for op in ops]
+        res = time_chained_multi(specs, reps=reps, spread=spread)
+        for name, sec in res.items():
+            per_pass = sec / OP_REPS
+            record(results, section, name, sec * 1e3,
+                   f"{n * 4 / per_pass / 1e9:.0f} GB/s per pass"
+                   f" ({per_pass * 1e6:.2f} us/pass/{tag})",
+                   nbytes=n * 4, spread_ms=[s * 1e3 for s in spread[name]])
+        del xs, ids
+    return results[section]
+
+
+def measure_ops(results, device="cuda", sizes=SIZES["ops"], reps=REPS):
+    from ..ops.block_ops_cuda import OPS
+
+    return _block_ops(results, "ops", OPS, device, sizes, reps)
+
+
+def measure_cops(results, device="cuda", sizes=SIZES["cops"], reps=REPS):
+    from ..ops.block_ops_cuda import COPS
+
+    return _block_ops(results, "cops", COPS, device, sizes, reps)
+
+
+def _sort_step(sort, n):
+    import torch
+
+    def step(c, p):
+        a, b = sort((c, p))
+        r = c.view(torch.int32) ^ (a[:n].view(torch.int32) & 1) ^ (b[:n].view(torch.int32) & 2)
+        return r.view(torch.uint32)
+    return step
+
+
+def _sort1_step(c):
+    import torch
+
+    from ..ops.sort_cuda import sort_bitonic
+
+    (a,) = sort_bitonic((c,))
+    return (c.view(torch.int32) ^ (a.view(torch.int32) & 1)).view(torch.uint32)
+
+
+def measure_sort(results, device="cuda", sizes=SIZES["sort"], reps=REPS):
+    """The tile stage, the whole sort and the key-only sort, interleaved."""
+    import torch
+
+    from ..ops.sort_cuda import sort_bitonic, sort_tiles
+    from .device_time import time_chained_multi
+
+    for n, tag, k in sizes:
+        rng = np.random.default_rng(0)
+        key = torch.from_numpy(rng.integers(0, 2**31, n, dtype=np.uint32)).to(device)
+        pay = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(device)
+        specs = [(f"tile_{tag}", _sort_step(sort_tiles, n), key, k, (pay,)),
+                 (f"full_{tag}", _sort_step(sort_bitonic, n), key, k, (pay,)),
+                 (f"full1op_{tag}", _sort1_step, key, k)]
+        nbytes = {f"tile_{tag}": 8 * n, f"full_{tag}": 8 * n, f"full1op_{tag}": 4 * n}
+        spread = {}
+        res = time_chained_multi(specs, reps=reps, spread=spread)
+        for name, sec in res.items():
+            record(results, "sort", name, sec * 1e3,
+                   f"{n / sec / 1e6:.0f} M/s, {nbytes[name] / sec / 1e9:.0f} GB/s",
+                   nbytes=nbytes[name], spread_ms=[s * 1e3 for s in spread[name]])
+        del key, pay
+    return results["sort"]
 
 
 def run(sections=SECTIONS, device: str = "cuda", sizes=None, reps: int = REPS,

@@ -11,6 +11,12 @@
 //   tile_merge_kernel   <- bitonic_cascade_blocks (_cascade_kernel): the
 //                          stages d < TILE that finish a merge round.
 //
+// tile_sort_kernel alone makes dpu_sort_tiles_u32, the sort's tile stage:
+// every round that fits on chip, the counterpart of
+// scripts/measure_filter.py measure_sort's `upto_inblock` (the leaf sort
+// plus bitonic_cascade_rounds up to one VMEM block of 128Ki on the TPU; one
+// shared-memory tile of 4096 here).
+//
 // The same two network kernels, with every direction ascending, make
 // dpu_merge_blocks_u32, the counterpart of
 // dpu_olap_tpu/ops/bitonic_pallas.py:bitonic_merge_blocks
@@ -47,6 +53,8 @@
 // so that the payload pointers stay in registers.
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -322,13 +330,23 @@ cudaError_t launch_global_steps(int stages, uint32_t* key, Payloads pay,
   return cudaGetLastError();
 }
 
+// The tile stage alone: each tile of min(npow, TILE) elements sorted,
+// ascending or descending by the parity of its index (ascending when one
+// tile covers the whole array), from the inputs (length n, read with the
+// 0xFFFFFFFF pad) into the outputs (length npow).
 template <int NPAY>
-cudaError_t run_sort(const uint32_t* in_key, ConstPayloads in_pay, uint32_t* key,
-                     Payloads pay, long long n, long long npow, cudaStream_t s) {
+cudaError_t run_tiles(const uint32_t* in_key, ConstPayloads in_pay, uint32_t* key,
+                      Payloads pay, long long n, long long npow, cudaStream_t s) {
   const int tile = npow < TILE ? (int)npow : TILE;
   tile_sort_kernel<NPAY><<<(unsigned)(npow / tile), tile / E, 0, s>>>(
       in_key, in_pay, key, pay, n, tile);
-  cudaError_t err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+template <int NPAY>
+cudaError_t run_sort(const uint32_t* in_key, ConstPayloads in_pay, uint32_t* key,
+                     Payloads pay, long long n, long long npow, cudaStream_t s) {
+  cudaError_t err = run_tiles<NPAY>(in_key, in_pay, key, pay, n, npow, s);
   if (err != cudaSuccess) return err;
   for (long long k = 2LL * TILE; k <= npow; k <<= 1) {
     long long d = k >> 1;
@@ -367,16 +385,26 @@ cudaError_t run_merge_blocks(uint32_t* key, Payloads pay, long long n, long long
   return cudaGetLastError();
 }
 
-}  // namespace
+// Calls f(std::integral_constant<int, NPAY>{}) for a payload count n_pay in
+// [0, MAX_PAYLOADS]: the kernels are templated on it.
+template <typename F>
+cudaError_t with_payloads(int n_pay, F&& f) {
+  switch (n_pay) {
+    case 0: return f(std::integral_constant<int, 0>{});
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    default: return f(std::integral_constant<int, 8>{});
+  }
+}
 
-// Sorts planes[0] (key) ascending with planes[1:] following, from in_planes
-// (length n) into out_planes (length npow, a power of two >= max(n,
-// MIN_LEN)). Both are host arrays of n_planes device pointers. Launches on
-// `stream` and does not synchronise. Returns 0 or the first
-// cudaGetLastError() after a launch.
-extern "C" int dpu_sort_u32(void* const* in_planes, void* const* out_planes,
-                            int n_planes, long long n, long long npow,
-                            void* stream) {
+// dpu_sort_u32 and dpu_sort_tiles_u32: the whole sort, or its tile stage.
+int sort_entry(bool tiles_only, void* const* in_planes, void* const* out_planes, int n_planes,
+               long long n, long long npow, void* stream) {
   if (n_planes < 1 || n_planes > 1 + MAX_PAYLOADS || npow < MIN_LEN ||
       (npow & (npow - 1)) != 0 || n < 1 || n > npow)
     return (int)cudaErrorInvalidValue;
@@ -389,19 +417,36 @@ extern "C" int dpu_sort_u32(void* const* in_planes, void* const* out_planes,
   }
   const uint32_t* in_key = static_cast<const uint32_t*>(in_planes[0]);
   uint32_t* key = static_cast<uint32_t*>(out_planes[0]);
-  cudaError_t err;
-  switch (n_planes - 1) {
-    case 0: err = run_sort<0>(in_key, in_pay, key, pay, n, npow, s); break;
-    case 1: err = run_sort<1>(in_key, in_pay, key, pay, n, npow, s); break;
-    case 2: err = run_sort<2>(in_key, in_pay, key, pay, n, npow, s); break;
-    case 3: err = run_sort<3>(in_key, in_pay, key, pay, n, npow, s); break;
-    case 4: err = run_sort<4>(in_key, in_pay, key, pay, n, npow, s); break;
-    case 5: err = run_sort<5>(in_key, in_pay, key, pay, n, npow, s); break;
-    case 6: err = run_sort<6>(in_key, in_pay, key, pay, n, npow, s); break;
-    case 7: err = run_sort<7>(in_key, in_pay, key, pay, n, npow, s); break;
-    default: err = run_sort<8>(in_key, in_pay, key, pay, n, npow, s); break;
-  }
-  return (int)err;
+  return (int)with_payloads(n_planes - 1, [&](auto np) {
+    constexpr int NPAY = decltype(np)::value;
+    return tiles_only ? run_tiles<NPAY>(in_key, in_pay, key, pay, n, npow, s)
+                      : run_sort<NPAY>(in_key, in_pay, key, pay, n, npow, s);
+  });
+}
+
+}  // namespace
+
+// Sorts planes[0] (key) ascending with planes[1:] following, from in_planes
+// (length n) into out_planes (length npow, a power of two >= max(n,
+// MIN_LEN)). Both are host arrays of n_planes device pointers. Launches on
+// `stream` and does not synchronise. Returns 0 or the first
+// cudaGetLastError() after a launch.
+extern "C" int dpu_sort_u32(void* const* in_planes, void* const* out_planes,
+                            int n_planes, long long n, long long npow,
+                            void* stream) {
+  return sort_entry(false, in_planes, out_planes, n_planes, n, npow, stream);
+}
+
+// The tile stage of dpu_sort_u32 alone (the counterpart of the TPU sort's
+// XLA leaf sort plus bitonic_cascade_rounds up to its leaf): every merge
+// round whose segment fits one tile of min(npow, TILE) elements. Each tile
+// of out_planes comes out sorted, ascending at even tile indices and
+// descending at odd ones (ascending when one tile covers npow), the
+// payloads following their keys, unstable; rows >= n read as 0xFFFFFFFF.
+// Arguments as dpu_sort_u32's.
+extern "C" int dpu_sort_tiles_u32(void* const* in_planes, void* const* out_planes,
+                                  int n_planes, long long n, long long npow, void* stream) {
+  return sort_entry(true, in_planes, out_planes, n_planes, n, npow, stream);
 }
 
 // Runs the ascending half-cleaner cascade d = block/2 .. 1 on each block of
@@ -427,19 +472,9 @@ extern "C" int dpu_merge_blocks_u32(void* const* in_planes, void* const* out_pla
   Payloads pay{};
   for (int q = 0; q < n_planes - 1; ++q) pay.p[q] = static_cast<uint32_t*>(out_planes[1 + q]);
   uint32_t* key = static_cast<uint32_t*>(out_planes[0]);
-  cudaError_t err;
-  switch (n_planes - 1) {
-    case 0: err = run_merge_blocks<0>(key, pay, n, block, s); break;
-    case 1: err = run_merge_blocks<1>(key, pay, n, block, s); break;
-    case 2: err = run_merge_blocks<2>(key, pay, n, block, s); break;
-    case 3: err = run_merge_blocks<3>(key, pay, n, block, s); break;
-    case 4: err = run_merge_blocks<4>(key, pay, n, block, s); break;
-    case 5: err = run_merge_blocks<5>(key, pay, n, block, s); break;
-    case 6: err = run_merge_blocks<6>(key, pay, n, block, s); break;
-    case 7: err = run_merge_blocks<7>(key, pay, n, block, s); break;
-    default: err = run_merge_blocks<8>(key, pay, n, block, s); break;
-  }
-  return (int)err;
+  return (int)with_payloads(n_planes - 1, [&](auto np) {
+    return run_merge_blocks<decltype(np)::value>(key, pay, n, block, s);
+  });
 }
 
 extern "C" const char* dpu_cuda_error_string(int err) {

@@ -26,7 +26,7 @@ JoinNative — pyarrow hash join (host/join/join_native.cc:31-40 oracle).
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 

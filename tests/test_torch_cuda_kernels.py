@@ -2,7 +2,9 @@
 bit on every lane: the partition kernel (csrc/partition.cu), the
 merge-probe kernel (csrc/merge_probe.cu), the filter alternates
 (csrc/filter2.cu, filter3.cu, filter4.cu) and the filter stage ablation
-(csrc/filter.cu), and the graph-captured chain timing around them. A CUDA kernel has no CPU mode, so
+(csrc/filter.cu), the in-block primitive ops (csrc/block_ops.cu), the
+probe primitives (csrc/probes.cu) and the sort's tile stage
+(csrc/sort.cu), and the graph-captured chain timing around them. A CUDA kernel has no CPU mode, so
 every test here is marked ``cuda`` and skips without a device. This file
 imports no jax (the machine with the card has none) and takes no fixture of
 tests/conftest.py, which imports jax; on that machine run
@@ -15,7 +17,16 @@ import pytest
 import torch
 
 from dpu_olap_tpu_torch.bench import device_time
-from dpu_olap_tpu_torch.ops import filter_alt_cuda, filter_cuda, filter_stages, merge_cuda, partition_cuda
+from dpu_olap_tpu_torch.ops import (
+    block_ops_cuda,
+    filter_alt_cuda,
+    filter_cuda,
+    filter_stages,
+    merge_cuda,
+    partition_cuda,
+    probes_cuda,
+    sort_cuda,
+)
 
 EMPTY = np.uint32(0xFFFFFFFF)
 EDGE_KEYS = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF], np.uint32)
@@ -113,6 +124,94 @@ def test_filter_stage_matches_plain(cuda_device, stage, n):
     ref = filter_stages.filter_stage_ref(x, stage)
     assert [g is None for g in got] == [r is None for r in ref]
     _same([g for g in got if g is not None], [r for r in ref if r is not None])
+
+
+EDGE_I32 = np.array([0, 1, -1, 2**31 - 1, -2**31, 2**31 - 2, -2**31 + 1, 127, 128, 2**30], np.int32)
+
+
+def _block_inputs(rows, nblk, seed):
+    """int32 values over the whole range (edge values first, so the wrapping
+    adds run) and lane indices in [0, 128)."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-2**31, 2**31, (nblk * rows, 128), dtype=np.int64).astype(np.int32)
+    x.flat[: len(EDGE_I32)] = EDGE_I32
+    x[-1, -len(EDGE_I32):] = EDGE_I32
+    idx = rng.integers(0, 128, x.shape, dtype=np.int32)
+    return x, idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", block_ops_cuda.OPS + block_ops_cuda.COPS)
+@pytest.mark.parametrize("reps", [0, 2, 16])
+def test_block_op_matches_plain(cuda_device, op, reps):
+    rows = block_ops_cuda.ROWS[op]
+    x, idx = (torch.from_numpy(a).to(cuda_device) for a in _block_inputs(rows, 5, rows + reps))
+    before = block_ops_cuda.LAUNCHES[op]
+    got = block_ops_cuda.block_op(x, idx, op, reps)
+    assert block_ops_cuda.LAUNCHES[op] == before + 1
+    _same([got], [block_ops_cuda.block_op_ref(x, idx, op, reps)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows, wv, wi", [(8192, 128, 128), (32768, 128, 128), (128, 128, 256),
+                                          (1000, 96, 40), (3, 2048, 7)])
+def test_lane_gather_matches_plain(cuda_device, rows, wv, wi):
+    rng = np.random.default_rng(rows)
+    x = torch.from_numpy(rng.integers(0, 2**32, (rows, wv), dtype=np.uint32)).to(cuda_device)
+    i = rng.integers(0, wv, (rows, wi), dtype=np.int32)
+    i[0, :3] = [-1, wv, 2**31 - 1]  # out of range: 0 in both versions
+    i = torch.from_numpy(i).to(cuda_device)
+    before = probes_cuda.LAUNCHES["lane_gather"]
+    got = probes_cuda.lane_gather(x, i)
+    assert probes_cuda.LAUNCHES["lane_gather"] == before + 1
+    _same([got], [probes_cuda.lane_gather_ref(x, i)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(128, 128), (512, 128), (1, 1), (33, 1000), (4096, 31)])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint32])
+def test_transpose_matches_plain(cuda_device, shape, dtype):
+    x = torch.from_numpy(np.random.default_rng(1).integers(0, 2**32, shape, dtype=np.uint32))
+    x = x.view(dtype).to(cuda_device)
+    got = probes_cuda.transpose(x)
+    assert got.dtype == dtype
+    _same([got], [probes_cuda.transpose_ref(x)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, m, n", [(128, 128, 256), (16, 16, 16), (256, 64, 48)])
+def test_onehot_matmul_matches_plain(cuda_device, k, m, n):
+    rng = np.random.default_rng(k + m + n)
+    a, b = (torch.from_numpy(rng.integers(0, 2, s).astype(np.float32)).to(cuda_device)
+            .to(torch.bfloat16) for s in ((k, m), (k, n)))
+    _same([probes_cuda.onehot_matmul(a, b)], [probes_cuda.onehot_matmul_ref(a, b)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", [0, 317, 511, -1, 512])
+def test_dyn_row_matches_plain(cuda_device, row):
+    x = torch.from_numpy(np.random.default_rng(2).integers(0, 2**32, (512, 128), dtype=np.uint32))
+    x = x.to(cuda_device)
+    r = torch.tensor([row], dtype=torch.int32, device=cuda_device)
+    _same([probes_cuda.dyn_row(x, r)], [probes_cuda.dyn_row_ref(x, r)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 100, 4096, 4097, 3 * 4096 + 5, 2 << 20])
+@pytest.mark.parametrize("n_pay", [0, 1, 3])
+def test_sort_tiles_matches_plain(cuda_device, n, n_pay):
+    rng = np.random.default_rng(n + n_pay)
+    keys = rng.integers(0, 2**31, n, dtype=np.uint32)
+    keys[: len(EDGE_KEYS) - 1] = EDGE_KEYS[:-1][:n]
+    keys[-min(n, 50):] = keys[0]  # ties: the tile sort may permute their payloads
+    planes = [torch.from_numpy(a).to(cuda_device) for a in
+              (keys, *(rng.integers(0, 2**32, n, dtype=np.uint32) for _ in range(n_pay)))]
+    before = sort_cuda.TILE_LAUNCHES
+    got = sort_cuda.sort_tiles(planes)
+    assert sort_cuda.TILE_LAUNCHES == before + 1
+    ref = sort_cuda.sort_tiles_ref(planes)
+    _same([got[0]], [ref[0]])  # keys agree as they are; payloads after a canonical order
+    _same(sort_cuda.canonical_tiles(got), sort_cuda.canonical_tiles(ref))
 
 
 @pytest.mark.cuda

@@ -188,7 +188,8 @@ def test_port_imports_no_jax():
         "        'ops.partition', 'ops.partition_cuda', 'ops.merge_cuda', 'parallel.shuffle',\n"
         "        'parallel.dist_join', 'parallel.partitioner', 'operators.partition_op',\n"
         "        'bench.device_time', 'bench.measure_filter', 'ops.filter_alt_cuda',\n"
-        "        'ops.filter_stages']\n"
+        "        'ops.filter_stages', 'ops.block_ops_cuda', 'ops.probes_cuda',\n"
+        "        'bench.measure_r3', 'bench.probe_lowering']\n"
         "missing = [m for m in need if 'dpu_olap_tpu_torch.' + m not in mods]\n"
         "assert not missing, missing\n"
         "print(len(mods))\n"
@@ -199,3 +200,36 @@ def test_port_imports_no_jax():
     )
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[-1]) >= 25
+
+
+def _unbound_names(source: str) -> list:
+    """(line, name) of every name the source loads but binds nowhere: not
+    imported, assigned, defined, a parameter or a builtin (a coarse
+    undefined-name check; a local annotation counts as a load)."""
+    import ast
+    import builtins
+
+    tree = ast.parse(source)
+    bound = set(dir(builtins)) | {"__file__"}
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            bound.update((a.asname or a.name).split(".")[0] for a in node.names)
+        elif isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            bound.add(node.name)
+        elif isinstance(node, ast.Name) and not isinstance(node.ctx, ast.Load):
+            bound.add(node.id)
+        elif isinstance(node, ast.arg):
+            bound.add(node.arg)
+        elif isinstance(node, ast.ExceptHandler) and node.name:
+            bound.add(node.name)
+    loads = [n for n in ast.walk(tree) if isinstance(n, ast.Name) and isinstance(n.ctx, ast.Load)]
+    return sorted({(n.lineno, n.id) for n in loads if n.id not in bound})
+
+
+def test_port_has_no_undefined_names():
+    """Every module of the port binds each name it uses (join_op.py once
+    annotated ``List`` without importing it)."""
+    assert _unbound_names("from typing import Dict\nx: List[Dict] = []\n") == [(2, "List")]
+    bad = {str(p.relative_to(REPO)): _unbound_names(p.read_text())
+           for p in sorted((REPO / "dpu_olap_tpu_torch").rglob("*.py"))}
+    assert {k: v for k, v in bad.items() if v} == {}

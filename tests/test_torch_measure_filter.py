@@ -1,7 +1,7 @@
 """The port's filter-kernel measurement (dpu_olap_tpu_torch.bench.
 measure_filter) on the CPU at a small n: every section's candidate names,
-the floor flag, the chain step, v4's numpy parity check, and that importing
-the module runs nothing."""
+the floor flag, the chain steps, v4's numpy parity check, the ops section's
+parity check, and that importing the module runs nothing."""
 
 import json
 import subprocess
@@ -29,6 +29,10 @@ EXPECTED = {
     "v3": ["v1_20K", "v3_20K", "v2_20K", "v1wi_20K", "v3wi_20K"],
     "v4": ["v4_20K", "v3_20K", "v1_20K", "v4wi_20K", "v1wi_20K"],
     "defaultab": ["v1_20K#0", "v3_20K#0", "v1b_20K#0", "v3b_20K#0"],
+    "ops": ["lane_roll_r256x16", "row_roll_r256x16", "where_r256x16", "lane_gather_r256x16",
+            "sublane_gather_r256x16"],
+    "cops": ["transpose_r128x16", "sq_gather_r128x16", "count_matmul_r128x16", "cprep_r128x16"],
+    "sort": ["tile_20K", "full_20K", "full1op_20K"],
 }
 
 
@@ -75,8 +79,8 @@ def test_v4_parity_check_on_cpu(capsys):
 
 
 def test_unknown_section_raises(capsys):
-    with pytest.raises(ValueError, match="unknown section 'ops'"):
-        mf.run(["parts", "ops"], device="cpu", sizes=SIZES)
+    with pytest.raises(ValueError, match="unknown section 'sort2'"):
+        mf.run(["parts", "sort2"], device="cpu", sizes=SIZES)
     assert capsys.readouterr().out == ""  # checked before any section runs
 
 
@@ -109,3 +113,51 @@ def test_main_parses_sections(monkeypatch, tmp_path, argv, sections):
     assert mf.main([*argv, "--out", str(out)]) == 0
     assert calls == [sections]
     assert json.loads(out.read_text()) == {"device": "card", "parts": {"x": {"ms": 1.0}}}
+
+
+def test_ops_section_checks_parity_first(capsys):
+    mf.run(["ops"], device="cpu", sizes=SIZES, reps=1)
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[:4] == [f"[measure_filter] ops parity {op}: True" for op in mf.PARITY_OPS]
+    assert len(lines) == 4 + 5
+
+
+def test_ops_parity_mismatch_raises(monkeypatch):
+    from dpu_olap_tpu_torch.ops import block_ops_cuda
+
+    real = block_ops_cuda.block_op
+    def off_by_one(x, idx, op, reps):
+        return real(x, idx, op, reps) ^ (op == "row_roll")
+
+    monkeypatch.setattr(block_ops_cuda, "block_op", off_by_one)
+    with pytest.raises(RuntimeError, match="ops parity FAILED: row_roll"):
+        mf.run(["ops"], device="cpu", sizes=SIZES, reps=1)
+
+
+def test_op_and_sort_steps_match_numpy():
+    from dpu_olap_tpu_torch.ops import block_ops_cuda
+
+    rng = np.random.default_rng(4)
+    c = rng.integers(0, 2**31, 2 * 128 * 128, dtype=np.int32)
+    ids = torch.from_numpy(rng.integers(0, 128, (256, 128), dtype=np.int32))
+    want = block_ops_cuda.block_op_ref(torch.from_numpy(c).view(-1, 128), ids, "cprep", 16)
+    got = mf._op_step("cprep")(torch.from_numpy(c), ids)
+    np.testing.assert_array_equal(got.numpy(), want.view(-1).numpy() ^ 1)
+    k, p = (rng.integers(0, 2**32, 5000, dtype=np.uint32) for _ in range(2))
+    order = np.argsort(k, kind="stable")
+    got = mf._sort_step(lambda planes: tuple(torch.from_numpy(a[order]) for a in (k, p)), 5000)(
+        torch.from_numpy(k), torch.from_numpy(p))
+    np.testing.assert_array_equal(got.numpy(), k ^ (k[order] & 1) ^ (p[order] & 2))
+    np.testing.assert_array_equal(mf._sort1_step(torch.from_numpy(k)).numpy(), k ^ (k[order] & 1))
+
+
+def test_main_writes_only_the_given_file(monkeypatch, tmp_path):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "card")
+    monkeypatch.setattr(mf, "run", lambda s: {"sort": {"x": {"ms": 1.0}}})
+    before = (REPO / "MEASURE_FILTER.json").read_bytes()
+    assert mf.main(["ops", "cops", "sort"]) == 0 and list(tmp_path.iterdir()) == []
+    assert mf.main(["sort", "--out", "a.json"]) == 0
+    assert [p.name for p in tmp_path.iterdir()] == ["a.json"]
+    assert (REPO / "MEASURE_FILTER.json").read_bytes() == before
