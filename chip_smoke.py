@@ -6,8 +6,9 @@ Run from the root of the repository on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from dpu_olap_tpu_torch/csrc, checks each kernel
-against its plain PyTorch version on the card (sort, gather, filter, sum,
-forward fill, block merge, radix partition, merge-probe, the filter
+against its plain PyTorch version on the card (the radix sort, bit for bit
+on every plane, and the sorted gather, both also timed as graph replays;
+filter, sum, forward fill, block merge, radix partition, merge-probe, the filter
 alternates and stage ablation, the block ops, the probe primitives and the
 sort's tile stage), the partition, sort and fill kernels also
 at the SF=64 main path's shapes, and times each beside its bound and the
@@ -316,81 +317,158 @@ def phase_join_entry_points(rng) -> None:
           f" valid masks, {n_l} x {n_r} rows: card == CPU", flush=True)
 
 
+GRAPH_CALLS = 10  # calls captured in one graph for a replay reading of a short kernel
+
+
+def interleaved(fns: dict, rounds: int = 3) -> dict:
+    """Median of each reading over rounds taken in turns (a, b, ..., b, a,
+    ...), so that drift on the card falls on every reading alike."""
+    got = {k: [] for k in fns}
+    for r in range(rounds):
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            got[k].append(fns[k]())
+    return {k: float(np.median(v)) for k, v in got.items()}
+
+
 def phase_sort_gather(rng, card: str) -> dict:
-    """Sort and gather kernels against their plain versions, on the card."""
+    """The radix sort and the sorted gather against their plain versions,
+    bit for bit on every plane, on the card; timed eager and as graph
+    replays beside the PyTorch call that computes the same function."""
     import torch
 
     from dpu_olap_tpu_torch.ops import sort_cuda, take_cuda
 
-    def sort_case(n: int, n_pay: int):
-        key = rng.integers(0, 0xFFFFFFFF, n, dtype=np.uint32)  # < 0xFFFFFFFF
+    def dup_keys(n):
+        key = rng.integers(0, 0xFFFFFFFF, n, dtype=np.uint32)
         pool = rng.integers(0, 0xFFFFFFFF, 1000, dtype=np.uint32)
         dup = rng.choice(n, n // 4, replace=False)
         key[dup] = pool[rng.integers(0, len(pool), len(dup))]  # many duplicates
-        pays = [rng.integers(0, 2**32, n, dtype=np.uint32) for _ in range(n_pay)]
-        planes = tuple(on_card(p) for p in (key, *pays))
-        got = [host(t) for t in sort_cuda.sort_bitonic(planes)]
-        ref = [host(t) for t in sort_cuda.sort_bitonic_ref(planes)]
-        require(np.array_equal(ref[0], np.sort(key)), f"plain sort n={n}")
-        require(np.array_equal(got[0], ref[0]), f"sort keys n={n} payloads={n_pay}")
-        g, r = canon(got), canon(ref)
-        require(np.array_equal(g, r), f"sort rows n={n} payloads={n_pay}")
-        require(np.array_equal(r, canon([key, *pays])), f"plain sort rows n={n}")
-        return planes, max_err(g, r)
+        return key
 
+    def max_keys(n):
+        key = dup_keys(n)
+        key[rng.choice(n, n // 3, replace=False)] = 0xFFFFFFFF
+        return key
+
+    n_odd = 3 * (1 << 20) + 17
+    cases = [  # (label, keys, payloads: None = random, or given planes)
+        ("random", dup_keys(SF1_ROWS), 1), ("random", dup_keys(SF1_ROWS), 3),
+        ("random", dup_keys(n_odd), 1), ("random", dup_keys(n_odd), 3),
+        ("random", dup_keys(2), 2), ("random", dup_keys(1000), 2),
+        ("random", dup_keys(5000), 2),
+        ("0xFFFFFFFF keys, distinct payloads", max_keys(5000),
+         [rng.permutation(5000).astype(np.uint32)]),
+        ("0xFFFFFFFF keys, distinct payloads", max_keys(n_odd),
+         [np.arange(n_odd, dtype=np.uint32)]),
+        ("all keys equal", np.full(n_odd, 77, np.uint32), 1),
+        ("low 8 bits only", rng.integers(0, 256, n_odd, dtype=np.uint32), 2),
+        ("high 8 bits only", rng.integers(0, 256, n_odd, dtype=np.uint32) << np.uint32(24), 2),
+        ("random", dup_keys(SF1_ROWS), 0), ("random", dup_keys((1 << 20) + 7), 8),
+    ]
     sort_err = 0
-    timed_planes = None
-    for n in (SF1_ROWS, 3 * (1 << 20) + 17):
-        for n_pay in (1, 3):
-            planes, err = sort_case(n, n_pay)
-            sort_err = max(sort_err, err)
-            print(f"[sort] n={n} payloads={n_pay}: kernel == plain", flush=True)
-            if n == SF1_ROWS and n_pay == 1:
-                timed_planes = planes  # the join's shape: (idx, y)
-    for n in (2, 1000, 5000):  # padded to MIN_LEN, one tile, two tiles
-        sort_err = max(sort_err, sort_case(n, 2)[1])
-    print("[sort] n=2, 1000, 5000 payloads=2: kernel == plain", flush=True)
-    sort_ms = cuda_ms(lambda: sort_cuda.sort_bitonic(timed_planes))
-    sort_plain_ms = cuda_ms(lambda: sort_cuda.sort_bitonic_ref(timed_planes))
+    for label, key, pays in cases:
+        n = len(key)
+        if not isinstance(pays, list):
+            pays = [rng.integers(0, 2**32, n, dtype=np.uint32) for _ in range(pays)]
+        planes = tuple(on_card(p) for p in (key, *pays))
+        ref = sort_cuda.sort_bitonic_ref(planes)
+        got = sort_cuda.sort_bitonic(planes)
+        require(card_equal(got, ref), f"sort {label} n={n} payloads={len(pays)}: kernel != plain")
+        g = [host(t) for t in got]
+        require(np.array_equal(g[0], np.sort(key)), f"sort {label} n={n}: keys not sorted")
+        require(np.array_equal(canon(g), canon([key, *pays])), f"sort {label} n={n}: rows differ")
+        sort_err = max(sort_err, card_err(got, ref))
+        print(f"[sort] {label} n={n} payloads={len(pays)}: kernel == plain on every plane",
+              flush=True)
+
+    # the join's shape: (idx, y) at 2Mi, full-range keys
+    timed = tuple(on_card(p) for p in (dup_keys(SF1_ROWS),
+                                       rng.integers(0, 2**32, SF1_ROWS, dtype=np.uint32)))
+    key32 = timed[0].view(torch.int32)
     # torch.sort of the key alone (its int32 view: the same 4-byte radix
     # sort) is a lower bound: no one call sorts payloads along
-    key32 = timed_planes[0].view(torch.int32)
-    sort_lib = library_ms("torch.sort", lambda: torch.sort(key32))
+    s_eager = interleaved({"kernel": lambda: cuda_ms(lambda: sort_cuda.sort_bitonic(timed)),
+                           "lib": lambda: cuda_ms(lambda: torch.sort(key32))})
+    s_graph = interleaved({"kernel": lambda: graph_ms(lambda: sort_cuda.sort_bitonic(timed)),
+                           "lib": lambda: graph_ms(lambda: torch.sort(key32))})
+    s_plain = cuda_ms(lambda: sort_cuda.sort_bitonic_ref(timed))
+    s_plain_graph = graph_ms(lambda: sort_cuda.sort_bitonic_ref(timed))
     sort_bytes = 2 * 2 * 4 * SF1_ROWS  # key + payload, read and written
     print(
-        f"[sort] n={SF1_ROWS} 1 payload: kernel {sort_ms:.4f} ms, plain {sort_plain_ms:.4f} ms,"
-        f" torch.sort of the key {sort_lib} ms, bound {bound_ms(sort_bytes):.4f} ms"
-        f" (median of {REPS}, CUDA events) [{card}]",
+        f"[sort] n={SF1_ROWS} 1 payload: kernel {s_eager['kernel']:.4f} ms eager,"
+        f" {s_graph['kernel']:.4f} graph; torch.sort of the key {s_eager['lib']:.4f} eager,"
+        f" {s_graph['lib']:.4f} graph; plain {s_plain:.4f} eager, {s_plain_graph:.4f} graph;"
+        f" bound {bound_ms(sort_bytes):.4f} ms (median of {REPS}, CUDA events, 3 rounds in turns)"
+        f" [{card}]",
         flush=True,
     )
 
-    n = SF1_ROWS
-    data = rng.integers(0, 2**32, n, dtype=np.uint32)
-    sidx = np.sort(rng.integers(0, n + n // 64, n).astype(np.uint32))  # tail out of range
-    tdata, tsidx = on_card(data), on_card(sidx)
-    gv, gf = take_cuda.gather_sorted(tdata, tsidx)
-    rv, _ = take_cuda.gather_sorted_ref(tdata, tsidx)
-    gv, rv = host(gv), host(rv)
-    expect = np.where(sidx < n, data[np.minimum(sidx, n - 1)], 0).astype(np.uint32)
-    require(np.array_equal(rv, expect), "plain gather")
-    require(np.array_equal(gv, rv) and gf.item() == 0, "gather kernel == plain")
-    gather_ms = cuda_ms(lambda: take_cuda.gather_sorted(tdata, tsidx))
-    gather_plain_ms = cuda_ms(lambda: take_cuda.gather_sorted_ref(tdata, tsidx))
-    # index_select needs in-range indices: the out-of-range tail clipped
-    idx = tsidx.to(torch.int64).clamp(max=n - 1).to(torch.int32)
-    data32 = tdata.view(torch.int32)
-    gather_lib = library_ms("torch.index_select", lambda: torch.index_select(data32, 0, idx))
-    gather_bytes = 3 * 4 * n  # table and positions read, values written
-    print(
-        f"[gather] {n} sorted queries into {n} rows: kernel == plain; kernel {gather_ms:.4f} ms,"
-        f" plain {gather_plain_ms:.4f} ms, torch.index_select {gather_lib} ms,"
-        f" bound {bound_ms(gather_bytes):.4f} ms (median of {REPS}, CUDA events) [{card}]",
-        flush=True,
-    )
+    def gather_case(label, data, sidx):
+        got = take_cuda.gather_sorted(data, sidx)
+        ref = take_cuda.gather_sorted_ref(data, sidx)
+        require(card_equal(got, ref), f"gather {label}: kernel != plain")
+        s, d = host(sidx), host(data)
+        expect = np.where(s < len(d), d[np.minimum(s, len(d) - 1)], 0).astype(np.uint32)
+        require(np.array_equal(host(ref[0]), expect), f"plain gather {label}")
+        return card_err(got, ref)
+
+    gather_err = 0
+    tables = {}
+    for n in (SF1_ROWS, SF8 * SF1_ROWS):  # the join's shapes at SF=1 and SF=8
+        data = rng.integers(0, 2**32, n, dtype=np.uint32)
+        sidx = np.sort(rng.integers(0, n + n // 64, n).astype(np.uint32))  # tail out of range
+        tables[n] = (on_card(data), on_card(sidx))
+        gather_err = max(gather_err, gather_case(f"{n} sorted queries", *tables[n]))
+    data, sidx = tables[SF1_ROWS]
+    for off in (1, 2, 3):  # a slice of sidx: not 16-byte aligned
+        gather_err = max(gather_err, gather_case(f"sidx[{off}:]", data, sidx[off:]))
+    for k in (1, 2, 3, 5):
+        gather_err = max(gather_err, gather_case(f"k={k}", data, sidx[:k]))
+        gather_err = max(gather_err, gather_case(f"k={k} at offset 1", data, sidx[1:1 + k]))
+    tail = sidx.clone()
+    tail[-(SF1_ROWS // 10):] = 0xFFFFFFFF  # an all-out-of-range tail
+    gather_err = max(gather_err, gather_case("out-of-range tail", data, tail))
+    print(f"[gather] kernel == plain: {SF1_ROWS} and {SF8 * SF1_ROWS} queries, sidx at offsets"
+          f" 1-3, k = 1, 2, 3, 5, an out-of-range tail", flush=True)
+
+    rows = {}
+    for n, (data, sidx) in tables.items():
+        # index_select needs in-range indices: the out-of-range tail clipped
+        idx = sidx.to(torch.int64).clamp(max=n - 1).to(torch.int32)
+        data32 = data.view(torch.int32)
+
+        def calls(fn):
+            return lambda: [fn() for _ in range(GRAPH_CALLS)]
+
+        eager = interleaved({"kernel": lambda: cuda_ms(lambda: take_cuda.gather_sorted(data, sidx)),
+                             "lib": lambda: cuda_ms(lambda: torch.index_select(data32, 0, idx))})
+        graph = interleaved({
+            "kernel": lambda: graph_ms(calls(lambda: take_cuda.gather_sorted(data, sidx))) / GRAPH_CALLS,
+            "lib": lambda: graph_ms(calls(lambda: torch.index_select(data32, 0, idx))) / GRAPH_CALLS})
+        plain_ms = cuda_ms(lambda: take_cuda.gather_sorted_ref(data, sidx))
+        plain_graph = graph_ms(lambda: take_cuda.gather_sorted_ref(data, sidx))
+        nbytes = 3 * 4 * n  # table and positions read, values written
+        print(
+            f"[gather] {n} sorted queries into {n} rows: kernel {eager['kernel']:.4f} ms eager,"
+            f" {graph['kernel']:.4f} graph; torch.index_select {eager['lib']:.4f} eager,"
+            f" {graph['lib']:.4f} graph; plain {plain_ms:.4f} eager, {plain_graph:.4f} graph;"
+            f" bound {bound_ms(nbytes):.4f} ms (graph: {GRAPH_CALLS} calls a replay; 3 rounds in"
+            f" turns) [{card}]",
+            flush=True,
+        )
+        rows[n] = (eager, graph, plain_ms, plain_graph, nbytes)
+    eager, graph, plain_ms, plain_graph, nbytes = rows[SF1_ROWS]
     return {
-        "sort_bitonic": kernel_row(sort_err, sort_ms, sort_plain_ms, sort_bytes, sort_lib),
-        "gather_sorted": kernel_row(max_err(gv, rv), gather_ms, gather_plain_ms, gather_bytes,
-                                    gather_lib),
+        "sort_bitonic": {
+            **kernel_row(sort_err, s_eager["kernel"], s_plain, sort_bytes, s_eager["lib"]),
+            "graph_ms": s_graph["kernel"], "plain_graph_ms": s_plain_graph,
+            "library_graph_ms": s_graph["lib"],
+        },
+        "gather_sorted": {
+            **kernel_row(gather_err, eager["kernel"], plain_ms, nbytes, eager["lib"]),
+            "graph_ms": graph["kernel"], "plain_graph_ms": plain_graph,
+            "library_graph_ms": graph["lib"],
+        },
     }
 
 
@@ -1165,13 +1243,8 @@ def phase_round_kernels(card: str) -> None:
 
     got = sort_cuda.sort_bitonic(planes)
     ref = sort_cuda.sort_bitonic_ref(planes)
-
-    def rows_sorted(s):
-        return torch.sort((s[0].to(torch.int64) << 32) | s[1].to(torch.int64)).values
-
     require(bool((ref[0].to(torch.int64).diff() >= 0).all()), "plain sort at the round's shape")
-    require(card_equal(got[:1], ref[:1]) and torch.equal(rows_sorted(got), rows_sorted(ref)),
-            f"sort kernel != plain at one SF=64 round (n={n}, 1 payload)")
+    require(card_equal(got, ref), f"sort kernel != plain at one SF=64 round (n={n}, 1 payload)")
     k2s = got[0].to(torch.int64)
     sk = torch.where(k2s >= 0xFFFFFFFE, EMPTY, k2s >> 1)
     fill = (_u32(torch.where((k2s & 1) == 0, sk, EMPTY)), got[1])
@@ -1184,10 +1257,12 @@ def phase_round_kernels(card: str) -> None:
     sort_plain = cuda_ms(lambda: sort_cuda.sort_bitonic_ref(planes))
     fill_ms = cuda_ms(lambda: scan_cuda.propagate_fill(fill))
     fill_plain = cuda_ms(lambda: scan_cuda.propagate_fill_ref(fill))
+    work = sort_cuda.radix_plan(n, 1).work_words * 8
     print(
-        f"[round] one SF=64 round (n={n}, key + 1 payload): sort and fill kernels == plain;"
-        f" sort kernel {sort_ms:.4f} ms, plain {sort_plain:.4f} ms; fill kernel {fill_ms:.4f} ms,"
-        f" plain {fill_plain:.4f} ms; bound of each {bound_ms(2 * 2 * 4 * n):.4f} ms"
+        f"[round] one SF=64 round (n={n}, key + 1 payload): sort kernel == plain on every plane,"
+        f" fill kernel == plain; sort kernel {sort_ms:.4f} ms, plain {sort_plain:.4f} ms; fill"
+        f" kernel {fill_ms:.4f} ms, plain {fill_plain:.4f} ms; bound of each"
+        f" {bound_ms(2 * 2 * 4 * n):.4f} ms; the sort's work memory {work} B"
         f" (median of {REPS}, CUDA events) [{card}]",
         flush=True,
     )
@@ -1431,10 +1506,14 @@ def phase_join(sf: int, card: str) -> dict:
     s_ms = cuda_ms(lambda: sort_cuda.sort_bitonic((idx, y)))
     sidx = sort_cuda.sort_bitonic((idx, y))[0]
     g_ms = cuda_ms(lambda: take_cuda.gather_sorted(x, sidx))
+    g_graph = graph_ms(lambda: [take_cuda.gather_sorted(x, sidx)
+                                for _ in range(GRAPH_CALLS)]) / GRAPH_CALLS
+    total_graph = graph_ms(lambda: merge.join_shard_dense(fk, (y,), pk, (x,)))
     rows = len(out["fk"])
     print(
         f"[join SF={sf}] {rows} rows == {truth}; device join_shard_dense {total:.4f} ms ="
-        f" {rows / (total / 1e3):.1f} rows/s (sort {s_ms:.4f} ms, gather {g_ms:.4f} ms) [{card}]",
+        f" {rows / (total / 1e3):.1f} rows/s, graph {total_graph:.4f} ms (sort {s_ms:.4f} ms,"
+        f" gather {g_ms:.4f} ms eager, {g_graph:.4f} graph; {left.num_rows} rows) [{card}]",
         flush=True,
     )
     return launches
@@ -1925,7 +2004,7 @@ def main() -> dict:
     launches.update(filter_launches)
 
     sources = {
-        "sort_bitonic": ("sort", "sort.cu", "dpu_olap_tpu/ops/sort_pallas.py:385", [
+        "sort_bitonic": ("sort", "radix_sort.cu", "dpu_olap_tpu/ops/sort_pallas.py:385", [
             "dpu_olap_tpu/ops/sort_pallas.py:286",
             "dpu_olap_tpu/ops/sort_pallas.py:103",
             "dpu_olap_tpu/ops/sort_pallas.py:327",

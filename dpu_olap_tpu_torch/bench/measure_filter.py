@@ -22,9 +22,10 @@ and the sort's stage split on the card (counterpart of
             2 ops (lane_gather, lane_roll, row_roll, sublane_gather; a
             mismatch raises), then each op timed, interleaved.
   cops      the same for COPS on 128 (128, 128) tiles.
-  sort      the sort's tile stage (``sort_cuda.sort_tiles``, key + 1
-            payload), the whole sort (``full``) and the key-only sort
-            (``full1op``) at 2Mi.
+  sort      the TPU sort's tile stage (``sort_cuda.sort_tiles``, a
+            bitonic network, key + 1 payload), the whole sort (``full``,
+            a radix sort, which has no tile stage: ``tile`` is no longer a
+            part of ``full``) and the key-only sort (``full1op``) at 2Mi.
 
 Inputs are random from ``np.random.default_rng(0)``, as in the JAX script.
 A filter step is the filter on the carry, then ``c ^ (out & 1) ^ cnt`` (``^

@@ -1,23 +1,28 @@
-// Bitonic sort of a uint32 key plane with up to MAX_PAYLOADS uint32 payload
-// planes following it: the Hopper counterpart of the TPU merge-tree sort
-// dpu_olap_tpu/ops/sort_pallas.py:sort_bitonic and its three Pallas kernels
-// plus the XLA leaf sort.
+// Bitonic network kernels over a uint32 key plane with up to MAX_PAYLOADS
+// uint32 payload planes following it: the two entry points that are bitonic
+// by contract. The whole sort (dpu_sort_u32) is the radix sort of
+// csrc/radix_sort.cu.
 //
-//   tile_sort_kernel    <- the XLA leaf row sort and bitonic_cascade_rounds
-//                          (_cascade_rounds_kernel): every merge round whose
-//                          segment fits one tile, in shared memory.
-//   global_steps_kernel <- bitonic_xblock (_xblock_kernel): up to three
-//                          compare-exchange stages at distances d >= TILE.
-//   tile_merge_kernel   <- bitonic_cascade_blocks (_cascade_kernel): the
-//                          stages d < TILE that finish a merge round.
+//   tile_sort_kernel    <- the TPU merge-tree sort's XLA leaf row sort and
+//                          bitonic_cascade_rounds (_cascade_rounds_kernel,
+//                          dpu_olap_tpu/ops/sort_pallas.py): every merge
+//                          round whose segment fits one tile, in shared
+//                          memory.
+//   global_steps_kernel <- up to three compare-exchange stages at distances
+//                          d >= TILE (as sort_pallas.py's _xblock_kernel).
+//   tile_merge_kernel   <- the stages d < TILE that finish a merge round
+//                          (as sort_pallas.py's _cascade_kernel).
 //
-// tile_sort_kernel alone makes dpu_sort_tiles_u32, the sort's tile stage:
-// every round that fits on chip, the counterpart of
+// tile_sort_kernel alone makes dpu_sort_tiles_u32, the TPU sort's tile
+// stage: every round that fits on chip, the counterpart of
 // scripts/measure_filter.py measure_sort's `upto_inblock` (the leaf sort
 // plus bitonic_cascade_rounds up to one VMEM block of 128Ki on the TPU; one
-// shared-memory tile of 4096 here).
+// shared-memory tile of 4096 here). The host pads the length to a power of
+// two npow >= max(n, MIN_LEN); rows >= n read as key and payload
+// 0xFFFFFFFF. Each tile comes out sorted, ascending or descending by the
+// parity of its index, unstable.
 //
-// The same two network kernels, with every direction ascending, make
+// The two network kernels, with every direction ascending, make
 // dpu_merge_blocks_u32, the counterpart of
 // dpu_olap_tpu/ops/bitonic_pallas.py:bitonic_merge_blocks
 // (_merge_block_kernel): the in-block half-cleaner cascade d = block/2 .. 1
@@ -31,26 +36,14 @@
 // At 8Mi elements and a 64Ki block: one copy, two global passes and one
 // tile pass over (1 + payloads) planes.
 //
-// Contract (sort_pallas.py:385-471): ascending unsigned order of the key,
-// payloads move with their key, unstable. The host pads the length to a
-// power of two npow >= max(n, MIN_LEN); rows >= n read as key and payload
-// 0xFFFFFFFF and sort to the tail, so real keys must stay below 0xFFFFFFFF
-// for their payloads to survive the slice back to n. The first kernel reads
-// the inputs and writes the outputs; every later kernel works in place on
-// the outputs.
-//
-// What bounds it on the H100: device-memory passes. A bitonic network over
-// n = 2^m elements has m(m+1)/2 stages. Stages at a distance below TILE
-// (4096) stay on chip, so each merge round costs one pass for its tile
-// stages; the stages at d >= TILE run three to a pass, each thread holding
-// the 8 elements (and their payloads) that those stages exchange in
-// registers. At n = 2^21 that is 1 + 18 + 9 = 28 passes over
-// (1 + payloads) planes instead of 231. Inside a tile the same trick runs
-// three shared-memory stages per barrier, and the stages d < 32 run in
-// registers with warp shuffles. Tiles sort the key with a 16-bit position
-// and permute each payload plane once, so shared memory stays at 40 KB
-// whatever the payload count. Kernels are templated on the payload count
-// so that the payload pointers stay in registers.
+// What bounds them on the H100: device-memory passes. The stages at
+// d >= TILE run three to a pass, each thread holding the 8 elements (and
+// their payloads) that those stages exchange in registers. Inside a tile
+// the same trick runs three shared-memory stages per barrier, and the
+// stages d < 32 run in registers with warp shuffles. Tiles sort the key
+// with a 16-bit position and permute each payload plane once, so shared
+// memory stays at 40 KB whatever the payload count. Kernels are templated
+// on the payload count so that the payload pointers stay in registers.
 
 #include <cstdint>
 #include <type_traits>
@@ -343,29 +336,6 @@ cudaError_t run_tiles(const uint32_t* in_key, ConstPayloads in_pay, uint32_t* ke
   return cudaGetLastError();
 }
 
-template <int NPAY>
-cudaError_t run_sort(const uint32_t* in_key, ConstPayloads in_pay, uint32_t* key,
-                     Payloads pay, long long n, long long npow, cudaStream_t s) {
-  cudaError_t err = run_tiles<NPAY>(in_key, in_pay, key, pay, n, npow, s);
-  if (err != cudaSuccess) return err;
-  for (long long k = 2LL * TILE; k <= npow; k <<= 1) {
-    long long d = k >> 1;
-    while (d >= TILE) {
-      int stages = 1;
-      while (stages < MAX_FUSED && (d >> stages) >= TILE) ++stages;
-      const long long low_d = d >> (stages - 1);
-      err = launch_global_steps<NPAY>(stages, key, pay, npow, k, low_d, s);
-      if (err != cudaSuccess) return err;
-      d = low_d >> 1;
-    }
-    tile_merge_kernel<NPAY><<<(unsigned)(npow / TILE), TILE / E, 0, s>>>(key, pay, k, TILE,
-                                                                         TILE / 2);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
-}
-
 // Stages d = block/2 .. 1, ascending, on each block of n elements in place.
 template <int NPAY>
 cudaError_t run_merge_blocks(uint32_t* key, Payloads pay, long long n, long long block,
@@ -402,9 +372,19 @@ cudaError_t with_payloads(int n_pay, F&& f) {
   }
 }
 
-// dpu_sort_u32 and dpu_sort_tiles_u32: the whole sort, or its tile stage.
-int sort_entry(bool tiles_only, void* const* in_planes, void* const* out_planes, int n_planes,
-               long long n, long long npow, void* stream) {
+}  // namespace
+
+// The TPU sort's tile stage (its XLA leaf sort plus bitonic_cascade_rounds
+// up to its leaf): every merge round whose segment fits one tile of
+// min(npow, TILE) elements, from in_planes (length n) into out_planes
+// (length npow, a power of two >= max(n, MIN_LEN)), both host arrays of
+// n_planes device pointers, planes[0] the key. Each tile of out_planes comes
+// out sorted, ascending at even tile indices and descending at odd ones
+// (ascending when one tile covers npow), the payloads following their keys,
+// unstable; rows >= n read as 0xFFFFFFFF. Launches on `stream` and does not
+// synchronise. Returns 0 or the first CUDA error.
+extern "C" int dpu_sort_tiles_u32(void* const* in_planes, void* const* out_planes,
+                                  int n_planes, long long n, long long npow, void* stream) {
   if (n_planes < 1 || n_planes > 1 + MAX_PAYLOADS || npow < MIN_LEN ||
       (npow & (npow - 1)) != 0 || n < 1 || n > npow)
     return (int)cudaErrorInvalidValue;
@@ -418,35 +398,8 @@ int sort_entry(bool tiles_only, void* const* in_planes, void* const* out_planes,
   const uint32_t* in_key = static_cast<const uint32_t*>(in_planes[0]);
   uint32_t* key = static_cast<uint32_t*>(out_planes[0]);
   return (int)with_payloads(n_planes - 1, [&](auto np) {
-    constexpr int NPAY = decltype(np)::value;
-    return tiles_only ? run_tiles<NPAY>(in_key, in_pay, key, pay, n, npow, s)
-                      : run_sort<NPAY>(in_key, in_pay, key, pay, n, npow, s);
+    return run_tiles<decltype(np)::value>(in_key, in_pay, key, pay, n, npow, s);
   });
-}
-
-}  // namespace
-
-// Sorts planes[0] (key) ascending with planes[1:] following, from in_planes
-// (length n) into out_planes (length npow, a power of two >= max(n,
-// MIN_LEN)). Both are host arrays of n_planes device pointers. Launches on
-// `stream` and does not synchronise. Returns 0 or the first
-// cudaGetLastError() after a launch.
-extern "C" int dpu_sort_u32(void* const* in_planes, void* const* out_planes,
-                            int n_planes, long long n, long long npow,
-                            void* stream) {
-  return sort_entry(false, in_planes, out_planes, n_planes, n, npow, stream);
-}
-
-// The tile stage of dpu_sort_u32 alone (the counterpart of the TPU sort's
-// XLA leaf sort plus bitonic_cascade_rounds up to its leaf): every merge
-// round whose segment fits one tile of min(npow, TILE) elements. Each tile
-// of out_planes comes out sorted, ascending at even tile indices and
-// descending at odd ones (ascending when one tile covers npow), the
-// payloads following their keys, unstable; rows >= n read as 0xFFFFFFFF.
-// Arguments as dpu_sort_u32's.
-extern "C" int dpu_sort_tiles_u32(void* const* in_planes, void* const* out_planes,
-                                  int n_planes, long long n, long long npow, void* stream) {
-  return sort_entry(true, in_planes, out_planes, n_planes, n, npow, stream);
 }
 
 // Runs the ascending half-cleaner cascade d = block/2 .. 1 on each block of

@@ -1,6 +1,7 @@
 """Device compute paths (counterpart of ``dpu_olap_tpu/ops``).
 
-  sort_cuda   - bitonic sort, csrc/sort.cu    (ops/sort_pallas.py:sort_bitonic)
+  sort_cuda   - radix sort, csrc/radix_sort.cu (ops/sort_pallas.py:sort_bitonic), and
+                the bitonic tile stage, csrc/sort.cu
   take_cuda   - sorted gather, csrc/gather.cu  (ops/take_pallas.py:gather_sorted_pallas),
                 and the sorted-stream take    (take_pallas.py:take_sorted*)
   filter_cuda - filter compaction, csrc/filter.cu (ops/filter_pallas.py v1)

@@ -30,8 +30,9 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _SIGNATURES = {
+    # (in_planes, n_planes, n, out, work, stream)
+    "dpu_sort_u32": [ctypes.POINTER(_P), ctypes.c_int, _LL, _P, _P, _P],
     # (in_planes, out_planes, n_planes, n, npow, stream)
-    "dpu_sort_u32": [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.c_int, _LL, _LL, _P],
     "dpu_sort_tiles_u32": [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.c_int, _LL, _LL, _P],
     # (x, idx, out, nblk, op, reps, stream)
     "dpu_block_op_i32": [_P, _P, _P, _LL, ctypes.c_int, _LL, _P],
@@ -43,8 +44,8 @@ _SIGNATURES = {
     "dpu_onehot_matmul_bf16": [_P, _P, _P, _LL, _LL, _LL, _P],
     # (x, row, out, rows, w, stream)
     "dpu_dyn_row_u32": [_P, _P, _P, _LL, _LL, _P],
-    # (data, n, sidx, out, k, stream)
-    "dpu_gather_sorted_u32": [_P, _LL, _P, _P, _LL, _P],
+    # (data, n, sidx, out, k, flag, stream)
+    "dpu_gather_sorted_u32": [_P, _LL, _P, _P, _LL, _P, _P],
     # (x, n, threshold, fill, out, sel or NULL, tile_offs, count, stream)
     "dpu_filter_u32": [_P, _LL, ctypes.c_uint, ctypes.c_uint, _P, _P, _P, _P, _P],
     # (x, n, threshold, fill, out, sel or NULL, scratch, count, stream): the

@@ -170,12 +170,12 @@ def join_shard_dense(
     sidx64 = sidx.to(torch.int64)
     matched = sidx64 < n_r
 
-    overflow = torch.zeros((), dtype=torch.int32, device=left_fk.device)
-    out_r = []
-    for x in right_payload:
-        val, f = gather_sorted(x, sidx)  # 0 where unmatched: no mask needed
-        overflow |= f
-        out_r.append(val)
+    # 0 where unmatched: no mask needed. Every gather's flag is 0, so the
+    # first one stands for all
+    gathered = [gather_sorted(x, sidx) for x in right_payload]
+    out_r = [val for val, _ in gathered]
+    overflow = (gathered[0][1] if gathered
+                else torch.zeros((), dtype=torch.int32, device=left_fk.device))
 
     key = _where0(matched, _u32(sidx64 + lo))
     out_l = tuple(_where0(matched, y) for y in sys_)

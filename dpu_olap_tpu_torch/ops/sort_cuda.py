@@ -1,37 +1,78 @@
 """Sort of a uint32 key plane with payload planes following (counterpart of
 ``dpu_olap_tpu/ops/sort_pallas.py:sort_bitonic``).
 
-``sort_bitonic`` launches the hand-written bitonic sort of ``csrc/sort.cu``
-for CUDA tensors and runs the plain version ``sort_bitonic_ref`` for CPU
-tensors; any other device raises. Contract (sort_pallas.py:385-471):
-ascending unsigned order of ``planes[0]``, payloads follow their key, ties
-may permute payloads, and any length >= 2 is accepted; the kernel pads to a
-power of two with key and payload 0xFFFFFFFF (``hashtable.EMPTY``), so real
-keys must stay below it for their payloads to be exact.
+``sort_bitonic`` keeps the TPU sort's name, but the algorithm is now a
+stable LSD radix sort (``csrc/radix_sort.cu``: one histogram pass, then four
+8-bit digit passes with a decoupled look-back). CUDA tensors go to that
+kernel and CPU tensors to the plain version ``sort_bitonic_ref``; any other
+device raises. Its contract is stricter than sort_pallas.py:385-410's:
+keys come out in ascending unsigned order with their payloads, ties keep
+their input order (so the kernel equals ``sort_bitonic_ref`` bit for bit on
+every plane), a key equal to 0xFFFFFFFF keeps its own payloads, the outputs
+are n long with no pad, and any n from 2 to 2^32 - 1 is accepted with 0 to
+``MAX_PAYLOADS`` payload planes. The whole sort is one memset and five
+launches on the current stream, with no host synchronisation, so it can be
+captured in a CUDA graph.
 
-``sort_tiles`` runs the sort's tile stage alone (``dpu_sort_tiles_u32``:
-the counterpart of ``scripts/measure_filter.py`` measure_sort's
-``upto_inblock``, every merge round that fits on chip): the planes padded
-as above to npow, each tile of min(npow, TILE) elements sorted, ascending at
-even tile indices and descending at odd ones, as a bitonic network leaves
-them for its next round (ascending when one tile covers npow). It returns
-all npow rows. The tile sort is unstable, so ``canonical_tiles`` orders the
-rows of each tile by every plane before two results are compared.
+Work memory, allocated by the wrapper in one buffer and freed when it
+returns (``radix_plan``): 8 * (1024 * ceil(n / 4096) + 514) bytes of
+look-back words, histograms and tickets, then the ping-pong planes, 4n
+bytes each, 1 + payloads of them (``alt_planes``). At one SF=64 shuffle round (n = 256Mi, one
+payload) that is 512 MiB of words and two 1 GiB planes beside the 2 GiB of
+outputs.
+
+``sort_tiles`` runs the TPU sort's tile stage alone (``dpu_sort_tiles_u32``
+in ``csrc/sort.cu``, a bitonic network: the counterpart of
+``scripts/measure_filter.py`` measure_sort's ``upto_inblock``, every merge
+round that fits on chip): the planes padded with key and payload 0xFFFFFFFF
+to npow (a power of two, at least ``MIN_LEN``), each tile of min(npow, TILE)
+elements sorted, ascending at even tile indices and descending at odd ones,
+as a bitonic network leaves them for its next round (ascending when one
+tile covers npow). It returns all npow rows. The tile sort is unstable, so
+``canonical_tiles`` orders the rows of each tile by every plane before two
+results are compared.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import _kernels
 
-MAX_PAYLOADS = 8  # payload planes the kernel takes (csrc/sort.cu MAX_PAYLOADS)
-MIN_LEN = 128  # smallest padded length the kernel takes (csrc/sort.cu MIN_LEN)
-TILE = 4096  # elements of one shared-memory tile (csrc/sort.cu TILE)
-LAUNCHES = 0  # kernel launches by sort_bitonic (the CPU path adds none)
+MAX_PAYLOADS = 8  # payload planes the kernels take (csrc/radix_sort.cu, sort.cu MAX_PAYLOADS)
+MIN_LEN = 128  # smallest padded length of the tile stage (csrc/sort.cu MIN_LEN)
+TILE = 4096  # elements of one tile-stage tile (csrc/sort.cu TILE)
+RADIX_TILE = 4096  # keys of one radix-pass tile (csrc/radix_sort.cu TILE)
+PASSES = 4  # 8-bit digit passes of the radix sort
+RADIX = 256  # buckets a digit
+# the planes each radix pass reads and writes: the fourth writes the outputs
+PASS_PLANES = (("in", "alt"), ("alt", "out"), ("out", "alt"), ("alt", "out"))
+LAUNCHES = 0  # calls of sort_bitonic that launched the radix sort (the CPU path adds none)
 TILE_LAUNCHES = 0  # kernel launches by sort_tiles
+
+
+class RadixPlan(NamedTuple):
+    """What the radix sort of n keys with n_pay payload planes needs beside
+    its outputs, in one work buffer of int64 words: the tiles of each pass
+    (one block each); the scratch words (one look-back status word per pass,
+    tile and bucket, then the four 256-bucket histograms and the four
+    tickets as uint32); and the ping-pong planes of n uint32 after them."""
+
+    tiles: int
+    scratch_words: int
+    alt_planes: int
+    work_words: int
+
+
+def radix_plan(n: int, n_pay: int) -> RadixPlan:
+    """The radix sort's launch plan (csrc/radix_sort.cu dpu_sort_u32)."""
+    tiles = -(-n // RADIX_TILE)
+    words = PASSES * RADIX * tiles + (PASSES * RADIX + PASSES) // 2
+    alt = 1 + n_pay
+    return RadixPlan(tiles, words, alt, words + -(-alt * n // 2))
 
 
 def sortable_bitonic(n: int) -> bool:
@@ -46,15 +87,14 @@ def _check_planes(planes) -> torch.device:
         raise ValueError(
             f"sort_bitonic takes at most {MAX_PAYLOADS} payload planes, got {len(planes) - 1}"
         )
-    n = planes[0].shape[0] if planes[0].dim() == 1 else -1
-    dev = planes[0].device
+    shape, dev = planes[0].shape, planes[0].device
     for p in planes:
-        if p.dtype != torch.uint32 or p.dim() != 1 or p.shape[0] != n:
+        if p.dtype != torch.uint32 or p.shape != shape or len(shape) != 1:
             raise ValueError("sort_bitonic planes must be 1-D uint32 of one length")
         if p.device != dev:
             raise ValueError("sort_bitonic planes must share one device")
-    if not sortable_bitonic(n):
-        raise ValueError(f"sort_bitonic needs n >= 2, got {n}")
+    if not sortable_bitonic(shape[0]):
+        raise ValueError(f"sort_bitonic needs n >= 2, got {shape[0]}")
     return dev
 
 
@@ -69,40 +109,42 @@ def _padded_len(n: int) -> int:
     return max(MIN_LEN, 1 << (n - 1).bit_length())
 
 
-def _launch(entry: str, planes: tuple, dev: torch.device) -> list:
-    """Run a sort entry point of csrc/sort.cu on CUDA planes; returns the
-    npow-long outputs."""
+def _cuda_planes(planes: tuple, dev: torch.device) -> None:
     if dev.type != "cuda":
         raise ValueError(f"sort_bitonic runs on cuda or cpu tensors, got {dev}")
     if not all(p.is_contiguous() for p in planes):
         raise ValueError("sort_bitonic planes must be contiguous")
-    n = planes[0].shape[0]
-    npow = _padded_len(n)
-    outs = [torch.empty(npow, dtype=torch.uint32, device=dev) for _ in planes]
-    ptrs = ctypes.c_void_p * len(planes)
-    with torch.cuda.device(dev):
-        rc = getattr(_kernels.library(), entry)(
-            ptrs(*[p.data_ptr() for p in planes]),
-            ptrs(*[o.data_ptr() for o in outs]),
-            len(planes), n, npow, _kernels.stream_handle(dev),
-        )
-    _kernels.check(rc, entry)
-    return outs
+
+
+def _ptrs(tensors) -> ctypes.Array:
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
 def sort_bitonic(planes) -> tuple:
-    """Sort planes[0] ascending with planes[1:] following; returns new
-    tensors. CUDA tensors go to the kernel (on the current stream, without
-    synchronising), CPU tensors to ``sort_bitonic_ref``."""
+    """Sort planes[0] ascending and stably with planes[1:] following;
+    returns new n-long tensors (views of one buffer). CUDA tensors go to the
+    radix sort (on the current stream, without synchronising), CPU tensors
+    to ``sort_bitonic_ref``."""
     global LAUNCHES
     planes = tuple(planes)
     dev = _check_planes(planes)
     if dev.type == "cpu":
         return sort_bitonic_ref(planes)
-    outs = _launch("dpu_sort_u32", planes, dev)
-    LAUNCHES += 1
+    _cuda_planes(planes, dev)
     n = planes[0].shape[0]
-    return tuple(o[:n] for o in outs)
+    if n > 0xFFFFFFFF:
+        raise ValueError(f"the radix sort takes n < 2^32, got {n}")
+    plan = radix_plan(n, len(planes) - 1)
+    out = torch.empty((len(planes), n), dtype=torch.uint32, device=dev)
+    work = torch.empty(plan.work_words, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        rc = _kernels.library().dpu_sort_u32(
+            _ptrs(planes), len(planes), n, out.data_ptr(), work.data_ptr(),
+            _kernels.stream_handle(dev),
+        )
+    _kernels.check(rc, "dpu_sort_u32")
+    LAUNCHES += 1
+    return tuple(out.unbind(0))
 
 
 def sort_tiles_ref(planes) -> tuple:
@@ -123,15 +165,23 @@ def sort_tiles_ref(planes) -> tuple:
 
 
 def sort_tiles(planes) -> tuple:
-    """The tile stage of sort_bitonic: npow-long planes whose tiles are
-    sorted in alternating directions (see the module's docstring). CUDA
-    tensors go to the kernel, CPU tensors to ``sort_tiles_ref``."""
+    """The TPU sort's tile stage: npow-long planes whose tiles are sorted in
+    alternating directions (see the module's docstring). CUDA tensors go to
+    the kernel, CPU tensors to ``sort_tiles_ref``."""
     global TILE_LAUNCHES
     planes = tuple(planes)
     dev = _check_planes(planes)
     if dev.type == "cpu":
         return sort_tiles_ref(planes)
-    outs = _launch("dpu_sort_tiles_u32", planes, dev)
+    _cuda_planes(planes, dev)
+    n = planes[0].shape[0]
+    npow = _padded_len(n)
+    outs = [torch.empty(npow, dtype=torch.uint32, device=dev) for _ in planes]
+    with torch.cuda.device(dev):
+        rc = _kernels.library().dpu_sort_tiles_u32(
+            _ptrs(planes), _ptrs(outs), len(planes), n, npow, _kernels.stream_handle(dev),
+        )
+    _kernels.check(rc, "dpu_sort_tiles_u32")
     TILE_LAUNCHES += 1
     return tuple(outs)
 

@@ -7,9 +7,10 @@ take built on it (counterpart of ``dpu_olap_tpu/ops/take_pallas.py``:
 plain version ``gather_sorted_ref`` for CPU tensors; any other device raises.
 ``val[j] = data[sidx[j]]`` where ``sidx[j] < len(data)`` and 0 elsewhere.
 The TPU kernel's slice and window geometry has no counterpart here: a
-per-thread gather cannot overflow, so the returned flag is always 0. It stays
-in the API so that the join's 5-tuple and its overflow check keep their
-shape.
+per-thread gather cannot overflow, so the returned flag is always 0 (the
+kernel writes it, so a call is one launch). It stays in the API so that the
+join's 5-tuple and its overflow check keep their shape. sidx may be any
+contiguous uint32 tensor, a slice at any offset included.
 
 ``take_sorted`` turns a random take into the sort kernel, this gather and a
 second sort (take_pallas.py:278-379): sort (clipped index, position), gather
@@ -23,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from . import _kernels
-from .sort_cuda import MIN_LEN, sort_bitonic
+from .sort_cuda import sort_bitonic, sortable_bitonic
 
 LAUNCHES = 0  # kernel launches by gather_sorted (the CPU path adds none)
 
@@ -39,16 +40,12 @@ def _check(data: torch.Tensor, sidx: torch.Tensor) -> torch.device:
     return data.device
 
 
-def _no_overflow(device) -> torch.Tensor:
-    return torch.zeros((), dtype=torch.int32, device=device)
-
-
 def gather_sorted_ref(data: torch.Tensor, sidx: torch.Tensor):
     """Plain PyTorch version: clamp, index (as int32 bit patterns), mask."""
     s = sidx.to(torch.int64)
     val = data.view(torch.int32)[s.clamp(max=data.shape[0] - 1)]
     val = torch.where(s < data.shape[0], val, 0).view(torch.uint32)
-    return val, _no_overflow(data.device)
+    return val, torch.zeros((), dtype=torch.int32, device=data.device)
 
 
 def gather_sorted(data: torch.Tensor, sidx: torch.Tensor):
@@ -64,61 +61,56 @@ def gather_sorted(data: torch.Tensor, sidx: torch.Tensor):
     if not (data.is_contiguous() and sidx.is_contiguous()):
         raise ValueError("gather_sorted inputs must be contiguous")
     out = torch.empty(sidx.shape[0], dtype=torch.uint32, device=dev)
+    flag = torch.empty((), dtype=torch.int32, device=dev)  # the kernel writes 0
     with torch.cuda.device(dev):
         rc = _kernels.library().dpu_gather_sorted_u32(
             data.data_ptr(), data.shape[0], sidx.data_ptr(), out.data_ptr(),
-            sidx.shape[0], _kernels.stream_handle(dev),
+            sidx.shape[0], flag.data_ptr(), _kernels.stream_handle(dev),
         )
     _kernels.check(rc, "gather_sorted")
     LAUNCHES += 1
-    return out, _no_overflow(dev)
+    return out, flag
 
 
 def takeable_sorted(n_data: int, n_idx: int) -> bool:
-    """Shape gate for take_sorted: a non-empty table whose clipped indices
-    stay below the 0xFFFFFFFF pad key, and at least one query."""
+    """Shape gate for take_sorted: a non-empty table whose row numbers fit
+    in uint32, and at least one query."""
     return 1 <= n_data < 1 << 32 and 1 <= n_idx <= 1 << 31
 
 
-def _stream_take(data: torch.Tensor, indices: torch.Tensor):
-    """Shared sort->gather core: (spos, val, flag, k) over the query stream
-    padded to npow. spos is a permutation of 0..npow-1 and the pads (key
-    0xFFFFFFFF, above every clipped real query) occupy the tail [k, npow).
+def _sort(planes: tuple) -> tuple:
+    """sort_bitonic, which needs two rows; one row is already sorted."""
+    return sort_bitonic(planes) if sortable_bitonic(planes[0].shape[0]) else planes
 
-    The queries are padded here, with distinct positions k..npow-1, to the
-    exact length the sort kernel works on (a power of two, at least
-    sort_cuda.MIN_LEN), so the kernel pads nothing: anonymous pad payloads
-    could otherwise displace real positions through the restore sort (the
-    finding recorded at take_pallas.py:301-315)."""
+
+def _stream_take(data: torch.Tensor, indices: torch.Tensor):
+    """Shared sort->gather core: (spos, val, flag) over the k queries in
+    ascending order of their clipped index, spos each one's query position.
+    The sort is stable and pads nothing, so every position keeps its own
+    query (the finding recorded at take_pallas.py:301-315 cannot arise)."""
     if data.dim() != 1 or data.element_size() != 4 or indices.dim() != 1:
         raise ValueError("take_sorted takes a 1-D column of 4-byte values and 1-D indices")
     n, k = data.shape[0], indices.shape[0]
     if not takeable_sorted(n, k):
         raise ValueError(f"take_sorted cannot take {k} queries from {n} rows")
-    dev = data.device
-    npow = max(MIN_LEN, 1 << (k - 1).bit_length())
     idxc = (indices.to(torch.int64) & 0xFFFFFFFF).clamp(max=n - 1).to(torch.uint32)
-    if npow != k:
-        pad = torch.full((npow - k,), 0xFFFFFFFF, dtype=torch.uint32, device=dev)
-        idxc = torch.cat([idxc, pad])
-    pos = torch.arange(npow, device=dev).to(torch.uint32)
-    sidx, spos = sort_bitonic((idxc, pos))
+    pos = torch.arange(k, device=data.device).to(torch.uint32)
+    sidx, spos = _sort((idxc, pos))
     bits = data if data.dtype == torch.uint32 else data.view(torch.uint32)
     val, flag = gather_sorted(bits.contiguous(), sidx)
-    return spos, val, flag, k
+    return spos, val, flag
 
 
 def take_sorted(data: torch.Tensor, indices: torch.Tensor):
     """(out, flag): out[i] = data[indices[i]] with clip semantics, through
     sort -> gather -> sort. flag is the gather's overflow flag, always 0."""
-    spos, val, flag, k = _stream_take(data, indices)
-    out = sort_bitonic((spos, val))[1][:k]
-    return out.view(data.dtype), flag
+    spos, val, flag = _stream_take(data, indices)
+    return _sort((spos, val))[1].view(data.dtype), flag
 
 
 def take_sorted_stream(data: torch.Tensor, indices: torch.Tensor):
     """Order-free take: (pos, val, flag) in ascending-index stream order,
     val[j] = data[clip(indices[pos[j]])], both of length k. It skips the
     restore sort, for consumers that aggregate, sort again or scatter."""
-    spos, val, flag, k = _stream_take(data, indices)
-    return spos[:k], val[:k].view(data.dtype), flag
+    spos, val, flag = _stream_take(data, indices)
+    return spos, val.view(data.dtype), flag

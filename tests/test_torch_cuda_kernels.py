@@ -3,8 +3,10 @@ bit on every lane: the partition kernel (csrc/partition.cu), the
 merge-probe kernel (csrc/merge_probe.cu), the filter alternates
 (csrc/filter2.cu, filter3.cu, filter4.cu) and the filter stage ablation
 (csrc/filter.cu), the in-block primitive ops (csrc/block_ops.cu), the
-probe primitives (csrc/probes.cu) and the sort's tile stage
-(csrc/sort.cu), and the graph-captured chain timing around them. A CUDA kernel has no CPU mode, so
+probe primitives (csrc/probes.cu), the sort's tile stage (csrc/sort.cu),
+the radix sort (csrc/radix_sort.cu) and the sorted gather (csrc/gather.cu),
+and the graph-captured chain timing and a captured sort and gather. A CUDA
+kernel has no CPU mode, so
 every test here is marked ``cuda`` and skips without a device. This file
 imports no jax (the machine with the card has none) and takes no fixture of
 tests/conftest.py, which imports jax; on that machine run
@@ -26,6 +28,7 @@ from dpu_olap_tpu_torch.ops import (
     partition_cuda,
     probes_cuda,
     sort_cuda,
+    take_cuda,
 )
 
 EMPTY = np.uint32(0xFFFFFFFF)
@@ -231,3 +234,79 @@ def test_chain_timing_captures_a_graph(cuda_device):
 
     with pytest.raises(RuntimeError):
         device_time.time_chained(syncs, x.view(torch.int32), k=2, reps=1)
+
+
+def _radix_keys(kind, n, rng):
+    """Keys for the radix sort: random over the whole range with the edges,
+    or with only one digit varying, or all equal (constant digits: the
+    passes that copy)."""
+    if kind == "random":
+        k = rng.integers(0, 2**32, n, dtype=np.uint32)
+        k[: min(n, len(EDGE_KEYS))] = EDGE_KEYS[:n]
+        k[-min(n, 50):] = k[0]  # ties: the sort is stable
+        return k
+    if kind == "low8":
+        return rng.integers(0, 256, n, dtype=np.uint32)
+    if kind == "high8":
+        return rng.integers(0, 256, n, dtype=np.uint32) << np.uint32(24)
+    return np.full(n, 0xFFFFFFFF if kind == "all_max" else 12345, np.uint32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 100, 4095, 4096, 4097, 3 * 4096 + 5, (1 << 20) + 3])
+@pytest.mark.parametrize("n_pay", [0, 1, 2, 3, 8])
+@pytest.mark.parametrize("kind", ["random", "low8", "high8", "all_equal", "all_max"])
+def test_radix_sort_matches_plain(cuda_device, n, n_pay, kind):
+    rng = np.random.default_rng(n + n_pay)
+    planes = [torch.from_numpy(a).to(cuda_device) for a in
+              (_radix_keys(kind, n, rng), *(rng.integers(0, 2**32, n, dtype=np.uint32)
+                                            for _ in range(n_pay)))]
+    ref = sort_cuda.sort_bitonic_ref(planes)
+    before = sort_cuda.LAUNCHES
+    got = sort_cuda.sort_bitonic(planes)
+    assert sort_cuda.LAUNCHES == before + 1
+    _same(got, ref)  # stable: every plane bit for bit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("k", [0, 1, 2, 3, 5, 4096 + 7, (1 << 20) + 1])
+def test_gather_sorted_matches_plain(cuda_device, offset, k):
+    rng = np.random.default_rng(k + offset)
+    n = max(k, 64)
+    data = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(cuda_device)
+    sidx = np.sort(rng.integers(0, n + n // 8, k + offset).astype(np.uint32))  # tail out of range
+    sidx[len(sidx) - min(len(sidx), 3):] = 0xFFFFFFFF
+    sidx = torch.from_numpy(sidx).to(cuda_device)[offset:]  # a slice: misaligned by offset
+    before = take_cuda.LAUNCHES
+    got = take_cuda.gather_sorted(data, sidx)
+    assert take_cuda.LAUNCHES == before + 1
+    _same(got, take_cuda.gather_sorted_ref(data, sidx))
+
+
+@pytest.mark.cuda
+def test_sort_and_gather_replay_in_a_graph(cuda_device):
+    rng = np.random.default_rng(11)
+    n = (1 << 18) + 9
+    planes = [torch.from_numpy(rng.integers(0, 1 << 18, n, dtype=np.uint32)).to(cuda_device),
+              torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(cuda_device)]
+    table = torch.from_numpy(rng.integers(0, 2**32, 1 << 18, dtype=np.uint32)).to(cuda_device)
+
+    def step():
+        key, pay = sort_cuda.sort_bitonic(planes)
+        return key, pay, *take_cuda.gather_sorted(table, key)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    planes[0].copy_(torch.from_numpy(rng.integers(0, 1 << 18, n, dtype=np.uint32)).to(cuda_device))
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    ref = sort_cuda.sort_bitonic_ref(planes)
+    _same(outs, (*ref, *take_cuda.gather_sorted_ref(table, ref[0])))

@@ -75,3 +75,20 @@ def test_gather_cpu_path_launches_no_kernel():
 def test_gather_rejects_bad_inputs(data, sidx, match):
     with pytest.raises(ValueError, match=match):
         take_cuda.gather_sorted(data(), sidx())
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 5])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_gather_plain_ragged_and_offset_queries(k, offset):
+    """k queries that are not a multiple of 4, from a slice of sidx at an
+    offset (the kernel's scalar head and tail), against numpy."""
+    rng = np.random.default_rng(10 * k + offset)
+    n = 37
+    data = rng.integers(0, 2**32, n, dtype=np.uint32)
+    raw = np.sort(rng.integers(0, n + 4, k + offset).astype(np.uint32))
+    sidx = torch.from_numpy(raw)[offset:]
+    assert sidx.storage_offset() == offset and sidx.is_contiguous()
+    val, ovf = take_cuda.gather_sorted(torch.from_numpy(data), sidx)
+    s = raw[offset:]
+    np.testing.assert_array_equal(val.numpy(), np.where(s < n, data[np.minimum(s, n - 1)], 0))
+    assert val.shape == (k,) and int(ovf) == 0

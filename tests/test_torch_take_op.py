@@ -12,7 +12,7 @@ import torch
 
 from dpu_olap_tpu.ops.take_pallas import take_sorted as jax_take_sorted
 from dpu_olap_tpu.ops.take_pallas import takeable_sorted as jax_takeable_sorted
-from dpu_olap_tpu_torch.ops import sort_cuda, take, take_cuda
+from dpu_olap_tpu_torch.ops import take, take_cuda
 
 jax_take = importlib.import_module("dpu_olap_tpu.ops.take")  # the package re-exports take()
 N, K = 1 << 14, 10000  # K is no power of two
@@ -116,9 +116,8 @@ def test_take_sorted_runs_the_sort_and_gather_wrappers(monkeypatch):
     monkeypatch.setattr(take_cuda, "gather_sorted", lambda d, s: calls.append(("gather", len(s))) or real_gather(d, s))
     data = torch.from_numpy(np.arange(1000, dtype=np.uint32))
     take_cuda.take_sorted(data, torch.from_numpy(np.arange(200, dtype=np.uint32)))
-    # the queries arrive padded to the sort's own length: it pads nothing
-    assert calls == [("sort", 256), ("gather", 256), ("sort", 256)]
-    assert sort_cuda.MIN_LEN <= 256
+    # the k queries go through unpadded
+    assert calls == [("sort", 200), ("gather", 200), ("sort", 200)]
 
 
 @pytest.mark.parametrize(
