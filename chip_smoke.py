@@ -7,8 +7,9 @@ Run from the root of the repository on a machine with one NVIDIA GPU:
 
 It builds the CUDA kernels from dpu_olap_tpu_torch/csrc, checks each kernel
 against its plain PyTorch version on the card (the radix sort, bit for bit
-on every plane, and the sorted gather, both also timed as graph replays;
-filter, sum, forward fill, block merge, radix partition, merge-probe, the filter
+on every plane, the sorted gather, the radix partition and merge-probe, all
+four also timed as graph replays, the partition with its per-launch
+breakdown; filter, sum, forward fill, block merge, the filter
 alternates and stage ablation, the block ops, the probe primitives and the
 sort's tile stage), the partition, sort and fill kernels also
 at the SF=64 main path's shapes, and times each beside its bound and the
@@ -1136,10 +1137,15 @@ def phase_merge_kernels(rng, card: str) -> dict:
 
 def phase_partition_kernel(rng, card: str) -> dict:
     """partition_cells kernel == plain, bit for bit on every lane (cells,
-    selection, counts, flag), on the card; timed at 16Mi keys + 1 payload
-    into 8 cells (partition_kernel_p8 at SF=8)."""
+    selection, counts, flag), on the card, at the operators' shapes and the
+    sweep's edges (tile edges, one bucket, cut-off inside a tile, two
+    payload groups); timed eager and as graph replays beside a stable
+    torch.sort of the bucket, with its per-launch breakdown, at 16Mi keys + 1
+    payload into 8 cells (partition_kernel_p8 at SF=8) and at one SF=64
+    side."""
     import torch
 
+    from dpu_olap_tpu_torch.bench import kernel_replay
     from dpu_olap_tpu_torch.ops import partition_cuda
     from dpu_olap_tpu_torch.ops.hashing import bucket_shift, wang_hash
 
@@ -1175,6 +1181,14 @@ def phase_partition_kernel(rng, card: str) -> dict:
     one = np.full(odd, 12345, np.uint32)
     err = max(err, check("one bucket", one, 1, 8, odd)[2])
     err = max(err, check("one bucket, overflow", one, 1, 8, 1024, overflow=True)[2])
+    err = max(err, check("one bucket, cut-off inside a tile", one, 1, 8,
+                         5 * partition_cuda.TILE + 100, overflow=True)[2])
+    tile = partition_cuda.TILE
+    for n in (1, tile - 1, tile, tile + 1):  # the sweep's tile edges
+        err = max(err, check(f"n = {n}", rng.integers(0, 2**32, n, dtype=np.uint32), 1, 4,
+                             max(1, n // 2))[2])
+    err = max(err, check("P=16, 9 payloads (two launches)",
+                         rng.integers(0, 2**32, 5 * tile + 3, dtype=np.uint32), 9, 16, tile)[2])
 
     # the operators' call at the SF=64 main path's shape: one side's 128Mi
     # keys + 1 payload into P = 2 cells of 128Mi (32768 tiles), no selection
@@ -1190,26 +1204,57 @@ def phase_partition_kernel(rng, card: str) -> dict:
     require(int(ref[3].to(torch.int64).sum()) == n, "plain partition counts: SF=64 side")
     print(f"[partition] one SF=64 side (n={n}, P=2, cell={n}, payloads=1, no selection):"
           " kernel == plain on every lane", flush=True)
-    del big, got, ref
+    del got, ref
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    def timing(label, keys, pays, p, cell, with_sel):
+        """Eager and graph-replay readings of the kernel beside a stable
+        torch.sort of the bucket, in turns, and its per-launch breakdown."""
+        def call():
+            return partition_cuda.partition_cells(keys, pays, p, cell, with_sel=with_sel)
+
+        bucket = (wang_hash(keys).to(torch.int64) >> bucket_shift(p)).to(torch.int32)
+        lib = library_ms("stable torch.sort of the bucket", lambda: torch.sort(bucket, stable=True))
+        require(lib is not None, "stable torch.sort of the bucket did not run")
+        eager = interleaved({"kernel": lambda: cuda_ms(call),
+                             "lib": lambda: cuda_ms(lambda: torch.sort(bucket, stable=True))})
+        graph = interleaved({"kernel": lambda: graph_ms(call),
+                             "lib": lambda: graph_ms(lambda: torch.sort(bucket, stable=True))})
+        parts = kernel_replay.launch_breakdown(call)
+        # keys and payloads read once; key, payload and selection cells
+        # (P x cell lanes each, pads included) written once
+        n = keys.shape[0]
+        nbytes = 4 * n * (1 + len(pays)) + 4 * p * cell * (1 + len(pays) + with_sel)
+        print(
+            f"[partition] {label} (n={n} P={p} cell={cell} {len(pays)} payload"
+            f"{' + selection' if with_sel else ''}): kernel {eager['kernel']:.4f} ms eager,"
+            f" {graph['kernel']:.4f} graph; stable torch.sort of the bucket {eager['lib']:.4f}"
+            f" eager, {graph['lib']:.4f} graph; bound {bound_ms(nbytes):.4f} ms (median of"
+            f" {REPS}, CUDA events, 3 rounds in turns) [{card}]",
+            flush=True,
+        )
+        print(f"[partition] {label} per launch, eager, ms: "
+              + "; ".join(f"{k[:60]} {v:.4f}" for k, v in parts.items()) + f" [{card}]",
+              flush=True)
+        return eager, graph, nbytes, parts
+
+    sf64 = timing("SF=64 side", big[0], big[1:], 2, n, False)
+    del big
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
     tk, pays = timed
     cell = PART_N // 8 * 2
-    ms = cuda_ms(lambda: partition_cuda.partition_cells(tk, pays, 8, cell))
+    eager, graph, nbytes, parts = timing("partition_kernel_p8", tk, pays, 8, cell, True)
+    # the plain version syncs with the host (bincount): eager only
     plain_ms = cuda_ms(lambda: partition_cuda.partition_cells_ref(tk, pays, 8, cell))
-    bucket = (wang_hash(tk).to(torch.int64) >> bucket_shift(8)).to(torch.int32)
-    lib = library_ms("stable torch.sort of the bucket", lambda: torch.sort(bucket, stable=True))
-    # keys and the payload read once; key, payload and selection cells
-    # (8 x cell lanes each, pads included) written once
-    nbytes = 2 * 4 * PART_N + 3 * 4 * 8 * cell
-    print(
-        f"[partition] n={PART_N} P=8 cell={cell} 1 payload + selection: kernel {ms:.4f} ms,"
-        f" plain {plain_ms:.4f} ms, stable torch.sort of the bucket {lib} ms,"
-        f" bound {bound_ms(nbytes):.4f} ms (median of {REPS}, CUDA events) [{card}]",
-        flush=True,
-    )
-    return kernel_row(err, ms, plain_ms, nbytes, lib)
+    print(f"[partition] n={PART_N} P=8 cell={cell}: plain {plain_ms:.4f} ms [{card}]", flush=True)
+    return {**kernel_row(err, eager["kernel"], plain_ms, nbytes, eager["lib"]),
+            "graph_ms": graph["kernel"], "library_graph_ms": graph["lib"], "launch_ms": parts,
+            "sf64_side": {"ms": sf64[0]["kernel"], "graph_ms": sf64[1]["kernel"],
+                          "library_ms": sf64[0]["lib"], "library_graph_ms": sf64[1]["lib"],
+                          "bound_ms": bound_ms(sf64[2]), "launch_ms": sf64[3]}}
 
 
 def phase_round_kernels(card: str) -> None:
@@ -1272,10 +1317,12 @@ def phase_round_kernels(card: str) -> None:
 
 
 def phase_merge_probe_kernel(rng, card: str) -> dict:
-    """merge_probe kernel == plain, bit for bit on every lane, on the card;
-    timed at 2Mi x 2Mi with one payload."""
+    """merge_probe kernel == plain, bit for bit on every lane, on the card,
+    with the tiled range merge's edges; timed at 2Mi x 2Mi with one payload,
+    eager and as graph replays, beside torch.searchsorted."""
     import torch
 
+    from dpu_olap_tpu_torch.bench import kernel_replay
     from dpu_olap_tpu_torch.ops import merge_cuda
     from dpu_olap_tpu_torch.ops.hashtable import _signed_view
 
@@ -1316,6 +1363,24 @@ def phase_merge_probe_kernel(rng, card: str) -> dict:
     tails_l[-1000:] = empty
     tails_r[-77:] = empty
     cases.append(("EMPTY tails on both sides", tails_l, tails_r, 3))
+    # the tiled range merge's edges: empty and one-key build sides, one probe
+    # key, probes much denser and much sparser than the build side (ranges
+    # past merge_cuda.STAGE), keys below or above every build key, a run of
+    # equal keys over the tile edges, an unsorted probe
+    tile = merge_cuda.TILE
+    mid = small[HT_N // 2]
+    run = np.sort(np.concatenate([left[:tile - 50], np.full(2 * tile + 3, mid, np.uint32)]))
+    cases += [
+        ("empty build side, no payload", left[:3000], np.zeros(0, np.uint32), 0),
+        ("one build key", left[:5000], small[HT_N // 3:HT_N // 3 + 1], 2),
+        ("one probe key", small[7:8], small, 1),
+        ("probe denser than the build side", left, small[:100], 1),
+        ("probe sparser than the build side", np.sort(left[::2048]), right, 1),
+        ("every key below the build side", np.sort(small[:5000] // 4096), small + 2**20, 1),
+        ("every key above the build side", np.sort(left[:5000] | 2**31), small, 8),
+        ("a run of equal keys over tile edges", run, small, 1),
+        ("unsorted probe", rng.permutation(left[:5 * tile + 7]), small, 1),
+    ]
     for name, lft, rgt, n_pay in cases:
         err = max(err, check(name, lft, rgt, n_pay)[3])
     torch.cuda.synchronize()
@@ -1341,16 +1406,29 @@ def phase_merge_probe_kernel(rng, card: str) -> dict:
                        for k, v in (*times.items(), ("searchsorted + gathers", lib_total)))
     # probe, build keys and payload read once; has, key, payload written
     nbytes = 4 * PROBE_N + 2 * 4 * PROBE_N + (1 + 4 + 4) * PROBE_N
+
+    def calls(fn):  # GRAPH_CALLS calls a replay, each with its own outputs
+        return lambda: [fn() for _ in range(GRAPH_CALLS)]
+
+    graph = interleaved({
+        "kernel": lambda: graph_ms(calls(lambda: merge_cuda.merge_probe(tl, tr, pays))) / GRAPH_CALLS,
+        "lib": lambda: graph_ms(calls(lambda: torch.searchsorted(sr, sl, right=True))) / GRAPH_CALLS})
+    parts = kernel_replay.launch_breakdown(lambda: merge_cuda.merge_probe(tl, tr, pays))
     print(
-        f"[merge_probe] {PROBE_N} x {PROBE_N} 1 payload: kernel {ms:.4f} ms, plain"
-        f" {plain_ms:.4f} ms, torch.searchsorted(right=True) {lib:.4f} ms + its two index"
-        f" gathers {float(np.median(times['gathers'])):.4f} ms, bound {bound_ms(nbytes):.4f} ms"
-        f" (medians over {MP_ROUNDS} rounds of a median of {REPS}, CUDA events) [{card}]",
+        f"[merge_probe] {PROBE_N} x {PROBE_N} 1 payload: kernel {ms:.4f} ms eager,"
+        f" {graph['kernel']:.4f} graph; plain {plain_ms:.4f} ms eager;"
+        f" torch.searchsorted(right=True) {lib:.4f} ms eager, {graph['lib']:.4f} graph, + its two"
+        f" index gathers {float(np.median(times['gathers'])):.4f} ms; bound"
+        f" {bound_ms(nbytes):.4f} ms (eager: medians over {MP_ROUNDS} rounds of a median of"
+        f" {REPS}; graph: {GRAPH_CALLS} calls a replay, 3 rounds in turns; CUDA events) [{card}]",
         flush=True,
     )
     print(f"[merge_probe] spread over {MP_ROUNDS} rounds, ms: {spread}; the kernel beat"
           f" searchsorted + gathers in {faster} of {MP_ROUNDS} rounds [{card}]", flush=True)
-    return kernel_row(err, ms, plain_ms, nbytes, lib)
+    print(f"[merge_probe] per launch, eager, ms: "
+          + "; ".join(f"{k[:60]} {v:.4f}" for k, v in parts.items()) + f" [{card}]", flush=True)
+    return {**kernel_row(err, ms, plain_ms, nbytes, lib), "graph_ms": graph["kernel"],
+            "library_graph_ms": graph["lib"], "launch_ms": parts}
 
 
 def run_path(label: str, make_op, counters: dict, phases, card: str, rows: int,

@@ -1,0 +1,247 @@
+"""Device time of the port's redesigned kernels as CUDA-graph replays,
+beside the PyTorch call that does the same work, and the partition's
+per-launch breakdown.
+
+    python -m dpu_olap_tpu_torch.bench.kernel_replay [--label NAME] [--out FILE]
+
+Inputs are drawn on the card from seed 42:
+  * sort: ``sort_cuda.sort_bitonic`` of a random u32 key with one payload
+    at 2Mi and 16Mi rows (the dense join at SF=1 and SF=8) beside
+    ``torch.sort`` of the key's int32 view;
+  * gather: ``take_cuda.gather_sorted`` of 2Mi or 16Mi ascending queries
+    (about 1/65 of them past the table) beside ``torch.index_select``
+    (those clipped);
+  * merge_probe: ``merge_cuda.merge_probe`` with one payload at 2Mi x 2Mi,
+    1Mi x 1Mi (the hashtable micro) and 1 x 2Mi (one probe key against the
+    whole store), sorted keys below 2^31, beside
+    ``torch.searchsorted(right=True)`` of the int32 views;
+  * partition: ``partition_cuda.partition_cells`` at 16Mi + 1 payload +
+    selection into P = 8 cells of 4Mi (partition_kernel_p8 at SF=8) and at
+    128Mi + 1 payload into P = 2 cells of 128Mi without the selection (one
+    side of the SF=64 shuffle join), beside a stable ``torch.sort`` of the
+    int32 bucket. Each shape also gets a per-launch breakdown: the device
+    events of BREAKDOWN_CALLS eager calls under torch.profiler, summed by
+    name and divided by the calls.
+Each call is captured several times in one graph (CALLS, or BIG_CALLS from
+BIG_ROWS rows on), each with outputs of its own, so that no call finds the
+last one's outputs in L2; a reading is the median of REPS replays over the
+calls, and the readings of a shape are taken ROUNDS times in turns (a, b,
+b, a, ...), each the median of its rounds. Before timing, every kernel is
+checked against its plain version (or, for the sort, torch.sort).
+
+It calls the wrappers only through ``sort_bitonic(planes)``,
+``gather_sorted(data, sidx)``, ``merge_probe(left, right, payloads)`` and
+``partition_cells(keys, payloads, P, cell, with_sel)``, so the same file
+can time another checkout of the package: run it by its path with that
+checkout first on PYTHONPATH, and alternate the two checkouts on one card.
+It prints one line a reading and, last, a JSON object of them; ``--out``
+writes that object to a file too. It needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from dpu_olap_tpu_torch.ops import merge_cuda, partition_cuda, sort_cuda, take_cuda
+from dpu_olap_tpu_torch.ops.hashing import bucket_shift, wang_hash
+
+SEED = 42
+SIZES = (1 << 21, 1 << 24)
+PROBE_SHAPES = ((1 << 21, 1 << 21), (1 << 20, 1 << 20), (1, 1 << 21))  # (probe, build)
+PART_SHAPES = ((1 << 24, 8, True), (1 << 27, 2, False))  # (rows, P, selection)
+CALLS = 10
+BIG_ROWS = 1 << 27
+BIG_CALLS = 2
+REPS = 7
+ROUNDS = 3
+BREAKDOWN_CALLS = 5
+
+
+def replay_ms(fn, calls: int = CALLS) -> float:
+    """Median device time of one of fn's calls, ``calls`` of them captured
+    in one CUDA graph with their outputs kept, by CUDA events around REPS
+    replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = [fn() for _ in range(calls)]
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    del outs, g
+    torch.cuda.empty_cache()
+    return float(np.median(times)) / calls
+
+
+def launch_breakdown(fn, calls: int = BREAKDOWN_CALLS) -> dict:
+    """Device ms of one eager call of fn by device event name (kernels and
+    memsets): ``calls`` calls under torch.profiler, each event's time summed
+    and divided by the calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per[e.name] = per.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    if not per:
+        raise SystemExit("launch_breakdown: the profiler saw no device events")
+    return {k: v / calls for k, v in sorted(per.items(), key=lambda kv: -kv[1])}
+
+
+def _u32(n: int, gen: torch.Generator, high: int | None = None) -> torch.Tensor:
+    """n random uint32 values on the card: any word, or below high."""
+    if high is None:
+        return torch.randint(-2**31, 2**31, (n,), dtype=torch.int32, device="cuda",
+                             generator=gen).view(torch.uint32)
+    return torch.randint(0, high, (n,), dtype=torch.int64, device="cuda",
+                         generator=gen).to(torch.uint32)
+
+
+def _in_turns(fns: dict, calls: int = CALLS) -> dict:
+    got = {k: [] for k in fns}
+    for r in range(ROUNDS):
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            got[k].append(replay_ms(fns[k], calls))
+    return {k: float(np.median(v)) for k, v in got.items()}
+
+
+def _same(got, ref) -> bool:
+    """Equal bits plane by plane (uint32 planes compared as int32 views)."""
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.uint32 else t
+
+    return len(got) == len(ref) and all(
+        g.shape == r.shape and torch.equal(bits(g), bits(r)) for g, r in zip(got, ref))
+
+
+def sort_readings(n: int) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(SEED + n)
+    key, pay = _u32(n, gen), _u32(n, gen)
+    got = sort_cuda.sort_bitonic((key, pay))
+    if not torch.equal(got[0].to(torch.int64), torch.sort(key.to(torch.int64)).values):
+        raise SystemExit(f"sort_bitonic at n={n}: keys not sorted")
+    key32 = key.view(torch.int32)
+    return _in_turns({"sort": lambda: sort_cuda.sort_bitonic((key, pay)),
+                      "torch_sort": lambda: torch.sort(key32)})
+
+
+def gather_readings(n: int) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(SEED + n)
+    data = _u32(n, gen)
+    sidx = torch.sort(_u32(n, gen, n + n // 64).to(torch.int64)).values.to(torch.uint32)
+    if not _same(take_cuda.gather_sorted(data, sidx), take_cuda.gather_sorted_ref(data, sidx)):
+        raise SystemExit(f"gather_sorted at n={n}: kernel != plain")
+    idx = sidx.to(torch.int64).clamp(max=n - 1).to(torch.int32)
+    data32 = data.view(torch.int32)
+    return _in_turns({"gather": lambda: take_cuda.gather_sorted(data, sidx),
+                      "index_select": lambda: torch.index_select(data32, 0, idx)})
+
+
+def merge_probe_readings(nl: int, nr: int) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(SEED + nl + nr)
+    right = torch.unique(_u32(nr + nr // 8, gen, 2**31).to(torch.int64))[:nr].to(torch.uint32)
+    left = torch.sort(_u32(nl, gen, 2**31).view(torch.int32)).values.view(torch.uint32)
+    pays = (_u32(right.shape[0], gen),)
+    got = merge_cuda.merge_probe(left, right, pays)
+    ref = merge_cuda.merge_probe_ref(left, right, pays)
+    if not _same((got[0], got[1], *got[2]), (ref[0], ref[1], *ref[2])):
+        raise SystemExit(f"merge_probe at {nl} x {nr}: kernel != plain")
+    l32, r32 = left.view(torch.int32), right.view(torch.int32)  # keys < 2^31: same order
+    return _in_turns({"merge_probe": lambda: merge_cuda.merge_probe(left, right, pays),
+                      "searchsorted": lambda: torch.searchsorted(r32, l32, right=True)})
+
+
+def partition_readings(n: int, p: int, with_sel: bool) -> tuple:
+    gen = torch.Generator(device="cuda").manual_seed(SEED + n + p)
+    keys, pays = _u32(n, gen), (_u32(n, gen),)
+    cell = n // p * 2 if with_sel else n  # the operators' slack: 2.0, or one side's cell
+
+    def call():
+        return partition_cuda.partition_cells(keys, pays, p, cell, with_sel=with_sel)
+
+    got = call()
+    ref = partition_cuda.partition_cells_ref(keys, pays, p, cell, with_sel=with_sel)
+    planes = [0, 3] + ([2] if with_sel else [])
+    if not (_same([got[i] for i in planes] + list(got[1]), [ref[i] for i in planes] + list(ref[1]))
+            and bool(got[4]) == bool(ref[4])):
+        raise SystemExit(f"partition_cells at n={n} P={p}: kernel != plain")
+    del got, ref
+    bucket = (wang_hash(keys).to(torch.int64) >> bucket_shift(p)).to(torch.int32)
+    calls = BIG_CALLS if n >= BIG_ROWS else CALLS
+    ms = _in_turns({"partition": call,
+                    "torch_sort_bucket": lambda: torch.sort(bucket, stable=True)}, calls)
+    return ms, launch_breakdown(call)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--label", default="", help="a name for this run, kept in the JSON")
+    ap.add_argument("--out", help="also write the JSON object to this file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_replay needs a CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    out = {"label": args.label, "card": card, "package": sort_cuda.__file__,
+           "calls": CALLS, "big_calls": BIG_CALLS, "reps": REPS, "rounds": ROUNDS,
+           "ms": {}, "breakdown": {}}
+
+    def record(size: str, ms: dict) -> None:
+        for name, v in ms.items():
+            out["ms"][f"{name}_{size}"] = v
+            print(f"[{args.label}] {name} {size}: {v:.4f} ms a call (graph replay) [{card}]",
+                  flush=True)
+
+    for n in SIZES:
+        record(f"{n >> 20}Mi", sort_readings(n))
+    for n in SIZES:
+        record(f"{n >> 20}Mi", gather_readings(n))
+    for nl, nr in PROBE_SHAPES:
+        size = f"{nl >> 20}Mi" if nl >= 1 << 20 else str(nl)
+        record(f"{size}x{nr >> 20}Mi", merge_probe_readings(nl, nr))
+    for n, p, with_sel in PART_SHAPES:
+        size = f"{n >> 20}Mi_P{p}{'_sel' if with_sel else ''}"
+        ms, parts = partition_readings(n, p, with_sel)
+        record(size, ms)
+        out["breakdown"][size] = parts
+        print(f"[{args.label}] partition {size} per launch, eager, ms: "
+              + "; ".join(f"{k[:70]} {v:.4f}" for k, v in parts.items()) + f" [{card}]",
+              flush=True)
+    line = json.dumps(out)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

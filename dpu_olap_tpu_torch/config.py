@@ -2,9 +2,8 @@
 
 The same env tiers as the JAX package: NR_DEVICES (or NR_DPUS), SF and
 MAX_THREADS, plus the feature flags the port reads. The JAX package's
-``shuffle_counts_inband`` (the multi-device exchange, ROADMAP §1 item 10)
-and ``join_timers`` (bench/device_time.py, item 11) arrive with those
-items.
+``shuffle_counts_inband`` (the multi-device exchange) and ``join_timers``
+arrive with the multi-device work (ROADMAP §1, "Multi-device").
 """
 
 from __future__ import annotations

@@ -18,40 +18,69 @@
 // The TPU kernel walks its grid in order, carries running per-bucket
 // offsets in SMEM and routes each bucket through a butterfly network with
 // read-modify-write of partial rows, because Mosaic has no scatter. Hopper
-// has scatter but runs blocks in no order, so the carry becomes a scan:
-//   1. hist: each block counts the buckets of one tile of TILE elements
-//      (a warp ballot per bucket) into tile_counts[p][tile];
-//   2. scan: one block per bucket turns its column of tile counts into
-//      exclusive offsets in place, writes counts[p], and raises overflow;
-//   3. pad: the lanes [count_p, cell) of every cell take the pad values;
-//   4. scatter: each block walks its tile again in rounds of THREADS
-//      elements. An element's rank in its bucket is the popcount of the
-//      bucket's ballot below its lane, plus the counts of the earlier warps
-//      of the round and of the earlier rounds of the tile, plus the tile's
-//      offset: stable without atomics.
-// Offsets into the cells are 64-bit (P * cell may pass 2^31).
+// has scatter but runs blocks in no order. The carry becomes a one-sweep
+// pass, the design of csrc/radix_sort.cu with one digit of log2(P) bits
+// taken from the hash (Adinets and Merrill, "Onesweep", 2022):
+//   1. sweep_kernel reads each key and payload once:
+//      - a block takes its tile of TILE rows by an atomic ticket, so that
+//        every tile it waits on belongs to a block that is already running;
+//      - a row's rank among the tile's rows of its bucket comes from
+//        log2(P) ballots, one a bucket bit: a lane ANDs them into the mask
+//        of the lanes that share its bucket, and lane b into that of bucket
+//        b, whose popcount it adds to the warp's running count of b. A warp
+//        holds ITEMS runs of 32 consecutive rows and ranks them in order,
+//        and the warps' counts are joined in warp order: stable, with no
+//        shared-memory atomics;
+//      - the tile's P bucket counts go out through a decoupled look-back
+//        (csrc/lookback.cuh), thread b for bucket b, flag and count in one
+//        64-bit word;
+//      - the tile's keys and first payload plane are staged by bucket in
+//        shared memory before the look-back waits, and written after it,
+//        so that each bucket's run leaves as consecutive addresses of
+//        consecutive threads, at bucket * cell + (the bucket's rows in the
+//        earlier tiles) + rank; rows at or past `cell` are cut off. Further
+//        planes and the selection follow one at a time through one buffer;
+//      - the last tile's inclusive prefixes are the histogram: it writes
+//        counts and overflow.
+//   2. pad_kernel fills the lanes [count_p, cell) of every cell, 16 bytes
+//      a store where aligned.
+// Why the pad follows the sweep: the trace of the earlier kernel (a
+// histogram, a scan, the pad, then a scatter; PERF.md §6) put the
+// scatter first (70% and 49% of a call at 16Mi rows with P = 8 and at one
+// SF=64 side), then the pad (21%, 39%), then the histogram pass (8%, 9%).
+// The pad writes the same bytes before or after the sweep; a histogram
+// pass before it would only let it go first, at the cost of a second read
+// of the keys. So there is none, the keys are read once, and the pad takes
+// its counts from the sweep's last tile.
+// Work memory (ops/partition_cuda.py partition_plan): one 64-bit status word
+// per (tile, bucket) and the ticket, cleared by one cudaMemsetAsync on the
+// stream. The call is one memset and two launches with no host decision or
+// synchronisation, so it replays from a CUDA graph. Offsets into the cells
+// are 64-bit (P * cell may pass 2^31).
 //
-// What bounds it on the H100: device-memory traffic. The keys are read
-// twice (hist and scatter), each payload once, and every cell lane is
-// written once, by the scatter or by the pad pass. The scatter's writes go
-// to P streams; a warp's lanes of one bucket write neighbouring addresses.
-// Staging each tile by bucket in shared memory, to write whole runs, is
-// later work.
+// What bounds it on the H100: device-memory traffic. The keys and each
+// payload are read once, and every cell lane is written once, by the sweep
+// or by the pad.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "lookback.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int ITEMS = 16;              // rounds of THREADS elements per tile
+constexpr int ITEMS = 16;              // rows a thread holds
+constexpr int WARP_ROWS = ITEMS * 32;  // a warp's run of consecutive rows
 constexpr int TILE = THREADS * ITEMS;  // ops/partition_cuda.py TILE
-constexpr int SCAN_THREADS = 1024;
 constexpr int MAX_PAYLOADS = 8;  // ops/partition_cuda.py MAX_PAYLOADS
+constexpr int SWEEP_BLOCKS_PER_SM = 3;  // see sweep_kernel
 constexpr int PAD_BLOCKS = 1024;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr uint32_t EMPTY = 0xFFFFFFFFu;
+
+static_assert(ITEMS * 4 <= 64, "a thread packs its ITEMS 4-bit buckets in 64 bits");
 
 struct InPlanes {
   const uint32_t* p[MAX_PAYLOADS];
@@ -73,72 +102,193 @@ __device__ __forceinline__ uint32_t wang_hash(uint32_t key) {
 }
 
 template <int P>
-__device__ __forceinline__ int bucket_of(uint32_t key) {
-  constexpr int LOG2P = P == 2 ? 1 : P == 4 ? 2 : P == 8 ? 3 : 4;
-  return (int)(wang_hash(key) >> (32 - LOG2P));  // 1 + clz(P) = 32 - log2(P)
+__host__ __device__ constexpr int log2_parts() {
+  return P == 2 ? 1 : P == 4 ? 2 : P == 8 ? 3 : 4;
 }
 
-// tile_counts[p * ntiles + tile] = rows of bucket p in the tile.
 template <int P>
-__global__ void __launch_bounds__(THREADS)
-hist_kernel(const uint32_t* __restrict__ keys, long long n, long long ntiles,
-            uint32_t* __restrict__ tile_counts) {
-  __shared__ uint32_t warp_cnt[WARPS][P];
+__device__ __forceinline__ unsigned bucket_of(uint32_t key) {
+  return wang_hash(key) >> (32 - log2_parts<P>());  // 1 + clz(P) = 32 - log2(P)
+}
+
+// One tile of the sweep (see the note at the top). status: ntiles * P words
+// and ticket, zero at the start. At most 80 registers a thread, so that
+// three blocks share an SM: a tile's load, ranking, look-back and stores
+// run one after another, and a third block overlaps them. Measured beside
+// two blocks of 104 registers, and beside tiles of 2048 rows (PERF.md
+// §6), it was the fastest at one SF=64 side.
+template <int P, int NP>
+__global__ void __launch_bounds__(THREADS, SWEEP_BLOCKS_PER_SM)
+sweep_kernel(const uint32_t* __restrict__ keys, InPlanes pay, long long n, long long ntiles,
+             long long cell, uint32_t* __restrict__ cells_k, OutPlanes cells_pay,
+             uint32_t* __restrict__ cells_sel, uint32_t* __restrict__ counts,
+             int* __restrict__ overflow, unsigned* ticket, unsigned long long* status) {
+  constexpr int BITS = log2_parts<P>();
+  __shared__ uint32_t s_key[TILE];
+  __shared__ uint32_t s_val[TILE];    // a payload plane or the selection, by staged position
+  __shared__ unsigned s_wcnt[WARPS][P];  // per warp and bucket: count, then offset in the bucket
+  __shared__ unsigned s_start[P];        // the bucket's first staged position
+  __shared__ long long s_dst[P];         // cell lane of staged position 0 of the bucket
+  __shared__ long long s_end[P];         // staged positions of the bucket below it are written
+  __shared__ unsigned s_tile;
+
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const long long base = (long long)blockIdx.x * TILE;
-  uint32_t mine = 0;  // lane p counts bucket p over the warp's elements
-#pragma unroll 4
-  for (int j = 0; j < ITEMS; ++j) {
-    const long long i = base + j * THREADS + threadIdx.x;
-    const int b = i < n ? bucket_of<P>(keys[i]) : P;
+  const unsigned below = (1u << lane) - 1u;
+  if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1u);
+  __syncthreads();
+  const long long tile = s_tile;
+  const long long base = tile * TILE;
+  const int valid = (int)min((long long)TILE, n - base);
+
+  // rows in warp-striped runs: item j of a lane is tile row
+  // warp * WARP_ROWS + j * 32 + lane
+  uint32_t k[ITEMS];
+  uint32_t v0[NP > 0 ? ITEMS : 1];
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const unsigned bal = __ballot_sync(FULL, b == p);
-      if (lane == p) mine += __popc(bal);
+  for (int j = 0; j < ITEMS; ++j) {
+    const int li = warp * WARP_ROWS + j * 32 + lane;
+    k[j] = li < valid ? keys[base + li] : 0u;
+    if constexpr (NP > 0) v0[j] = li < valid ? pay.p[0][base + li] : 0u;
+  }
+
+  // rank: pos[j] = (rank among the warp's rows of its bucket) | bucket << 16
+  unsigned pos[ITEMS];
+  unsigned run = 0;  // lane b < P: bucket b's rows in the warp's earlier items
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const bool ok = warp * WARP_ROWS + j * 32 + lane < valid;
+    const unsigned b = bucket_of<P>(k[j]);
+    unsigned same = __ballot_sync(FULL, ok);  // lanes of this lane's bucket
+    unsigned mine = same;                     // lanes of bucket `lane`
+#pragma unroll
+    for (int bit = 0; bit < BITS; ++bit) {
+      const unsigned bal = __ballot_sync(FULL, (b >> bit) & 1u);
+      same &= (b >> bit) & 1u ? bal : ~bal;
+      mine &= (lane >> bit) & 1 ? bal : ~bal;
+    }
+    pos[j] = (__shfl_sync(FULL, run, b) + __popc(same & below)) | b << 16;
+    run += __popc(mine);
+  }
+  if (lane < P) s_wcnt[warp][lane] = run;
+  __syncthreads();
+
+  const unsigned bt = threadIdx.x;  // the bucket this thread scans and looks back for
+  unsigned count = 0;               // bucket bt's rows in the tile
+  unsigned long long* word = status + tile * P + bt;
+  if (bt < P) {
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const unsigned c = s_wcnt[w][bt];
+      s_wcnt[w][bt] = count;
+      count += c;
+    }
+    publish(word, tile == 0 ? FLAG_PREFIX : FLAG_AGG, count);
+  }
+  if (warp == 0) {  // the buckets' first staged positions: an exclusive scan over P lanes
+    unsigned incl = lane < P ? count : 0u;
+#pragma unroll
+    for (int d = 1; d < P; d <<= 1) {
+      const unsigned up = __shfl_up_sync(FULL, incl, d);
+      if (lane >= d) incl += up;
+    }
+    if (lane < P) s_start[lane] = incl - count;
+  }
+  __syncthreads();
+
+  // keys and the first plane staged by bucket while the earlier tiles
+  // publish; then the look-back
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    if (warp * WARP_ROWS + j * 32 + lane < valid) {
+      const unsigned b = pos[j] >> 16;
+      pos[j] = s_start[b] + s_wcnt[warp][b] + (pos[j] & 0xFFFFu);
+      s_key[pos[j]] = k[j];
+      if constexpr (NP > 0) s_val[pos[j]] = v0[j];
     }
   }
-  if (lane < P) warp_cnt[warp][lane] = mine;
+  if (bt < P) {
+    unsigned before = 0;  // bucket bt's rows in the earlier tiles
+    if (tile > 0) {
+      before = look_back<P>(status, tile, bt);
+      publish(word, FLAG_PREFIX, before + count);
+    }
+    const long long start = s_start[bt];
+    s_dst[bt] = (long long)bt * cell + before - start;
+    // the bucket's rows and, of them, those before the cell's end
+    s_end[bt] = start + min((long long)count, cell - (long long)before);
+    if (tile == ntiles - 1) {  // inclusive prefixes of the last tile: the histogram
+      const unsigned total = before + count;
+      counts[bt] = total;
+      const unsigned over = __ballot_sync((1u << P) - 1u, (long long)total > cell);
+      if (bt == 0) *overflow = over != 0;
+    }
+  }
   __syncthreads();
-  if (threadIdx.x < P) {
-    uint32_t t = 0;
+
+  // each bucket's run leaves as consecutive addresses; a thread keeps the
+  // buckets of its ITEMS staged positions for the later planes
+  unsigned long long bks = 0;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) t += warp_cnt[w][threadIdx.x];
-    tile_counts[threadIdx.x * ntiles + blockIdx.x] = t;
+  for (int m = 0; m < ITEMS; ++m) {
+    const int i = m * THREADS + threadIdx.x;
+    if (i < valid) {
+      const uint32_t key = s_key[i];
+      const unsigned b = bucket_of<P>(key);
+      bks |= (unsigned long long)b << (4 * m);
+      if (i < s_end[b]) cells_k[s_dst[b] + i] = key;
+    }
+  }
+  auto write_plane = [&](uint32_t* __restrict__ dst) {
+#pragma unroll
+    for (int m = 0; m < ITEMS; ++m) {
+      const int i = m * THREADS + threadIdx.x;
+      const unsigned b = (unsigned)(bks >> (4 * m)) & 15u;
+      if (i < valid && i < s_end[b]) dst[s_dst[b] + i] = s_val[i];
+    }
+  };
+#pragma unroll
+  for (int q = 0; q < NP; ++q) {
+    if (q > 0) {
+      __syncthreads();  // the previous plane's reads of s_val are done
+#pragma unroll
+      for (int j = 0; j < ITEMS; ++j) {
+        const int li = warp * WARP_ROWS + j * 32 + lane;
+        if (li < valid) s_val[pos[j]] = pay.p[q][base + li];
+      }
+      __syncthreads();
+    }
+    write_plane(cells_pay.p[q]);
+  }
+  if (cells_sel) {
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      const int li = warp * WARP_ROWS + j * 32 + lane;
+      if (li < valid) s_val[pos[j]] = (uint32_t)(base + li);
+    }
+    __syncthreads();
+    write_plane(cells_sel);
   }
 }
 
-// Block p: exclusive scan of bucket p's tile counts in place; counts[p] is
-// the total, and overflow is set when it passes the cell.
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_kernel(uint32_t* __restrict__ tile_counts, long long ntiles, long long cell,
-            uint32_t* __restrict__ counts, int* __restrict__ overflow) {
-  __shared__ uint32_t part[SCAN_THREADS];
-  uint32_t* col = tile_counts + blockIdx.x * ntiles;
-  const int t = threadIdx.x;
-  const long long per = (ntiles + SCAN_THREADS - 1) / SCAN_THREADS;
-  const long long lo = t * per;
-  const long long hi = lo + per < ntiles ? lo + per : ntiles;
-  uint32_t s = 0;
-  for (long long i = lo; i < hi; ++i) s += col[i];
-  part[t] = s;
-  __syncthreads();
-  for (int d = 1; d < SCAN_THREADS; d <<= 1) {  // inclusive Hillis-Steele scan
-    const uint32_t v = t >= d ? part[t - d] : 0u;
-    __syncthreads();
-    part[t] += v;
-    __syncthreads();
-  }
-  uint32_t run = t ? part[t - 1] : 0u;
-  for (long long i = lo; i < hi; ++i) {
-    const uint32_t v = col[i];
-    col[i] = run;
-    run += v;
-  }
-  if (t == SCAN_THREADS - 1) {
-    counts[blockIdx.x] = part[t];
-    if ((long long)part[t] > cell) *overflow = 1;
-  }
+// plane[row + j] = v for j in [from, cell): a scalar head up to 16-byte
+// alignment, then 16-byte stores, then a scalar tail, grid-strided over the
+// blocks of x.
+__device__ __forceinline__ void fill_lanes(uint32_t* plane, long long from, long long cell,
+                                           uint32_t v) {
+  const long long stride = (long long)gridDim.x * THREADS;
+  const long long t0 = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const uintptr_t word = reinterpret_cast<uintptr_t>(plane + from) >> 2;  // 4-byte word address
+  const long long head = min(cell - from, (long long)((4 - word) & 3));
+  if (t0 < head) plane[from + t0] = v;
+  const long long body = from + head;
+  const long long vecs = (cell - body) / 4;
+  uint4* vp = reinterpret_cast<uint4*>(plane + body);
+  const uint4 vv = make_uint4(v, v, v, v);
+  for (long long i = t0; i < vecs; i += stride) vp[i] = vv;
+  const long long tail = body + vecs * 4;
+  if (t0 < cell - tail) plane[tail + t0] = v;
 }
 
 // Lanes [counts[p], cell) of cell p (p = blockIdx.y) take the pad values.
@@ -146,90 +296,31 @@ template <int NP>
 __global__ void __launch_bounds__(THREADS)
 pad_kernel(const uint32_t* __restrict__ counts, long long cell, uint32_t* __restrict__ cells_k,
            OutPlanes cells_pay, uint32_t* __restrict__ cells_sel) {
-  const long long p = blockIdx.y;
-  const long long row = p * cell;
-  for (long long j = counts[p] + (long long)blockIdx.x * THREADS + threadIdx.x; j < cell;
-       j += (long long)gridDim.x * THREADS) {
-    cells_k[row + j] = EMPTY;
+  const long long row = (long long)blockIdx.y * cell;
+  const long long from = min((long long)counts[blockIdx.y], cell);
+  if (from >= cell) return;
+  fill_lanes(cells_k + row, from, cell, EMPTY);
 #pragma unroll
-    for (int q = 0; q < NP; ++q) cells_pay.p[q][row + j] = 0u;
-    if (cells_sel) cells_sel[row + j] = EMPTY;
-  }
-}
-
-template <int P, int NP>
-__global__ void __launch_bounds__(THREADS)
-scatter_kernel(const uint32_t* __restrict__ keys, InPlanes pay, long long n,
-               const uint32_t* __restrict__ tile_offs, long long ntiles, long long cell,
-               uint32_t* __restrict__ cells_k, OutPlanes cells_pay,
-               uint32_t* __restrict__ cells_sel) {
-  // double-buffered per-warp bucket counts: the running counts are updated
-  // from buffer j&1 after round j's second barrier, and round j+1 writes the
-  // other buffer, so two barriers a round suffice
-  __shared__ uint32_t wcnt[2][WARPS][P];
-  __shared__ uint32_t run[P];    // rows of each bucket in the earlier rounds
-  __shared__ uint32_t tbase[P];  // the tile's offset in each cell
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const unsigned lanes_lt = (1u << lane) - 1u;
-  const long long base = (long long)blockIdx.x * TILE;
-  if (threadIdx.x < P) {
-    run[threadIdx.x] = 0u;
-    tbase[threadIdx.x] = tile_offs[threadIdx.x * ntiles + blockIdx.x];
-  }
-  for (int j = 0; j < ITEMS; ++j) {
-    const int buf = j & 1;
-    const long long i = base + j * THREADS + threadIdx.x;
-    const bool valid = i < n;
-    const uint32_t key = valid ? keys[i] : 0u;
-    const int b = valid ? bucket_of<P>(key) : P;
-    unsigned same = 0;
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const unsigned bal = __ballot_sync(FULL, b == p);
-      if (lane == p) wcnt[buf][warp][p] = __popc(bal);
-      if (b == p) same = bal;
-    }
-    __syncthreads();
-    if (valid) {
-      uint32_t off = run[b] + __popc(same & lanes_lt);
-      for (int w = 0; w < warp; ++w) off += wcnt[buf][w][b];
-      const long long pos = (long long)tbase[b] + off;
-      if (pos < cell) {
-        const long long dst = (long long)b * cell + pos;
-        cells_k[dst] = key;
-#pragma unroll
-        for (int q = 0; q < NP; ++q) cells_pay.p[q][dst] = pay.p[q][i];
-        if (cells_sel) cells_sel[dst] = (uint32_t)i;
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x < P) {
-      uint32_t t = 0;
-#pragma unroll
-      for (int w = 0; w < WARPS; ++w) t += wcnt[buf][w][threadIdx.x];
-      run[threadIdx.x] += t;
-    }
-  }
+  for (int q = 0; q < NP; ++q) fill_lanes(cells_pay.p[q] + row, from, cell, 0u);
+  if (cells_sel) fill_lanes(cells_sel + row, from, cell, EMPTY);
 }
 
 template <int P, int NP>
 cudaError_t run_partition(const uint32_t* keys, InPlanes pay, long long n, long long cell,
                           uint32_t* cells_k, OutPlanes cells_pay, uint32_t* cells_sel,
-                          uint32_t* counts, int* overflow, uint32_t* scratch, cudaStream_t s) {
+                          uint32_t* counts, int* overflow, unsigned long long* work,
+                          cudaStream_t s) {
   const long long ntiles = (n + TILE - 1) / TILE;
-  cudaError_t err = cudaMemsetAsync(overflow, 0, sizeof(int), s);
+  unsigned long long* status = work;
+  unsigned* ticket = reinterpret_cast<unsigned*>(work + ntiles * P);
+  cudaError_t err = cudaMemsetAsync(work, 0, (size_t)(ntiles * P + 1) * 8, s);
   if (err != cudaSuccess) return err;
-  hist_kernel<P><<<(unsigned)ntiles, THREADS, 0, s>>>(keys, n, ntiles, scratch);
+  sweep_kernel<P, NP><<<(unsigned)ntiles, THREADS, 0, s>>>(
+      keys, pay, n, ntiles, cell, cells_k, cells_pay, cells_sel, counts, overflow, ticket, status);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  scan_kernel<<<P, SCAN_THREADS, 0, s>>>(scratch, ntiles, cell, counts, overflow);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const long long pad_x = (cell + THREADS - 1) / THREADS;
+  const long long pad_x = (cell / 4 + THREADS - 1) / THREADS + 1;
   const dim3 pad_grid((unsigned)(pad_x < PAD_BLOCKS ? pad_x : PAD_BLOCKS), P);
   pad_kernel<NP><<<pad_grid, THREADS, 0, s>>>(counts, cell, cells_k, cells_pay, cells_sel);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  scatter_kernel<P, NP><<<(unsigned)ntiles, THREADS, 0, s>>>(keys, pay, n, scratch, ntiles, cell,
-                                                           cells_k, cells_pay, cells_sel);
   return cudaGetLastError();
 }
 
@@ -237,11 +328,11 @@ template <int P>
 cudaError_t dispatch_payloads(int n_pay, const uint32_t* keys, InPlanes pay, long long n,
                               long long cell, uint32_t* cells_k, OutPlanes cells_pay,
                               uint32_t* cells_sel, uint32_t* counts, int* overflow,
-                              uint32_t* scratch, cudaStream_t s) {
+                              unsigned long long* work, cudaStream_t s) {
 #define DPU_PARTITION_CASE(NP)                                                            \
   case NP:                                                                                \
     return run_partition<P, NP>(keys, pay, n, cell, cells_k, cells_pay, cells_sel, counts, \
-                                overflow, scratch, s);
+                                overflow, work, s);
   switch (n_pay) {
     DPU_PARTITION_CASE(0)
     DPU_PARTITION_CASE(1)
@@ -253,7 +344,7 @@ cudaError_t dispatch_payloads(int n_pay, const uint32_t* keys, InPlanes pay, lon
     DPU_PARTITION_CASE(7)
     default:
       return run_partition<P, 8>(keys, pay, n, cell, cells_k, cells_pay, cells_sel, counts,
-                                 overflow, scratch, s);
+                                 overflow, work, s);
   }
 #undef DPU_PARTITION_CASE
 }
@@ -264,12 +355,14 @@ cudaError_t dispatch_payloads(int n_pay, const uint32_t* keys, InPlanes pay, lon
 // (0..8; host arrays of device pointers) into `parts` cells of `cell` rows
 // (parts a power of two in [2, 16], cell >= 1): cells_k and each of
 // cells_pay hold parts * cell uint32, cells_sel the same or NULL to drop the
-// selection plane. counts receives parts uint32, overflow one int32 (0/1);
-// scratch holds parts * ceil(n / 4096) uint32. Launches on `stream` and does
-// not synchronise. Returns 0 or the first CUDA error.
+// selection plane. counts receives parts uint32, overflow one int32 (0/1).
+// work holds ops/partition_cuda.py partition_plan's words: parts *
+// ceil(n / 4096) status words (uint64) and the ticket, which the function
+// clears on the stream. Launches on `stream` and does not synchronise.
+// Returns 0 or the first CUDA error.
 extern "C" int dpu_partition_u32(const void* keys, void* const* payloads, int n_pay, long long n,
                                  int parts, long long cell, void* cells_k, void* const* cells_pay,
-                                 void* cells_sel, void* counts, void* overflow, void* scratch,
+                                 void* cells_sel, void* counts, void* overflow, void* work,
                                  void* stream) {
   if (n < 1 || n > 0xFFFFFFFFLL || cell < 1 || n_pay < 0 || n_pay > MAX_PAYLOADS)
     return (int)cudaErrorInvalidValue;
@@ -284,13 +377,13 @@ extern "C" int dpu_partition_u32(const void* keys, void* const* payloads, int n_
   uint32_t* cs = static_cast<uint32_t*>(cells_sel);
   uint32_t* cnt = static_cast<uint32_t*>(counts);
   int* ovf = static_cast<int*>(overflow);
-  uint32_t* sc = static_cast<uint32_t*>(scratch);
+  unsigned long long* w = static_cast<unsigned long long*>(work);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (parts) {
-    case 2: return (int)dispatch_payloads<2>(n_pay, k, pay, n, cell, ck, out, cs, cnt, ovf, sc, s);
-    case 4: return (int)dispatch_payloads<4>(n_pay, k, pay, n, cell, ck, out, cs, cnt, ovf, sc, s);
-    case 8: return (int)dispatch_payloads<8>(n_pay, k, pay, n, cell, ck, out, cs, cnt, ovf, sc, s);
-    case 16: return (int)dispatch_payloads<16>(n_pay, k, pay, n, cell, ck, out, cs, cnt, ovf, sc, s);
+    case 2: return (int)dispatch_payloads<2>(n_pay, k, pay, n, cell, ck, out, cs, cnt, ovf, w, s);
+    case 4: return (int)dispatch_payloads<4>(n_pay, k, pay, n, cell, ck, out, cs, cnt, ovf, w, s);
+    case 8: return (int)dispatch_payloads<8>(n_pay, k, pay, n, cell, ck, out, cs, cnt, ovf, w, s);
+    case 16: return (int)dispatch_payloads<16>(n_pay, k, pay, n, cell, ck, out, cs, cnt, ovf, w, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -26,11 +26,12 @@
 //        runs of 32 consecutive keys and ranks them in order. CHUNK items
 //        go through each step together, so that no item waits on the one
 //        before it;
-//      - the tile's 256 bucket counts go out through a decoupled look-back,
-//        thread b for bucket b: it publishes its count (flag AGG), walks
-//        back over the earlier tiles' words, adding counts, until it meets
-//        an inclusive prefix (flag PREFIX), and publishes its own. Flag and
-//        count share one 64-bit word, so one store publishes both;
+//      - the tile's 256 bucket counts go out through a decoupled look-back
+//        (csrc/lookback.cuh), thread b for bucket b: it publishes its count
+//        (flag AGG), walks back over the earlier tiles' words, adding
+//        counts, until it meets an inclusive prefix (flag PREFIX), and
+//        publishes its own. Flag and count share one 64-bit word, so one
+//        store publishes both;
 //      - the tile's keys and first carried plane (loaded with the keys)
 //        are re-ordered by digit in shared memory before the look-back
 //        waits, and written after it, so that each bucket's run leaves as
@@ -68,6 +69,8 @@
 
 #include <cuda_runtime.h>
 
+#include "lookback.cuh"
+
 namespace {
 
 constexpr int RADIX_BITS = 8;
@@ -77,15 +80,12 @@ constexpr int THREADS = 256;  // == RADIX: thread b scans and looks back for buc
 constexpr int WARPS = THREADS / 32;
 constexpr int ITEMS = 16;  // keys a thread holds
 constexpr int CHUNK = 8;  // items ranked together (see digit_pass_kernel)
-constexpr int LOOKBACK = 8;  // status words a look-back step reads at once
 constexpr int WARP_KEYS = ITEMS * 32;
 constexpr int TILE = THREADS * ITEMS;  // ops/sort_cuda.py RADIX_TILE
 constexpr int HIST_UNROLL = 4;
 constexpr int HIST_BLOCKS_PER_SM = 4;
 constexpr int MAX_PAYLOADS = 8;  // ops/sort_cuda.py MAX_PAYLOADS
 constexpr unsigned FULL = 0xFFFFFFFFu;
-constexpr unsigned long long FLAG_AGG = 1ull << 32;
-constexpr unsigned long long FLAG_PREFIX = 2ull << 32;
 
 static_assert(THREADS == RADIX, "one thread a bucket");
 
@@ -122,11 +122,6 @@ __device__ __forceinline__ unsigned block_exclusive_scan(unsigned v, unsigned* s
   return off + incl - v;
 }
 
-__device__ __forceinline__ void publish(unsigned long long* word, unsigned long long flag,
-                                        unsigned count) {
-  *reinterpret_cast<volatile unsigned long long*>(word) = flag | count;
-}
-
 // All four digit histograms of the n keys: hist[pass * RADIX + bucket].
 __global__ void __launch_bounds__(THREADS)
 histogram_kernel(const uint32_t* __restrict__ key, long long n, unsigned* __restrict__ hist) {
@@ -157,31 +152,6 @@ histogram_kernel(const uint32_t* __restrict__ key, long long n, unsigned* __rest
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) s += s_hist[w][b];
     if (s) atomicAdd(&hist[b], s);
-  }
-}
-
-// Bucket b's keys in the tiles before `tile` (thread b of every block):
-// walks back over the status words LOOKBACK at a time, adding counts up to
-// and including the nearest inclusive prefix, waiting where a word is not
-// published yet. Tile 0 always publishes a prefix, so the walk ends there.
-__device__ __forceinline__ unsigned look_back(const unsigned long long* status, long long tile,
-                                              unsigned b) {
-  unsigned before = 0;
-  long long t = tile - 1;
-  for (;;) {
-    const volatile unsigned long long* words = status + b;
-    unsigned long long w[LOOKBACK];
-#pragma unroll
-    for (int u = 0; u < LOOKBACK; ++u) w[u] = t - u >= 0 ? words[(t - u) * RADIX] : FLAG_PREFIX;
-    int u = 0;
-    for (; u < LOOKBACK; ++u) {
-      const unsigned long long flag = w[u] & ~0xFFFFFFFFull;
-      if (flag == 0) break;  // not published yet: its block is running
-      before += (unsigned)w[u];
-      if (flag == FLAG_PREFIX) return before;
-    }
-    t -= u;
-    if (u < LOOKBACK) __nanosleep(32);
   }
 }
 
@@ -291,7 +261,7 @@ digit_pass_kernel(const uint32_t* __restrict__ key_in, ConstPlanes in,
   } else {
     unsigned before = 0;  // bucket b's keys in the earlier tiles
     if (tile > 0) {
-      before = look_back(status, tile, b);
+      before = look_back<RADIX>(status, tile, b);
       publish(word, FLAG_PREFIX, before + count);
     }
     s_goff[b] = (long long)gstart + before - start;

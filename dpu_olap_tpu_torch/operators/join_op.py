@@ -18,8 +18,8 @@ routes as JoinTpu does (join_op.py:402-423):
   * the host-staged partitioned join (``_run_partitioned``) beyond that:
     the Partitioner splits both tables into one hash partition per batch on
     the host, and each partition pair is joined on the device.
-The shuffle join's exchange across several devices is ROADMAP §1 item 10:
-more than one device raises NotImplementedError.
+The shuffle join's exchange across several devices is in ROADMAP §1,
+"Multi-device": more than one device raises NotImplementedError.
 
 JoinNative — pyarrow hash join (host/join/join_native.cc:31-40 oracle).
 """
@@ -270,7 +270,7 @@ class JoinGpu:
         if self.ds.nr_devices != 1:
             raise NotImplementedError(
                 "the host-staged partitioned join on several devices is not ported yet "
-                "(ROADMAP §1 item 10)"
+                "(ROADMAP §1, \"Multi-device\")"
             )
         nparts = len(self.left)  # one partition per input batch pair
         with timed(self.timers, "partition"):

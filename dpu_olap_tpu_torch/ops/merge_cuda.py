@@ -18,6 +18,13 @@ row): EMPTY keys are outside the TPU kernel's contract, and the sorted
 hash table (hashtable.py) never reports them as found. Any probe length
 is taken, and any build side below 2^32 keys (the kernel's positions are
 32-bit), an empty one included.
+
+The kernel is a tiled range merge: a block takes TILE probe keys, finds
+the build range they reach with two searches, and stages it in shared
+memory where it holds at most STAGE keys (else its keys search that range
+in device memory). A probe key outside its tile's first and last key,
+which only an unsorted probe has, searches the whole build side, so the
+kernel gives the plain version's answer for any probe order.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ from . import _kernels
 from .hashtable import _signed_view
 
 MAX_PAYLOADS = 8  # payload planes the kernel takes (csrc/merge_probe.cu MAX_PAYLOADS)
+TILE = 1024  # probe keys a block of the kernel takes (csrc/merge_probe.cu TILE)
+STAGE = 4096  # build keys a tile stages in shared memory at most (csrc/merge_probe.cu STAGE)
 LAUNCHES = 0  # kernel launches by merge_probe (the CPU path adds none)
 
 

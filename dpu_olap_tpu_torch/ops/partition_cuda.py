@@ -17,11 +17,21 @@ The TPU kernel leaves padded lanes unspecified and, on overflow, reports
 clamped running offsets as counts (partition_pallas.py:98, 148); its layout
 limits (n a multiple of 32Ki, cell a multiple of 128) have no counterpart:
 any n >= 0 and any cell_size >= 1 are taken.
+
+The kernel is a one-sweep pass (``csrc/partition.cu``): tiles of TILE rows
+taken by ticket, ranked by ballots, their bucket counts joined by a
+decoupled look-back and their rows staged by bucket in shared memory, then
+a pad launch. Its work memory, allocated by the wrapper for each call and
+freed when it returns, is ``partition_plan``'s: 8 * (P * ceil(n / 4096) +
+1) bytes (512 KiB at one SF=64 side: 128Mi rows, P = 2). A call is one
+memset and two launches per payload group, with no host synchronisation,
+so it can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -31,6 +41,21 @@ from .partition import lay_cells, radix_partition_with_payload
 MAX_PAYLOADS = 8  # payload planes per launch (csrc/partition.cu MAX_PAYLOADS)
 TILE = 4096  # elements per block of the kernel (csrc/partition.cu TILE)
 LAUNCHES = 0  # kernel launches by partition_cells (the CPU path adds none)
+
+
+class PartitionPlan(NamedTuple):
+    """What one launch of the partition kernel needs beside its outputs, in
+    one work buffer of int64 words: the tiles (one block each), then one
+    look-back status word per tile and bucket and the ticket (one word)."""
+
+    tiles: int
+    work_words: int
+
+
+def partition_plan(n: int, nr_partitions: int) -> PartitionPlan:
+    """The partition kernel's launch plan (csrc/partition.cu dpu_partition_u32)."""
+    tiles = -(-n // TILE)
+    return PartitionPlan(tiles, nr_partitions * tiles + 1)
 
 
 def partitionable(nr_partitions: int) -> bool:
@@ -88,10 +113,10 @@ def _launch(keys, payloads, nr_partitions: int, cell_size: int, with_sel: bool):
                 c.view(torch.int32).fill_(pad)
         counts.view(torch.int32).zero_()
         return ck, cp, sel, counts, torch.zeros((), dtype=torch.bool, device=dev)
-    scratch = torch.empty(p * -(-n // TILE), dtype=torch.int32, device=dev)
+    work = torch.empty(partition_plan(n, p).work_words, dtype=torch.int64, device=dev)
     lib = _kernels.library()
-    # more than MAX_PAYLOADS planes: one launch per group, each writing the
-    # same keys, counts and selection again
+    # more than MAX_PAYLOADS planes: one launch per group, each clearing the
+    # work memory and writing the same keys, counts and selection again
     groups = [payloads[i:i + MAX_PAYLOADS] for i in range(0, len(payloads), MAX_PAYLOADS)] or [()]
     outs = [cp[i:i + MAX_PAYLOADS] for i in range(0, len(cp), MAX_PAYLOADS)] or [()]
     for g, o in zip(groups, outs):
@@ -101,7 +126,7 @@ def _launch(keys, payloads, nr_partitions: int, cell_size: int, with_sel: bool):
                 keys.data_ptr(), arr(*[t.data_ptr() for t in g]), len(g), n, p, cell_size,
                 ck.data_ptr(), arr(*[t.data_ptr() for t in o]),
                 None if sel is None else sel.data_ptr(),
-                counts.data_ptr(), overflow.data_ptr(), scratch.data_ptr(),
+                counts.data_ptr(), overflow.data_ptr(), work.data_ptr(),
                 _kernels.stream_handle(dev),
             )
         _kernels.check(rc, "partition_cells")

@@ -13,7 +13,7 @@ them one after another — the JAX package's ``lax.scan`` is a Python loop
 here — which bounds the join's working set to 1/rounds of the data; this is
 how one device joins tables above ``JoinGpu.SINGLE_ROUND_ROWS``. More than
 one device raises in the exchange (shuffle_partitions) until it is ported
-(ROADMAP §1 item 10).
+(ROADMAP §1, "Multi-device").
 
 Output: padded rows (the local join's layout, round after round) + a
 matched mask; the host compacts them (operators/join_op.py), as the
@@ -95,7 +95,7 @@ def dist_join(
     nr_devices * rounds partitions, then joined (join_shuffled). rounds > 1
     joins the data as that many resident partition rounds. The JAX
     package's per-device program (``dist_join_spmd``) returns with the
-    multi-device exchange (ROADMAP §1 item 10)."""
+    multi-device exchange (ROADMAP §1, "Multi-device")."""
     n_dev = ds.nr_devices
 
     def on_device(a):

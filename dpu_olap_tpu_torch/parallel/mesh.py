@@ -6,7 +6,7 @@ scatter/gather buffers, sync. This slice runs on one device: ``allocate``
 hands out one CUDA device and raises when there is none; a CPU DeviceSet
 exists only where a caller such as a test constructs it explicitly.
 Multi-device sets (the JAX package's mesh, over a process group) arrive with
-the shuffle join's exchange across devices (ROADMAP §1 item 10); the
+the shuffle join's exchange across devices (ROADMAP §1, "Multi-device"); the
 one-device shuffle join (parallel/dist_join.py) runs on this set.
 """
 
@@ -36,7 +36,7 @@ class DeviceSet:
             raise ValueError(f"requested {n} devices, have {avail}")
         if n != 1:
             raise NotImplementedError(
-                "multi-device DeviceSet is not ported yet (ROADMAP §1 item 10)"
+                "multi-device DeviceSet is not ported yet (ROADMAP §1, \"Multi-device\")"
             )
         return DeviceSet(torch.device("cuda", torch.cuda.current_device()))
 

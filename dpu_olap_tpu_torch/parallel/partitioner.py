@@ -10,8 +10,8 @@ fragments into them (LoadPartitions :350-375).
     (shuffle.local_fragments, the partition kernel) and appends each cell's
     rows to its host partition. The JAX package assembles the partitions
     with its native runtime when that is built; the port has no native
-    runtime yet (ROADMAP §1 item 1) and takes the JAX package's pure-Python
-    branch (partitioner.py:89-90, 141-148).
+    runtime yet (ROADMAP §1, "The host runtime") and takes the JAX
+    package's pure-Python branch (partitioner.py:89-90, 141-148).
   * ``ResidentPartitioner``: the device-resident engine. One shuffle into
     nr_partitions partitions; they stay on the device as
     ``DevicePartitions`` (cells + counts, the layout the shuffle join

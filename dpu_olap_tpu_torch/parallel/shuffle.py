@@ -11,8 +11,8 @@ reported like the reference's Partition::Write throw (partition.cc:19-26).
 
 This slice runs on one device, where the exchange is the identity: the
 local fragments are what the device receives. The all-to-all over several
-devices (a process group, NCCL) is ROADMAP §1 item 10; ``shuffle_partitions``
-raises for more than one device until then.
+devices (a process group, NCCL) is in ROADMAP §1, "Multi-device";
+``shuffle_partitions`` raises for more than one device until then.
 
 Layout after the exchange: (P, cell_size) rows where row p holds the
 fragment source-device p contributed to *my* partition, plus counts[p].
@@ -123,7 +123,7 @@ def shuffle_partitions(
     identity: the received cells and counts are the local ones."""
     if nr_partitions != 1:
         raise NotImplementedError(
-            "the multi-device shuffle exchange is not ported yet (ROADMAP §1 item 10)"
+            "the multi-device shuffle exchange is not ported yet (ROADMAP §1, \"Multi-device\")"
         )
     ck, cp, counts, overflow = local_fragments(keys, payloads, nr_partitions * rounds, cell_size)
     return ShuffleResult(

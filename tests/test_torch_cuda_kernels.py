@@ -1,11 +1,15 @@
 """The port's CUDA kernels against their plain versions on the card, bit for
-bit on every lane: the partition kernel (csrc/partition.cu), the
-merge-probe kernel (csrc/merge_probe.cu), the filter alternates
+bit on every lane: the partition kernel (csrc/partition.cu: tile edges,
+one bucket with and without overflow, P = 16 with two payload groups), the
+merge-probe kernel (csrc/merge_probe.cu: empty and one-key sides, sparse
+and dense probes, keys outside the build range, a run over tile edges, an
+unsorted and a misaligned probe), the filter alternates
 (csrc/filter2.cu, filter3.cu, filter4.cu) and the filter stage ablation
 (csrc/filter.cu), the in-block primitive ops (csrc/block_ops.cu), the
 probe primitives (csrc/probes.cu), the sort's tile stage (csrc/sort.cu),
 the radix sort (csrc/radix_sort.cu) and the sorted gather (csrc/gather.cu),
-and the graph-captured chain timing and a captured sort and gather. A CUDA
+and the graph-captured chain timing, a captured sort and gather and a
+captured merge-probe and partition. A CUDA
 kernel has no CPU mode, so
 every test here is marked ``cuda`` and skips without a device. This file
 imports no jax (the machine with the card has none) and takes no fixture of
@@ -48,6 +52,9 @@ def _same(got, ref):
         assert np.array_equal(g.cpu().numpy(), r.cpu().numpy())
 
 
+TILE = partition_cuda.TILE
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("p, n, cell, n_pay", [
     (2, 1 << 16, 1 << 16, 1),
@@ -55,6 +62,11 @@ def _same(got, ref):
     (16, 1 << 16, 1 << 13, 0),
     (8, 1 << 14, 1024, 9),  # two launches; every bucket overflows
     (4, 1, 1, 1),
+    (8, TILE - 1, TILE, 1),  # a ragged only tile, a whole one, one row past it
+    (8, TILE, TILE, 1),
+    (8, TILE + 1, TILE, 2),
+    (16, 5 * TILE + 3, TILE, 9),  # P = 16, two payload groups
+    (2, 1 << 20, 1 << 20, 1),  # the SF=64 side's P and cell, cut down
 ])
 @pytest.mark.parametrize("with_sel", [True, False])  # False: the operators' call
 def test_partition_kernel_matches_plain(cuda_device, p, n, cell, n_pay, with_sel):
@@ -62,6 +74,24 @@ def test_partition_kernel_matches_plain(cuda_device, p, n, cell, n_pay, with_sel
     k = rng.integers(0, 2**32, n, dtype=np.uint32)
     k[: min(n, len(EDGE_KEYS))] = EDGE_KEYS[:n]
     pays = [rng.integers(0, 2**32, n, dtype=np.uint32) for _ in range(n_pay)]
+    _partition_same(cuda_device, k, pays, p, cell, with_sel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, cell", [
+    (3 * TILE + 5, 3 * TILE + 5),  # every row in one bucket: tiles of one bucket
+    (3 * TILE + 5, TILE + 100),  # and the cut-off falls inside a tile
+    (3 * TILE + 5, 1),
+])
+@pytest.mark.parametrize("key", [12345, 0xFFFFFFFF])
+def test_partition_kernel_one_bucket(cuda_device, n, cell, key):
+    pays = [np.arange(n, dtype=np.uint32)]
+    _partition_same(cuda_device, np.full(n, key, np.uint32), pays, 8, cell, True)
+
+
+def _partition_same(cuda_device, k, pays, p, cell, with_sel):
+    n = len(k)
+    n_pay = len(pays)
     dev = [torch.from_numpy(a).to(cuda_device) for a in (k, *pays)]
     before = partition_cuda.LAUNCHES
     got = partition_cuda.partition_cells(dev[0], tuple(dev[1:]), p, cell, with_sel=with_sel)
@@ -76,20 +106,87 @@ def test_partition_kernel_matches_plain(cuda_device, p, n, cell, n_pay, with_sel
 @pytest.mark.cuda
 @pytest.mark.parametrize("nl, nr, n_pay", [
     (1 << 16, 1 << 16, 1), (3 * 1000 + 7, 1 << 15, 3), (5000, 0, 1), (1 << 14, 1000, 8),
+    (5000, 1, 1), (5000, 0, 0), (1, 1 << 16, 2),  # nr = 0 and 1; one probe key
+    (1 << 18, 100, 1), (1000, 1 << 20, 1),  # nl >> nr; nl << nr (ranges past STAGE)
+    (merge_cuda.TILE + 1, 1 << 12, 0), (merge_cuda.TILE - 1, 7, 5),
 ])
 def test_merge_probe_kernel_matches_plain(cuda_device, nl, nr, n_pay):
     rng = np.random.default_rng(9)
     right = np.sort(rng.choice(2**31, size=nr, replace=False).astype(np.uint32))
     pays = [rng.integers(0, 2**32, nr, dtype=np.uint32) for _ in range(n_pay)]
     left = np.sort(rng.integers(0, 2**31, nl).astype(np.uint32))
-    left[-7:] = EMPTY
-    right[-3:] = EMPTY
+    if nl > 64:  # EMPTY tails on both sides
+        left[-7:] = EMPTY
+        right[-min(nr, 3):] = EMPTY
+    _merge_probe_same(cuda_device, left, right, pays)
+
+
+def _merge_probe_same(cuda_device, left, right, pays, offset=0):
     dev = [torch.from_numpy(a).to(cuda_device) for a in (left, right, *pays)]
+    dev[0] = dev[0][offset:]  # a slice: not 16-byte aligned for an odd offset
     before = merge_cuda.LAUNCHES
     got = merge_cuda.merge_probe(dev[0], dev[1], tuple(dev[2:]))
     assert merge_cuda.LAUNCHES == before + 1
     ref = merge_cuda.merge_probe_ref(dev[0], dev[1], tuple(dev[2:]))
     _same((got[0], got[1], *got[2]), (ref[0], ref[1], *ref[2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["below", "above", "run_over_edges", "unsorted", "offset"])
+def test_merge_probe_kernel_edges(cuda_device, case):
+    """Probe keys all below or all above every build key; a run of equal
+    keys over tile edges; an unsorted probe (each key still gets its own
+    answer); a probe slice at an odd offset."""
+    rng = np.random.default_rng(13)
+    nr, t = 1 << 14, merge_cuda.TILE
+    right = np.sort(rng.choice(2**30, size=nr, replace=False).astype(np.uint32)) + np.uint32(1000)
+    pays = [rng.integers(0, 2**32, nr, dtype=np.uint32) for _ in range(2)]
+    left = np.sort(rng.integers(1000, 2**30, 3 * t + 5).astype(np.uint32))
+    if case == "below":
+        left = np.sort(rng.integers(0, 1000, 3 * t + 5)).astype(np.uint32)
+    elif case == "above":
+        left = np.sort(rng.integers(2**31, 2**32, 3 * t + 5)).astype(np.uint32)
+    elif case == "run_over_edges":
+        left[t - 50: 3 * t + 2] = right[nr // 2]
+        left = np.sort(left)
+    elif case == "unsorted":
+        left = rng.permutation(left)
+    _merge_probe_same(cuda_device, left, right, pays, offset=1 if case == "offset" else 0)
+
+
+@pytest.mark.cuda
+def test_merge_probe_and_partition_replay_in_a_graph(cuda_device):
+    rng = np.random.default_rng(17)
+    nr, nl, n = 1 << 16, (1 << 16) + 5, 3 * TILE + 9
+    right = torch.from_numpy(np.sort(rng.choice(2**31, nr, replace=False).astype(np.uint32)))
+    left = torch.from_numpy(np.sort(rng.integers(0, 2**31, nl).astype(np.uint32)))
+    right_pay = torch.from_numpy(rng.integers(0, 2**32, nr, dtype=np.uint32))
+    keys = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32))
+    pay = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32))
+    right, right_pay, left, keys, pay = (t.to(cuda_device)
+                                         for t in (right, right_pay, left, keys, pay))
+
+    def step():
+        probe = merge_cuda.merge_probe(left, right, (right_pay,))
+        cells = partition_cuda.partition_cells(keys, (pay,), 8, TILE)
+        return (*probe[:2], *probe[2], cells[0], *cells[1], cells[2], cells[3], cells[4])
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    left.copy_(torch.sort(left.view(torch.int32) ^ 0x5555).values.view(torch.uint32))
+    keys.copy_(torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(cuda_device))
+    graph.replay()
+    graph.replay()  # the second replay clears and reuses the work memory
+    torch.cuda.synchronize()
+    probe = merge_cuda.merge_probe_ref(left, right, (right_pay,))
+    cells = partition_cuda.partition_cells_ref(keys, (pay,), 8, TILE)
+    _same(outs, (*probe[:2], *probe[2], cells[0], *cells[1], cells[2], cells[3], cells[4]))
 
 
 @pytest.mark.cuda

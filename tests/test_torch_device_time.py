@@ -1,6 +1,6 @@
 """The port's chained timing (dpu_olap_tpu_torch.bench.device_time) on CPU
 tensors: the readings, the consts passed to every step, and the round-robin
-order of time_chained_multi; bench/sort_gather_replay without a card.
+order of time_chained_multi; bench/kernel_replay without a card.
 The graph-captured path on the card is in tests/test_torch_cuda_kernels.py."""
 
 import numpy as np
@@ -74,8 +74,8 @@ def test_time_chained_rejects_other_devices():
 
 
 def test_sort_gather_replay_needs_a_card(capsys, monkeypatch):
-    from dpu_olap_tpu_torch.bench import sort_gather_replay
+    from dpu_olap_tpu_torch.bench import kernel_replay
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert sort_gather_replay.main([]) == 1
+    assert kernel_replay.main([]) == 1
     assert capsys.readouterr().out == ""  # no reading without a card

@@ -145,3 +145,53 @@ def test_merge_probe_rejects_bad_input():
     merge_probe(k, k, (k,))
     assert merge_cuda.LAUNCHES == before  # the CPU path launches nothing
 
+
+
+@pytest.mark.parametrize("where", ["below", "above"])
+def test_merge_probe_probe_outside_the_build_range_matches_pallas(rng, where):
+    """Every probe key below every build key (no hit), or above every one
+    (all on the last build row)."""
+    _, right, pays = _case(rng, 0, BLK, n_pay=2, key_hi=2**30)
+    right = right + np.uint32(1000)
+    left = (np.sort(rng.integers(0, 1000, 3000)) if where == "below"
+            else np.sort(rng.integers(2**31, 2**32 - 1, 3000))).astype(np.uint32)
+    got = _port(left, right, pays)
+    _equal(got, _pallas(left, right, pays))
+    _equal(got, _oracle(left, right, pays))
+    assert got[0].all() == (where == "above") and got[0].any() == (where == "above")
+
+
+def test_merge_probe_equal_run_across_a_tile_edge_matches_pallas(rng):
+    """A run of equal probe keys that spans the kernel's tile edges (every
+    TILE probe keys), present and absent in the build side."""
+    _, right, pays = _case(rng, 0, BLK, n_pay=1)
+    t = merge_cuda.TILE
+    left = np.sort(np.concatenate([
+        rng.integers(0, 2**31, t - 100).astype(np.uint32),
+        np.full(300, right[BLK // 2], np.uint32),  # present, over the first edge
+        np.full(t, right[BLK // 3] + np.uint32(1), np.uint32),  # absent, a whole tile and more
+    ]))
+    got = _port(left, right, pays)
+    _equal(got, _pallas(left, right, pays))
+    _equal(got, _oracle(left, right, pays))
+
+
+@pytest.mark.parametrize("nl, nr", [(1, 1 << 16), (1 << 14, 7), (1000, 1 << 16), (5, 1)])
+def test_merge_probe_sparse_and_dense_probes_match_pallas(rng, nl, nr):
+    """One probe key against a whole build side, a probe much denser than
+    the build side, one much sparser (its tiles reach past STAGE build
+    keys), and a one-key build side."""
+    left, right, pays = _case(rng, nl, nr)
+    got = _port(left, right, pays)
+    _equal(got, _oracle(left, right, pays))
+    if nr % BLK == 0:  # the Pallas wrapper pads a partial build block
+        _equal(got, _pallas(left, right, pays))
+
+
+def test_merge_probe_unsorted_probe_matches_oracle(rng):
+    """The contract asks for a sorted probe; an unsorted one still gets each
+    key's own answer (the kernel searches the whole build side for a key
+    outside its tile's first and last key)."""
+    left, right, pays = _case(rng, 3000, 5000, n_pay=1)
+    left = rng.permutation(left)
+    _equal(_port(left, right, pays), _oracle(left, right, pays))

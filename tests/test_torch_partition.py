@@ -134,6 +134,10 @@ def test_partition_cells_ref_no_payload_matches_pallas(rng):
     (8, 1 << 12, 1 << 10, 3),
     (16, 3 * 1024 + 17, 384, 0),
     (8, 4096, 128, 2),  # overflow
+    (4, 4095, 2048, 1),  # the kernel's tile - 1, tile and tile + 1 rows
+    (8, 4096, 1024, 1),
+    (8, 4097, 1024, 1),
+    (16, 6, 1, 9),  # cells of one row; more payloads than one kernel launch takes
 ])
 def test_partition_cells_ref_matches_jax_local_fragments(rng, p, n, cell, n_pay):
     """Bit for bit with the JAX shuffle's XLA path, padded lanes included."""
@@ -173,3 +177,26 @@ def test_partition_cells_empty_and_rejects_bad_input():
     partition_cells(k, (k,), 4, 8)
     assert partition_cuda.LAUNCHES == before  # the CPU path launches nothing
 
+
+
+@pytest.mark.parametrize("n, p, tiles, work_words", [
+    (1, 2, 1, 3),
+    (4095, 8, 1, 9),
+    (4096, 8, 1, 9),  # one whole tile
+    (4097, 8, 2, 17),  # one tile + 1
+    (1 << 24, 8, 4096, 32769),  # partition_kernel_p8 at SF=8
+    (1 << 27, 2, 32768, 65537),  # one side of the SF=64 shuffle join
+    ((1 << 32) - 1, 16, 1 << 20, (1 << 24) + 1),
+])
+def test_partition_plan_hand_worked(n, p, tiles, work_words):
+    plan = partition_cuda.partition_plan(n, p)
+    assert plan.tiles == tiles
+    # one look-back status word per tile and bucket, then the ticket
+    assert plan.work_words == work_words == p * tiles + 1
+
+
+def test_partition_plan_at_one_sf64_side():
+    """128Mi rows into P = 2 cells: 512 KiB of look-back words and the
+    ticket's word (partition_cuda's docstring)."""
+    assert partition_cuda.partition_plan(1 << 27, 2).work_words * 8 == (512 << 10) + 8
+    assert partition_cuda.TILE == 4096
