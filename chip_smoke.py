@@ -9,9 +9,11 @@ It builds the CUDA kernels from dpu_olap_tpu_torch/csrc, checks each kernel
 against its plain PyTorch version on the card (the radix sort, bit for bit
 on every plane, the sorted gather, the radix partition and merge-probe, all
 four also timed as graph replays, the partition with its per-launch
-breakdown; filter, sum, forward fill, block merge, the filter
-alternates and stage ablation, the block ops, the probe primitives and the
-sort's tile stage), the partition, sort and fill kernels also
+breakdown; filter v1 and the forward fill in both modes, also timed as
+graph replays and checked on views at offsets 1-3, in two calls in a row
+and in CUDA-graph replays; sum, block merge, the filter alternates and
+stage ablation, the block ops, the probe primitives and the sort's tile
+stage), the partition, sort and fill kernels also
 at the SF=64 main path's shapes, and times each beside its bound and the
 one PyTorch call that computes the same function, then drives each
 operator path through Prepare().Run() at the reference benchmark
@@ -182,11 +184,15 @@ def rand_u32(n: int, gen):
 
 def card_equal(got, ref) -> bool:
     """Every pair of equal-shape tensors holds the same bits (compared on the
-    card: these are too large to copy back)."""
+    card: these are too large to copy back). 4-byte planes are compared as
+    int32 (torch has no uint32 compare), others (has masks) as they are."""
     import torch
 
+    def bits(t):
+        return t.view(torch.int32) if t.element_size() == 4 else t
+
     return len(got) == len(ref) and all(
-        g.shape == r.shape and torch.equal(g.view(torch.int32), r.view(torch.int32))
+        g.shape == r.shape and torch.equal(bits(g), bits(r))
         for g, r in zip(got, ref))
 
 
@@ -479,11 +485,14 @@ def _filter_inputs(rng):
     cases = [("random 64Mi", rng.integers(0, 2**32, FILTER_N, dtype=np.uint32))]
     odd = 3 * (1 << 20) + 17
     cases.append((f"random {odd}", rng.integers(0, 2**32, odd, dtype=np.uint32)))
-    for n in (1, 127, 4097):
+    for n in (1, 127, 4095, 4096, 4097):  # around the kernel's tile of 4096
         cases.append((f"random {n}", rng.integers(0, 2**32, n, dtype=np.uint32)))
     i = np.arange(odd)
     cases.append(("all pass", rng.integers(0, t, odd, dtype=np.uint32)))
     cases.append(("none pass", rng.integers(t, 2**32, odd, dtype=np.uint32)))
+    last = rng.integers(t, 2**32, odd, dtype=np.uint32)
+    last[-1] = 5  # one kept value, in the last tile
+    cases.append(("one kept in the last tile", last))
     cases.append(("alternating", np.where(i % 2 == 0, 7, 0xC0000000).astype(np.uint32)))
     edges = np.array([0, t - 1, t, 0xFFFFFFFF], dtype=np.uint32)
     cases.append(("boundary values", edges[rng.integers(0, 4, odd)]))
@@ -497,7 +506,7 @@ def phase_filter_kernel(rng, card: str) -> dict:
     from dpu_olap_tpu_torch.ops import filter_cuda
 
     err = 0
-    timed = None
+    timed = views = None
     for name, v in _filter_inputs(rng):
         tv = on_card(v)
         keep = v < (1 << 30)
@@ -523,23 +532,62 @@ def phase_filter_kernel(rng, card: str) -> dict:
         print(f"[filter] {name} (n={len(v)}, kept {c}): kernel == plain", flush=True)
         if len(v) == FILTER_N:
             timed = tv
+        elif views is None and name.startswith("random"):
+            views = tv  # 3Mi + 17 random values: the views and replays below
+
+    def both(x):
+        return (*filter_cuda.filter_compact(x, 0xDEADBEEF), *filter_cuda.filter_with_indices(x))
+
+    def both_ref(x):
+        return (*filter_cuda.filter_compact_ref(x, 0xDEADBEEF),
+                *filter_cuda.filter_with_indices_ref(x))
+
+    for off in (1, 2, 3):  # views that are not 16-byte aligned
+        require(card_equal(both(views[off:]), both_ref(views[off:])),
+                f"filter kernel != plain on a view at offset {off}")
+    first = both(views)
+    require(card_equal(first, both(views)) and card_equal(first, both_ref(views)),
+            "filter kernel: two calls in a row differ, or differ from plain")
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both(views)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        captured = both(views)
+    for r in range(2):  # each replay clears and reuses the work memory
+        views.copy_(rand_u32(views.shape[0], torch.Generator(device="cuda").manual_seed(SEED + r)))
+        graph.replay()
+        require(card_equal(captured, both_ref(views)), f"filter kernel != plain in graph replay {r}")
+    del graph, captured, first
+    print("[filter] kernel == plain on views at offsets 1-3, in two calls in a row and in two"
+          " CUDA-graph replays", flush=True)
     torch.cuda.synchronize()
     ms = cuda_ms(lambda: filter_cuda.filter_compact(timed))
     plain_ms = cuda_ms(lambda: filter_cuda.filter_compact_ref(timed))
     idx_ms = cuda_ms(lambda: filter_cuda.filter_with_indices(timed))
     idx_plain_ms = cuda_ms(lambda: filter_cuda.filter_with_indices_ref(timed))
+    replay_ms = graph_ms(lambda: [filter_cuda.filter_compact(timed) for _ in range(GRAPH_CALLS)])
+    replay_idx_ms = graph_ms(
+        lambda: [filter_cuda.filter_with_indices(timed) for _ in range(GRAPH_CALLS)])
     t32 = timed.view(torch.int32)
     lib = library_ms("torch.masked_select",
                      lambda: torch.masked_select(t32, filter_cuda.below_threshold(timed)))
     nbytes = 2 * 4 * FILTER_N  # values read, padded values written
     print(
-        f"[filter] n={FILTER_N}: filter_compact kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+        f"[filter] n={FILTER_N}: filter_compact kernel {ms:.4f} ms eager,"
+        f" {replay_ms / GRAPH_CALLS:.4f} graph, plain {plain_ms:.4f} ms,"
         f" predicate + torch.masked_select {lib} ms, bound {bound_ms(nbytes):.4f} ms;"
-        f" filter_with_indices kernel {idx_ms:.4f} ms, plain {idx_plain_ms:.4f} ms"
-        f" (median of {REPS}, CUDA events) [{card}]",
+        f" filter_with_indices kernel {idx_ms:.4f} ms eager,"
+        f" {replay_idx_ms / GRAPH_CALLS:.4f} graph, plain {idx_plain_ms:.4f} ms, bound"
+        f" {bound_ms(12 * FILTER_N):.4f} ms (median of {REPS}, CUDA events; graph:"
+        f" {GRAPH_CALLS} calls a replay) [{card}]",
         flush=True,
     )
-    return kernel_row(err, ms, plain_ms, nbytes, lib)
+    return {**kernel_row(err, ms, plain_ms, nbytes, lib), "graph_ms": replay_ms / GRAPH_CALLS,
+            "indices_ms": idx_ms, "indices_graph_ms": replay_idx_ms / GRAPH_CALLS,
+            "indices_bound_ms": bound_ms(12 * FILTER_N)}
 
 
 ALTERNATES = (("v2", "filter2.cu", "dpu_olap_tpu/ops/filter_pallas2.py:220"),
@@ -1036,7 +1084,8 @@ def phase_fill_kernels(rng, card: str) -> dict:
               flush=True)
 
     counts, err = {"last": 0}, [0, 0]
-    for n in (FILL_N, 3 * (1 << 20) + 17, 1, 4097):
+    # lengths around the kernel's tile of 4096, and not a multiple of 4
+    for n in (FILL_N, 3 * (1 << 20) + 17, 1, 4095, 4096, 4097):
         for density in (0.0, 0.002, 0.5, 1.0):
             pays = [rng.integers(0, 2**32, n, dtype=np.uint32)]
             check(f"density {density}", rng.random(n) < density, pays)
@@ -1047,26 +1096,79 @@ def phase_fill_kernels(rng, card: str) -> dict:
         alive[pos] = True
         pays = [rng.integers(0x80000000, 2**32, FILL_N, dtype=np.uint32) for _ in range(2)]
         check(f"single live at {pos}", alive, pays)
+    # dead runs of many tiles that end in one live lane: at the end, and
+    # between a live head and a dead tail
+    for name, head in (("dead run, one live lane last", 0), ("live head, dead run, one live", 100)):
+        alive = np.zeros(FILL_N, bool)
+        alive[:head] = rng.random(head) < 0.5
+        alive[FILL_N - 1 if head == 0 else FILL_N // 2 + 3] = True
+        check(name, alive, [rng.integers(0, 2**32, FILL_N, dtype=np.uint32)])
+
     alive = rng.random(FILL_N) < 0.18  # the TPC-H merge's share of pk rows
     key = np.where(alive, rng.integers(0, 2**31, FILL_N, dtype=np.uint32), np.uint32(0xFFFFFFFF))
-    planes = (on_card(key), on_card(rng.integers(0, 2**32, FILL_N, dtype=np.uint32)))
+    planes = (on_card(key), on_card(rng.integers(0, 2**32, FILL_N, dtype=np.uint32)),
+              on_card(rng.integers(0, 2**32, FILL_N, dtype=np.uint32)))
     ta = on_card(alive)
+
+    def both(pl, al):
+        has, last = scan_cuda.propagate_last(al, pl[1:])
+        return (*scan_cuda.propagate_fill(pl), has, *last)
+
+    def both_ref(pl, al):
+        has, last = scan_cuda.propagate_last_ref(al, pl[1:])
+        return (*scan_cuda.propagate_fill_ref(pl), has, *last)
+
+    for off in (1, 2, 3):  # planes and alive bytes that are not 16-byte aligned
+        pl, al = tuple(p[off:] for p in planes), ta[off:]
+        require(card_equal(both(pl, al), both_ref(pl, al)),
+                f"fill kernels != plain on views at offset {off}")
+    first = both(planes, ta)
+    require(card_equal(first, both(planes, ta)) and card_equal(first, both_ref(planes, ta)),
+            "fill kernels: two calls in a row differ, or differ from plain")
+    gp, ga = tuple(p.clone() for p in planes), ta.clone()  # the graph's inputs
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both(gp, ga)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = both(gp, ga)
+    for r, density in enumerate((0.3, 0.001)):  # each replay clears and reuses the work memory
+        live = torch.rand(FILL_N, device="cuda") < density
+        gp[0].copy_(torch.where(live, gp[0].to(torch.int64) & 0x7FFFFFFF, 0xFFFFFFFF)
+                    .to(torch.uint32))
+        ga.copy_(live)
+        graph.replay()
+        require(card_equal(captured, both_ref(gp, ga)), f"fill kernels != plain in replay {r}")
+    del graph, captured, first, gp, ga
+    print("[fill] fill and last kernels == plain on views at offsets 1-3, in two calls in a row"
+          " and in two CUDA-graph replays", flush=True)
+
+    planes = planes[:2]
     torch.cuda.synchronize()
     fill_ms = cuda_ms(lambda: scan_cuda.propagate_fill(planes))
     fill_plain = cuda_ms(lambda: scan_cuda.propagate_fill_ref(planes))
     last_ms = cuda_ms(lambda: scan_cuda.propagate_last(ta, planes[1:]))
     last_plain = cuda_ms(lambda: scan_cuda.propagate_last_ref(ta, planes[1:]))
+    fill_graph = graph_ms(
+        lambda: [scan_cuda.propagate_fill(planes) for _ in range(GRAPH_CALLS)]) / GRAPH_CALLS
+    last_graph = graph_ms(
+        lambda: [scan_cuda.propagate_last(ta, planes[1:]) for _ in range(GRAPH_CALLS)]) / GRAPH_CALLS
     print(
-        f"[fill] n={FILL_N} key + 1 payload: propagate_fill kernel {fill_ms:.4f} ms, plain"
-        f" {fill_plain:.4f} ms; propagate_last kernel {last_ms:.4f} ms, plain {last_plain:.4f} ms"
-        f" (median of {REPS}, CUDA events) [{card}]",
+        f"[fill] n={FILL_N} key + 1 payload: propagate_fill kernel {fill_ms:.4f} ms eager,"
+        f" {fill_graph:.4f} graph, plain {fill_plain:.4f} ms; propagate_last kernel"
+        f" {last_ms:.4f} ms eager, {last_graph:.4f} graph, plain {last_plain:.4f} ms"
+        f" (median of {REPS}, CUDA events; graph: {GRAPH_CALLS} calls a replay) [{card}]",
         flush=True,
     )
     # no PyTorch call computes a segmented forward fill: no library time
     return {
-        "propagate_fill": kernel_row(err[0], fill_ms, fill_plain, 2 * 2 * 4 * FILL_N, None),
+        "propagate_fill": {**kernel_row(err[0], fill_ms, fill_plain, 2 * 2 * 4 * FILL_N, None),
+                           "graph_ms": fill_graph},
         # alive bytes and the plane read, has and the plane written
-        "propagate_last": kernel_row(err[1], last_ms, last_plain, 2 * 5 * FILL_N, None),
+        "propagate_last": {**kernel_row(err[1], last_ms, last_plain, 2 * 5 * FILL_N, None),
+                           "graph_ms": last_graph},
         "last_launches": counts["last"],
     }
 
@@ -1294,9 +1396,12 @@ def phase_round_kernels(card: str) -> None:
     sk = torch.where(k2s >= 0xFFFFFFFE, EMPTY, k2s >> 1)
     fill = (_u32(torch.where((k2s & 1) == 0, sk, EMPTY)), got[1])
     del k2s, sk, ref
-    require(card_equal(scan_cuda.propagate_fill(fill), scan_cuda.propagate_fill_ref(fill)),
+    filled = scan_cuda.propagate_fill(fill)
+    require(card_equal(filled, scan_cuda.propagate_fill_ref(fill)),
             f"fill kernel != plain at one SF=64 round (n={n}, key + 1 payload)")
-    del got
+    require(card_equal(filled, scan_cuda.propagate_fill(fill)),
+            f"fill kernel: two calls in a row differ at one SF=64 round (n={n})")
+    del got, filled
     torch.cuda.synchronize()
     sort_ms = cuda_ms(lambda: sort_cuda.sort_bitonic(planes))
     sort_plain = cuda_ms(lambda: sort_cuda.sort_bitonic_ref(planes))
@@ -1305,7 +1410,7 @@ def phase_round_kernels(card: str) -> None:
     work = sort_cuda.radix_plan(n, 1).work_words * 8
     print(
         f"[round] one SF=64 round (n={n}, key + 1 payload): sort kernel == plain on every plane,"
-        f" fill kernel == plain; sort kernel {sort_ms:.4f} ms, plain {sort_plain:.4f} ms; fill"
+        f" fill kernel == plain, and equal in two calls in a row; sort kernel {sort_ms:.4f} ms, plain {sort_plain:.4f} ms; fill"
         f" kernel {fill_ms:.4f} ms, plain {fill_plain:.4f} ms; bound of each"
         f" {bound_ms(2 * 2 * 4 * n):.4f} ms; the sort's work memory {work} B"
         f" (median of {REPS}, CUDA events) [{card}]",

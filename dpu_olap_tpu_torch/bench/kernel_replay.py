@@ -1,8 +1,8 @@
 """Device time of the port's redesigned kernels as CUDA-graph replays,
-beside the PyTorch call that does the same work, and the partition's
-per-launch breakdown.
+beside the PyTorch call that does the same work, and the per-launch
+breakdown of the partition, the forward fill and the filter.
 
-    python -m dpu_olap_tpu_torch.bench.kernel_replay [--label NAME] [--out FILE]
+    python -m dpu_olap_tpu_torch.bench.kernel_replay [--label NAME] [--out FILE] [--only GROUP ...]
 
 Inputs are drawn on the card from seed 42:
   * sort: ``sort_cuda.sort_bitonic`` of a random u32 key with one payload
@@ -21,7 +21,21 @@ Inputs are drawn on the card from seed 42:
     side of the SF=64 shuffle join), beside a stable ``torch.sort`` of the
     int32 bucket. Each shape also gets a per-launch breakdown: the device
     events of BREAKDOWN_CALLS eager calls under torch.profiler, summed by
-    name and divided by the calls.
+    name and divided by the calls;
+  * fill: ``scan_cuda.propagate_fill`` of a key + 1 payload at 8Mi lanes
+    with a live density of 0.18 (chip_smoke.py's timed fill, the TPC-H
+    merge's share of pk rows) and at one SF=64 shuffle round's shape
+    (256Mi lanes: the round's co-sorted packed keys, built as
+    chip_smoke.py's ``phase_round_kernels`` builds them), and
+    ``propagate_last`` of one plane at 8Mi on the same mask. No PyTorch
+    call computes a segmented forward fill: no library reading. Both fill
+    shapes get a per-launch breakdown;
+  * filter: ``filter_cuda.filter_compact`` and ``filter_with_indices`` of
+    64Mi uniform uint32 values (one filter round at SF=8, chip_smoke.py's
+    ``_filter_inputs``; a quarter kept) beside the predicate +
+    ``torch.masked_select`` (eager: its output length is read back to the
+    host, so it cannot be captured), with the per-launch breakdown of
+    ``filter_compact``.
 Each call is captured several times in one graph (CALLS, or BIG_CALLS from
 BIG_ROWS rows on), each with outputs of its own, so that no call finds the
 last one's outputs in L2; a reading is the median of REPS replays over the
@@ -30,12 +44,16 @@ b, a, ...), each the median of its rounds. Before timing, every kernel is
 checked against its plain version (or, for the sort, torch.sort).
 
 It calls the wrappers only through ``sort_bitonic(planes)``,
-``gather_sorted(data, sidx)``, ``merge_probe(left, right, payloads)`` and
-``partition_cells(keys, payloads, P, cell, with_sel)``, so the same file
-can time another checkout of the package: run it by its path with that
-checkout first on PYTHONPATH, and alternate the two checkouts on one card.
-It prints one line a reading and, last, a JSON object of them; ``--out``
-writes that object to a file too. It needs a CUDA device.
+``gather_sorted(data, sidx)``, ``merge_probe(left, right, payloads)``,
+``partition_cells(keys, payloads, P, cell, with_sel)``,
+``propagate_fill(planes)``, ``propagate_last(alive, planes)``,
+``filter_compact(values)`` and ``filter_with_indices(values)``, so the
+same file can time another checkout of the package: run it by its path
+with that checkout first on PYTHONPATH, and alternate the two checkouts on
+one card. ``--only`` takes a subset of the groups (sort, gather,
+merge_probe, partition, fill, filter). It prints one line a reading and,
+last, a JSON object of them; ``--out`` writes that object to a file too.
+It needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -48,14 +66,27 @@ import sys
 import numpy as np
 import torch
 
-from dpu_olap_tpu_torch.ops import merge_cuda, partition_cuda, sort_cuda, take_cuda
+from dpu_olap_tpu_torch.ops import (
+    filter_cuda,
+    merge_cuda,
+    partition_cuda,
+    scan_cuda,
+    sort_cuda,
+    take_cuda,
+)
 from dpu_olap_tpu_torch.ops.hashing import bucket_shift, wang_hash
 
 SEED = 42
 SIZES = (1 << 21, 1 << 24)
 PROBE_SHAPES = ((1 << 21, 1 << 21), (1 << 20, 1 << 20), (1, 1 << 21))  # (probe, build)
 PART_SHAPES = ((1 << 24, 8, True), (1 << 27, 2, False))  # (rows, P, selection)
+FILL_N = 1 << 23  # chip_smoke.py FILL_N
+FILL_DENSITY = 0.18
+ROUND_CELL = 1 << 27  # one side's cell in an SF=64 shuffle round (64 x 2Mi rows)
+FILTER_N = 1 << 26  # chip_smoke.py FILTER_N
+EMPTY = 0xFFFFFFFF
 CALLS = 10
+GROUPS = ("sort", "gather", "merge_probe", "partition", "fill", "filter")
 BIG_ROWS = 1 << 27
 BIG_CALLS = 2
 REPS = 7
@@ -89,6 +120,23 @@ def replay_ms(fn, calls: int = CALLS) -> float:
     del outs, g
     torch.cuda.empty_cache()
     return float(np.median(times)) / calls
+
+
+def eager_ms(fn) -> float:
+    """Median device time of one eager call of fn, by CUDA events around
+    each of REPS calls after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return float(np.median(times))
 
 
 def launch_breakdown(fn, calls: int = BREAKDOWN_CALLS) -> dict:
@@ -198,10 +246,92 @@ def partition_readings(n: int, p: int, with_sel: bool) -> tuple:
     return ms, launch_breakdown(call)
 
 
+def _breakdown_line(label: str, what: str, parts: dict, card: str) -> None:
+    print(f"[{label}] {what} per launch, eager, ms: "
+          + "; ".join(f"{k[:70]} {v:.4f}" for k, v in parts.items()) + f" [{card}]", flush=True)
+
+
+def fill_readings() -> tuple:
+    """propagate_fill (key + 1 payload) and propagate_last (1 plane) at
+    FILL_N lanes, live with probability FILL_DENSITY."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + FILL_N)
+    alive = torch.rand(FILL_N, generator=gen, device="cuda") < FILL_DENSITY
+    key = torch.where(alive, _u32(FILL_N, gen, 2**31).to(torch.int64), EMPTY).to(torch.uint32)
+    planes = (key, _u32(FILL_N, gen))
+    if not _same(scan_cuda.propagate_fill(planes), scan_cuda.propagate_fill_ref(planes)):
+        raise SystemExit(f"propagate_fill at n={FILL_N}: kernel != plain")
+    got_h, got = scan_cuda.propagate_last(alive, planes[1:])
+    ref_h, ref = scan_cuda.propagate_last_ref(alive, planes[1:])
+    if not (torch.equal(got_h, ref_h) and _same(got, ref)):
+        raise SystemExit(f"propagate_last at n={FILL_N}: kernel != plain")
+    ms = _in_turns({"propagate_fill": lambda: scan_cuda.propagate_fill(planes),
+                    "propagate_last": lambda: scan_cuda.propagate_last(alive, planes[1:])})
+    return ms, launch_breakdown(lambda: scan_cuda.propagate_fill(planes))
+
+
+def round_fill_readings() -> tuple:
+    """propagate_fill at one SF=64 round: the keys31 co-sort of the round's
+    two cells (packed key k2 = key << 1 | side, one payload, half of each
+    side's lanes cell padding), sorted by sort_bitonic, then the fill's
+    planes as ops/merge.py's _fill_match builds them."""
+    n, rows = 2 * ROUND_CELL, ROUND_CELL // 2
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randint(hi, size):
+        return torch.randint(0, hi, (size,), generator=gen, device="cuda")
+
+    pk = torch.arange(rows, device="cuda") * 3
+    fk = pk[randint(rows, rows)]
+    pads = torch.full((ROUND_CELL - rows,), EMPTY, dtype=torch.int64, device="cuda")
+    zeros = torch.zeros_like(pads)
+    k2 = torch.cat([pk << 1, pads - 1, (fk << 1) | 1, pads])
+    pay = torch.cat([randint(2**32, rows), zeros, randint(2**32, rows), zeros])
+    perm = torch.randperm(n, generator=gen, device="cuda")
+    planes = tuple(t[perm].to(torch.uint32) for t in (k2, pay))
+    del pk, fk, pads, zeros, k2, pay, perm
+    k2s, pays = sort_cuda.sort_bitonic(planes)
+    del planes
+    k2s = k2s.to(torch.int64)
+    sk = torch.where(k2s >= EMPTY - 1, EMPTY, k2s >> 1)
+    fill = (torch.where((k2s & 1) == 0, sk, EMPTY).to(torch.uint32), pays)
+    del k2s, sk
+    if not _same(scan_cuda.propagate_fill(fill), scan_cuda.propagate_fill_ref(fill)):
+        raise SystemExit(f"propagate_fill at one SF=64 round (n={n}): kernel != plain")
+    torch.cuda.empty_cache()
+
+    def call():
+        return scan_cuda.propagate_fill(fill)
+
+    return _in_turns({"propagate_fill": call}, BIG_CALLS), launch_breakdown(call)
+
+
+def filter_readings() -> tuple:
+    """filter_compact and filter_with_indices of FILTER_N uniform uint32
+    values, beside the predicate + torch.masked_select."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + FILTER_N)
+    values = _u32(FILTER_N, gen)
+    got, ref = filter_cuda.filter_compact(values), filter_cuda.filter_compact_ref(values)
+    got_i = filter_cuda.filter_with_indices(values)
+    ref_i = filter_cuda.filter_with_indices_ref(values)
+    if not (_same(got, ref) and _same(got_i, ref_i)):
+        raise SystemExit(f"filter at n={FILTER_N}: kernel != plain")
+    del got, ref, got_i, ref_i
+    v32 = values.view(torch.int32)
+    ms = _in_turns({
+        "filter_compact": lambda: filter_cuda.filter_compact(values),
+        "filter_with_indices": lambda: filter_cuda.filter_with_indices(values),
+    })
+    ms["masked_select_eager"] = eager_ms(
+        lambda: torch.masked_select(v32, filter_cuda.below_threshold(values)))
+    return ms, launch_breakdown(lambda: filter_cuda.filter_compact(values))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--label", default="", help="a name for this run, kept in the JSON")
     ap.add_argument("--out", help="also write the JSON object to this file")
+    ap.add_argument("--only", nargs="+", choices=GROUPS, default=list(GROUPS),
+                    help="the groups of readings to take (default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_replay needs a CUDA device", file=sys.stderr)
@@ -217,24 +347,32 @@ def main(argv=None) -> int:
     def record(size: str, ms: dict) -> None:
         for name, v in ms.items():
             out["ms"][f"{name}_{size}"] = v
-            print(f"[{args.label}] {name} {size}: {v:.4f} ms a call (graph replay) [{card}]",
-                  flush=True)
+            how = "eager" if name.endswith("_eager") else "graph replay"
+            print(f"[{args.label}] {name} {size}: {v:.4f} ms a call ({how}) [{card}]", flush=True)
 
-    for n in SIZES:
+    only = set(args.only)
+    for n in SIZES if "sort" in only else ():
         record(f"{n >> 20}Mi", sort_readings(n))
-    for n in SIZES:
+    for n in SIZES if "gather" in only else ():
         record(f"{n >> 20}Mi", gather_readings(n))
-    for nl, nr in PROBE_SHAPES:
+    for nl, nr in PROBE_SHAPES if "merge_probe" in only else ():
         size = f"{nl >> 20}Mi" if nl >= 1 << 20 else str(nl)
         record(f"{size}x{nr >> 20}Mi", merge_probe_readings(nl, nr))
-    for n, p, with_sel in PART_SHAPES:
+    for n, p, with_sel in PART_SHAPES if "partition" in only else ():
         size = f"{n >> 20}Mi_P{p}{'_sel' if with_sel else ''}"
         ms, parts = partition_readings(n, p, with_sel)
         record(size, ms)
         out["breakdown"][size] = parts
-        print(f"[{args.label}] partition {size} per launch, eager, ms: "
-              + "; ".join(f"{k[:70]} {v:.4f}" for k, v in parts.items()) + f" [{card}]",
-              flush=True)
+        _breakdown_line(args.label, f"partition {size}", parts, card)
+    for size, what, readings in ((f"{FILL_N >> 20}Mi", "fill", fill_readings),
+                                 (f"{2 * ROUND_CELL >> 20}Mi", "fill", round_fill_readings),
+                                 (f"{FILTER_N >> 20}Mi", "filter", filter_readings)):
+        if what not in only:
+            continue
+        ms, parts = readings()
+        record(size, ms)
+        out["breakdown"][f"{what}_{size}"] = parts
+        _breakdown_line(args.label, f"{what} {size}", parts, card)
     line = json.dumps(out)
     if args.out:
         with open(args.out, "w") as f:

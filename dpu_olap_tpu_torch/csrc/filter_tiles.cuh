@@ -1,8 +1,10 @@
 // The two passes that give the filter kernels their tile offsets: a tile
-// count and a one-block exclusive scan of the counts. csrc/filter.cu (v1),
-// filter3.cu and filter4.cu take their offsets from them; they stand in for
-// the TPU kernels' sequential SMEM offset carry (blocks here run in no
-// order). Included by each of those sources: the kernels are per file.
+// count and a one-block exclusive scan of the counts. filter3.cu and
+// filter4.cu take their offsets from them, and csrc/filter.cu's stage
+// ablation times them; they stand in for the TPU kernels' sequential SMEM
+// offset carry (blocks here run in no order). v1 itself (csrc/filter.cu)
+// carries its offsets by a look-back instead and uses only TILE and
+// tiles_of. Included by each of those sources: the kernels are per file.
 
 #pragma once
 

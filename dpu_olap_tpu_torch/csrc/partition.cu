@@ -272,25 +272,6 @@ sweep_kernel(const uint32_t* __restrict__ keys, InPlanes pay, long long n, long 
   }
 }
 
-// plane[row + j] = v for j in [from, cell): a scalar head up to 16-byte
-// alignment, then 16-byte stores, then a scalar tail, grid-strided over the
-// blocks of x.
-__device__ __forceinline__ void fill_lanes(uint32_t* plane, long long from, long long cell,
-                                           uint32_t v) {
-  const long long stride = (long long)gridDim.x * THREADS;
-  const long long t0 = (long long)blockIdx.x * THREADS + threadIdx.x;
-  const uintptr_t word = reinterpret_cast<uintptr_t>(plane + from) >> 2;  // 4-byte word address
-  const long long head = min(cell - from, (long long)((4 - word) & 3));
-  if (t0 < head) plane[from + t0] = v;
-  const long long body = from + head;
-  const long long vecs = (cell - body) / 4;
-  uint4* vp = reinterpret_cast<uint4*>(plane + body);
-  const uint4 vv = make_uint4(v, v, v, v);
-  for (long long i = t0; i < vecs; i += stride) vp[i] = vv;
-  const long long tail = body + vecs * 4;
-  if (t0 < cell - tail) plane[tail + t0] = v;
-}
-
 // Lanes [counts[p], cell) of cell p (p = blockIdx.y) take the pad values.
 template <int NP>
 __global__ void __launch_bounds__(THREADS)
@@ -299,10 +280,10 @@ pad_kernel(const uint32_t* __restrict__ counts, long long cell, uint32_t* __rest
   const long long row = (long long)blockIdx.y * cell;
   const long long from = min((long long)counts[blockIdx.y], cell);
   if (from >= cell) return;
-  fill_lanes(cells_k + row, from, cell, EMPTY);
+  fill_lanes<THREADS>(cells_k + row, from, cell, EMPTY);
 #pragma unroll
-  for (int q = 0; q < NP; ++q) fill_lanes(cells_pay.p[q] + row, from, cell, 0u);
-  if (cells_sel) fill_lanes(cells_sel + row, from, cell, EMPTY);
+  for (int q = 0; q < NP; ++q) fill_lanes<THREADS>(cells_pay.p[q] + row, from, cell, 0u);
+  if (cells_sel) fill_lanes<THREADS>(cells_sel + row, from, cell, EMPTY);
 }
 
 template <int P, int NP>

@@ -46,18 +46,18 @@ _SIGNATURES = {
     "dpu_dyn_row_u32": [_P, _P, _P, _LL, _LL, _P],
     # (data, n, sidx, out, k, flag, stream)
     "dpu_gather_sorted_u32": [_P, _LL, _P, _P, _LL, _P, _P],
-    # (x, n, threshold, fill, out, sel or NULL, tile_offs, count, stream)
+    # (x, n, threshold, fill, out, sel or NULL, work, count, stream)
     "dpu_filter_u32": [_P, _LL, ctypes.c_uint, ctypes.c_uint, _P, _P, _P, _P, _P],
     # (x, n, threshold, fill, out, sel or NULL, scratch, count, stream): the
     # filter alternates v2 (scratch: ticket + tile words), v3 and v4 (tile offsets)
     "dpu_filter2_u32": [_P, _LL, ctypes.c_uint, ctypes.c_uint, _P, _P, _P, _P, _P],
     "dpu_filter3_u32": [_P, _LL, ctypes.c_uint, ctypes.c_uint, _P, _P, _P, _P, _P],
     "dpu_filter4_u32": [_P, _LL, ctypes.c_uint, ctypes.c_uint, _P, _P, _P, _P, _P],
-    # (x, n, stage, out or NULL, tile_offs, count, stream)
-    "dpu_filter_stage_u32": [_P, _LL, ctypes.c_int, _P, _P, _P, _P],
+    # (x, n, stage, out or NULL, tile_offs, work or NULL, count, stream)
+    "dpu_filter_stage_u32": [_P, _LL, ctypes.c_int, _P, _P, _P, _P, _P],
     # (x, n, out_u64, stream)
     "dpu_sum_u32": [_P, _LL, _P, _P],
-    # (in_planes, out_planes, n_planes, n, sentinel, alive or NULL, has or NULL, scratch, stream)
+    # (in_planes, out_planes, n_planes, n, sentinel, alive or NULL, has or NULL, work, stream)
     "dpu_fill_u32": [
         ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.c_int, _LL, ctypes.c_uint, _P, _P, _P, _P,
     ],

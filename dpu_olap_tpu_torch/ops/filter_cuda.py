@@ -12,7 +12,11 @@ Contract (ops/filter.py:71-85, 144-155 of the JAX package), for any length:
     number of each kept value, the index tail equal to ``n``;
   * ``count`` is a 0-d uint32 tensor on the input's device.
 The TPU wrapper pads the input to its block multiple; the kernel here takes
-any length below 2^32, so nothing is padded.
+any length below 2^32, so nothing is padded. A call is one memset, the
+one-sweep compaction (a decoupled look-back, ``csrc/filter.cu``) and the
+tail pass; its work memory, allocated by the wrapper for each call, is
+``filter_plan``'s: one 64-bit status word a tile of TILE values and the
+ticket.
 
 ``compact_scatter`` is the plain algorithm behind both plain versions (an
 inclusive scan of the mask gives each kept value its slot, then one scatter)
@@ -23,6 +27,8 @@ runtime argument.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -136,10 +142,26 @@ def run_entry(entry: str, values: torch.Tensor, threshold: int, fill: int,
     return (out, count) if sel is None else (out, sel, count)
 
 
+class FilterPlan(NamedTuple):
+    """How ``csrc/filter.cu`` lays out a call of n values: the tiles (one
+    block each), then one work buffer of int64 words: a status word a tile,
+    then the ticket."""
+
+    tiles: int
+    work_words: int
+
+
+def filter_plan(n: int) -> FilterPlan:
+    """The filter kernel's launch plan (csrc/filter.cu dpu_filter_u32)."""
+    tiles = -(-n // TILE)
+    return FilterPlan(tiles, tiles + 1)
+
+
 def _launch(values: torch.Tensor, fill: int, with_indices: bool):
     global LAUNCHES
-    offs = torch.empty(max(1, -(-values.shape[0] // TILE)), dtype=torch.uint32, device=values.device)
-    res = run_entry("dpu_filter_u32", values, THRESHOLD, fill, with_indices, offs, "filter_compact")
+    work = torch.empty(filter_plan(values.shape[0]).work_words, dtype=torch.int64,
+                       device=values.device)
+    res = run_entry("dpu_filter_u32", values, THRESHOLD, fill, with_indices, work, "filter_compact")
     LAUNCHES += 1
     return res
 

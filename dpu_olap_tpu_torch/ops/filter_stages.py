@@ -15,6 +15,9 @@ writes none):
     (count pass + tile scan; the TPU's ``prefix`` stage);
   * ``full``: the whole v1 filter with fill 0: ``out``, ``tiles`` (its tile
     offsets) and ``count``.
+``copy``, ``count`` and ``scan`` cut the two-pass skeleton (a count pass,
+a one-block scan, a second read) that filter v3 and v4 use; ``full`` runs
+v1, which is one sweep, so the stages' differences do not split its time.
 The TPU stages ``lane_levels`` and ``row_levels`` time the levels of its
 butterfly network, which the Hopper v1 kernel does not have: they have no
 counterpart.
@@ -25,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from . import _kernels
-from .filter_cuda import THRESHOLD, TILE, below, compact_scatter, on_cpu
+from .filter_cuda import THRESHOLD, TILE, below, compact_scatter, filter_plan, on_cpu
 
 STAGES = ("copy", "count", "scan", "full")
 LAUNCHES = 0  # kernel launches by filter_stage
@@ -69,10 +72,13 @@ def filter_stage(values: torch.Tensor, stage: str):
     out = torch.empty(n, dtype=torch.uint32, device=dev) if writes_out else None
     tiles = torch.empty(max(1, -(-n // TILE)), dtype=torch.uint32, device=dev)
     count = torch.empty((), dtype=torch.uint32, device=dev)
+    work = (torch.empty(filter_plan(n).work_words, dtype=torch.int64, device=dev)
+            if stage == "full" else None)
     with torch.cuda.device(dev):
         rc = _kernels.library().dpu_filter_stage_u32(
             values.data_ptr(), n, STAGES.index(stage),
-            None if out is None else out.data_ptr(), tiles.data_ptr(), count.data_ptr(),
+            None if out is None else out.data_ptr(), tiles.data_ptr(),
+            None if work is None else work.data_ptr(), count.data_ptr(),
             _kernels.stream_handle(dev),
         )
     _kernels.check(rc, f"filter_stage {stage}")

@@ -14,12 +14,17 @@ tensors and run the plain versions ``propagate_fill_ref`` and
     them are 0 in every plane (scan_pallas.py:230-233).
 
 Any length is taken: the TPU wrappers' block padding (ops/join.py:76-87)
-has no counterpart here.
+has no counterpart here. A call is one memset and one launch (a one-sweep
+decoupled look-back, ``csrc/scan.cu``); its work memory, allocated by the
+wrapper for each call, is ``fill_plan``'s: one 64-bit status word a tile of
+TILE lanes and the ticket, 8 * (ceil(n / 4096) + 1) bytes (512 KiB at one
+SF=64 round's 256Mi lanes).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -74,6 +79,21 @@ def propagate_last_ref(alive: torch.Tensor, values) -> tuple:
     return src >= 0, _gather(tuple(values), src, 0)
 
 
+class FillPlan(NamedTuple):
+    """How ``csrc/scan.cu`` lays out a call of n lanes: the tiles (one block
+    each), then one work buffer of int64 words: a status word a tile, then
+    the ticket."""
+
+    tiles: int
+    work_words: int
+
+
+def fill_plan(n: int) -> FillPlan:
+    """The fill kernel's launch plan (csrc/scan.cu dpu_fill_u32)."""
+    tiles = -(-n // TILE)
+    return FillPlan(tiles, tiles + 1)
+
+
 def _launch(planes, sentinel: int, alive: torch.Tensor | None):
     global LAUNCHES
     dev = planes[0].device
@@ -84,7 +104,7 @@ def _launch(planes, sentinel: int, alive: torch.Tensor | None):
     has = None if alive is None else torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return has, tuple(outs)
-    scratch = torch.empty(-(-n // TILE), dtype=torch.int64, device=dev)
+    work = torch.empty(fill_plan(n).work_words, dtype=torch.int64, device=dev)
     ptrs = ctypes.c_void_p * len(planes)
     with torch.cuda.device(dev):
         rc = _kernels.library().dpu_fill_u32(
@@ -93,7 +113,7 @@ def _launch(planes, sentinel: int, alive: torch.Tensor | None):
             len(planes), n, int(sentinel) & 0xFFFFFFFF,
             None if alive is None else alive.data_ptr(),
             None if has is None else has.data_ptr(),
-            scratch.data_ptr(), _kernels.stream_handle(dev),
+            work.data_ptr(), _kernels.stream_handle(dev),
         )
     _kernels.check(rc, "propagate_fill" if alive is None else "propagate_last")
     LAUNCHES += 1

@@ -8,8 +8,12 @@ unsorted and a misaligned probe), the filter alternates
 (csrc/filter.cu), the in-block primitive ops (csrc/block_ops.cu), the
 probe primitives (csrc/probes.cu), the sort's tile stage (csrc/sort.cu),
 the radix sort (csrc/radix_sort.cu) and the sorted gather (csrc/gather.cu),
-and the graph-captured chain timing, a captured sort and gather and a
-captured merge-probe and partition. A CUDA
+the forward fill in both modes (csrc/scan.cu) and filter v1
+(csrc/filter.cu) at their one-sweep edges (lengths around a tile and not a
+multiple of 4, misaligned views, dead stretches over many tiles, one kept
+value in the last tile), and the graph-captured chain timing, a captured
+sort and gather, a captured merge-probe and partition and a captured fill
+and filter. A CUDA
 kernel has no CPU mode, so
 every test here is marked ``cuda`` and skips without a device. This file
 imports no jax (the machine with the card has none) and takes no fixture of
@@ -31,6 +35,7 @@ from dpu_olap_tpu_torch.ops import (
     merge_cuda,
     partition_cuda,
     probes_cuda,
+    scan_cuda,
     sort_cuda,
     take_cuda,
 )
@@ -407,3 +412,133 @@ def test_sort_and_gather_replay_in_a_graph(cuda_device):
     torch.cuda.synchronize()
     ref = sort_cuda.sort_bitonic_ref(planes)
     _same(outs, (*ref, *take_cuda.gather_sorted_ref(table, ref[0])))
+
+
+FILL_TILE = scan_cuda.TILE
+FILL_LENGTHS = [1, 3, FILL_TILE - 1, FILL_TILE, FILL_TILE + 1, 3 * FILL_TILE + 5, (1 << 20) + 3]
+
+
+def _fill_same(cuda_device, live, pays, offset=0):
+    """propagate_fill (key + pays) and propagate_last (pays) kernels against
+    their plain versions on planes that start `offset` elements into their
+    storage (not 16-byte aligned for offset 1-3)."""
+    n = len(live)
+    rng = np.random.default_rng(n)
+    key = np.where(live, rng.integers(0, 2**31, n), EMPTY).astype(np.uint32)
+
+    def view(a):
+        t = torch.from_numpy(np.concatenate([np.zeros(offset, a.dtype), a])).to(cuda_device)
+        return t[offset:]
+
+    planes = tuple(view(a) for a in (key, *pays))
+    alive = view(live)
+    before = scan_cuda.LAUNCHES
+    got = scan_cuda.propagate_fill(planes)
+    got_h, got_l = scan_cuda.propagate_last(alive, planes[1:])
+    assert scan_cuda.LAUNCHES == before + 2
+    _same(got, scan_cuda.propagate_fill_ref(planes))
+    ref_h, ref_l = scan_cuda.propagate_last_ref(alive, planes[1:])
+    _same((got_h, *got_l), (ref_h, *ref_l))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", FILL_LENGTHS)
+@pytest.mark.parametrize("density", [0.0, 0.002, 0.5, 1.0])
+@pytest.mark.parametrize("n_pay, offset", [(1, 0), (1, 1), (2, 2), (8, 3)])
+def test_fill_kernel_matches_plain(cuda_device, n, density, n_pay, offset):
+    rng = np.random.default_rng(n + n_pay)
+    pays = [rng.integers(0, 2**32, n, dtype=np.uint32) for _ in range(n_pay)]
+    _fill_same(cuda_device, rng.random(n) < density, pays, offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [0, FILL_TILE - 2, FILL_TILE - 1, FILL_TILE, 40 * FILL_TILE - 1,
+                                 64 * FILL_TILE + 1])
+def test_fill_kernel_dead_stretch(cuda_device, pos):
+    """One live lane, then a dead run of many tiles: every later lane takes
+    it through the look-back; the lanes before it have none."""
+    n = 64 * FILL_TILE + 9
+    live = np.zeros(n, bool)
+    live[pos] = True
+    pays = [np.random.default_rng(pos).integers(0x80000000, 2**32, n, dtype=np.uint32)]
+    _fill_same(cuda_device, live, pays)
+
+
+FILTER_TILE = filter_cuda.TILE
+
+
+def _filter_values(kind, n, rng):
+    t = filter_cuda.THRESHOLD
+    if kind == "random":
+        v = rng.integers(0, 2**32, n, dtype=np.uint32)
+        v[: min(n, len(EDGE_KEYS))] = EDGE_KEYS[:n]
+        return v
+    if kind == "all_kept":
+        return rng.integers(0, t, n, dtype=np.uint32)
+    v = rng.integers(t, 2**32, n, dtype=np.uint32)
+    if kind == "one_in_last_tile":
+        v[-1] = 5
+    return v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, FILTER_TILE - 1, FILTER_TILE, FILTER_TILE + 1,
+                               3 * FILTER_TILE + 17, (1 << 20) + 3])
+@pytest.mark.parametrize("kind", ["random", "all_kept", "none_kept", "one_in_last_tile"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_filter_kernel_matches_plain(cuda_device, n, kind, offset):
+    v = _filter_values(kind, n, np.random.default_rng(n))
+    x = torch.from_numpy(np.concatenate([np.zeros(offset, np.uint32), v])).to(cuda_device)[offset:]
+    before = filter_cuda.LAUNCHES
+    got = filter_cuda.filter_compact(x, 0xDEADBEEF)
+    got_i = filter_cuda.filter_with_indices(x)
+    assert filter_cuda.LAUNCHES == before + 2
+    _same(got, filter_cuda.filter_compact_ref(x, 0xDEADBEEF))
+    _same(got_i, filter_cuda.filter_with_indices_ref(x))
+    keep = v < filter_cuda.THRESHOLD
+    assert int(got[1]) == keep.sum()
+    assert np.array_equal(got_i[1].cpu().numpy()[: keep.sum()], np.flatnonzero(keep))
+
+
+@pytest.mark.cuda
+def test_fill_and_filter_back_to_back_and_replayed_in_a_graph(cuda_device):
+    """Two calls in a row on one stream, then the same calls captured in a
+    CUDA graph and replayed twice on new inputs: each call clears its own
+    ticket and status words."""
+    rng = np.random.default_rng(19)
+    n = 9 * FILL_TILE + 7
+    key = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(cuda_device)
+    pay = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(cuda_device)
+    alive = torch.from_numpy(rng.random(n) < 0.01).to(cuda_device)
+
+    def step():
+        fill = scan_cuda.propagate_fill((key, pay))
+        has, (last,) = scan_cuda.propagate_last(alive, (pay,))
+        out, sel, cnt = filter_cuda.filter_with_indices(key)
+        out2, cnt2 = filter_cuda.filter_compact(key, 3)
+        return (*fill, has, last, out, sel, cnt, out2, cnt2)
+
+    def ref():
+        fill = scan_cuda.propagate_fill_ref((key, pay))
+        has, (last,) = scan_cuda.propagate_last_ref(alive, (pay,))
+        return (*fill, has, last, *filter_cuda.filter_with_indices_ref(key),
+                *filter_cuda.filter_compact_ref(key, 3))
+
+    first, second = step(), step()
+    _same(first, second)
+    _same(second, ref())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    for _ in range(2):  # each replay clears and reuses the work memory
+        key.copy_(torch.from_numpy(
+            np.where(rng.random(n) < 0.3, rng.integers(0, 2**31, n), EMPTY).astype(np.uint32)))
+        alive.copy_(torch.from_numpy(rng.random(n) < 0.3))
+        graph.replay()
+        torch.cuda.synchronize()
+        _same(outs, ref())

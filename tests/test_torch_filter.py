@@ -16,7 +16,7 @@ from dpu_olap_tpu.ops.filter_pallas import (
     filter_with_indices_pallas,
 )
 from dpu_olap_tpu_torch.ops import filter as tfilter
-from dpu_olap_tpu_torch.ops import filter_cuda
+from dpu_olap_tpu_torch.ops import filter_cuda, filter_stages
 
 BLK = DEF_R * LANES  # one block of the TPU kernel: 64Ki values
 SIZES = [BLK, 2 * BLK + 17]
@@ -172,5 +172,37 @@ def test_cpu_path_launches_no_kernel():
     ids=["dtype", "rank", "meta_compact", "meta_indices", "op_rank", "op_rank_custom"],
 )
 def test_filter_rejects_bad_inputs(call, match):
+    with pytest.raises(ValueError, match=match):
+        call()
+
+
+@pytest.mark.parametrize("n, tiles, work_words", [
+    (0, 0, 1),  # only the count is written
+    (1, 1, 2),
+    (filter_cuda.TILE, 1, 2),
+    (filter_cuda.TILE + 1, 2, 3),
+    (8 << 20, 2048, 2049),
+    (64 << 20, 16384, 16385),  # chip_smoke's timed filter: one round at SF=8
+    (256 << 20, 65536, 65537),
+    ((1 << 32) - 1, 1 << 20, (1 << 20) + 1),  # the most the kernel takes
+])
+def test_filter_plan_hand_worked(n, tiles, work_words):
+    plan = filter_cuda.filter_plan(n)
+    assert plan.tiles == tiles
+    # one look-back status word per tile, then the ticket
+    assert plan.work_words == work_words == tiles + 1
+
+
+@pytest.mark.parametrize(
+    "call, match",
+    [
+        (lambda: filter_cuda.filter_with_indices(torch.zeros(4, dtype=torch.int32)), "uint32"),
+        (lambda: filter_cuda.filter_compact(torch.zeros((), dtype=torch.uint32)), "1-D"),
+        (lambda: filter_stages.filter_stage(torch.zeros(4, dtype=torch.uint32), "sweep"), "stage"),
+        (lambda: filter_stages.filter_stage(torch.zeros(4, dtype=torch.int64), "full"), "uint32"),
+    ],
+    ids=["indices_dtype", "scalar", "unknown_stage", "stage_dtype"],
+)
+def test_filter_argument_checks(call, match):
     with pytest.raises(ValueError, match=match):
         call()

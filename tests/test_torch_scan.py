@@ -158,3 +158,44 @@ def test_propagate_rejects_bad_planes():
     before = scan_cuda.LAUNCHES
     propagate_fill((u,))
     assert scan_cuda.LAUNCHES == before  # the CPU path launches nothing
+
+
+@pytest.mark.parametrize("n, tiles, work_words", [
+    (1, 1, 2),
+    (scan_cuda.TILE, 1, 2),
+    (scan_cuda.TILE + 1, 2, 3),
+    (8 << 20, 2048, 2049),  # chip_smoke's timed fill
+    (256 << 20, 65536, 65537),  # one SF=64 shuffle round's co-sort lanes
+])
+def test_fill_plan_hand_worked(n, tiles, work_words):
+    plan = scan_cuda.fill_plan(n)
+    assert plan.tiles == tiles
+    # one look-back status word per tile, then the ticket
+    assert plan.work_words == work_words == tiles + 1
+
+
+def test_fill_plan_at_one_sf64_round():
+    """256Mi lanes: 512 KiB of look-back words and the ticket's word
+    (scan_cuda's docstring)."""
+    assert scan_cuda.fill_plan(256 << 20).work_words * 8 == (512 << 10) + 8
+    assert scan_cuda.TILE == 4096
+
+
+U8 = torch.zeros(8, dtype=torch.uint32)
+
+
+@pytest.mark.parametrize("call, match", [
+    (lambda: propagate_fill(()), "at least one plane"),
+    (lambda: propagate_fill((U8.reshape(2, 4),)), "1-D"),
+    (lambda: propagate_fill((U8.view(torch.int32),)), "uint32"),
+    (lambda: propagate_fill((torch.zeros(8, dtype=torch.uint32, device="meta"),)), "cuda or cpu"),
+    (lambda: propagate_fill((U8, torch.zeros(8, dtype=torch.uint32, device="meta"))), "one device"),
+    (lambda: propagate_last(torch.ones(8, dtype=torch.bool), (U8.to(torch.int64),)), "int32"),
+    (lambda: propagate_last(torch.ones(8, dtype=torch.bool), ()), "at least one plane"),
+    (lambda: propagate_last(torch.ones((2, 4), dtype=torch.bool), (U8,)), "alive"),
+    (lambda: propagate_last(torch.ones(8, dtype=torch.bool, device="meta"), (U8,)), "alive"),
+], ids=["no_planes", "rank", "fill_int32", "meta", "two_devices", "last_int64", "last_no_planes",
+        "alive_rank", "alive_device"])
+def test_propagate_argument_checks(call, match):
+    with pytest.raises(ValueError, match=match):
+        call()
