@@ -983,15 +983,19 @@ def phase_sort_tiles(rng, card: str) -> dict:
     """The sort's tile stage against its plain version on the card: keys
     equal as they are, payloads after a canonical order of each tile (the
     tile sort is unstable); at 2Mi with 1 payload (measure_filter's sort
-    section), 3*4096+5 with 3 and 100 with 0; timed at 2Mi beside its bound,
-    its plain version and torch.sort of the key's 4096-element rows."""
+    section), 3*4096+5 with 3, 4097 with 8, 100 with 0 and 2 with 1, and a
+    tile of 0xFFFFFFFF keys beside the pad; timed at 2Mi eager and replayed
+    beside its bound, its plain version and torch.sort of the key's
+    4096-element rows."""
     import torch
 
     from dpu_olap_tpu_torch.ops import sort_cuda
 
     err, timed = 0, None
-    for n, n_pay in ((SF1_ROWS, 1), (3 * 4096 + 5, 3), (100, 0)):
-        key = rng.integers(0, 2**31, n, dtype=np.uint32)
+    for n, n_pay, top in ((SF1_ROWS, 1, 2**31), (3 * 4096 + 5, 3, 2**31), (4097, 8, 2**31),
+                          (100, 0, 2**31), (2, 1, 2**31), (4096 + 9, 2, None)):
+        key = (rng.integers(0, top, n, dtype=np.uint32) if top
+               else np.full(n, 0xFFFFFFFF, np.uint32))
         key[-min(n, 64):] = key[0]  # ties
         planes = tuple(on_card(p) for p in (key, *(rng.integers(0, 2**32, n, dtype=np.uint32)
                                                    for _ in range(n_pay))))
@@ -1001,15 +1005,22 @@ def phase_sort_tiles(rng, card: str) -> dict:
         require(card_equal(cg, cr), f"sort_tiles rows != plain (n={n}, payloads {n_pay})")
         err = max(err, card_err(cg, cr))
         timed = timed or planes
-        print(f"[sort_tiles] n={n} payloads={n_pay}: kernel == plain", flush=True)
+        print(f"[sort_tiles] n={n} payloads={n_pay}{'' if top else ' keys 0xFFFFFFFF'}:"
+              " kernel == plain", flush=True)
     torch.cuda.synchronize()
     k32 = timed[0].view(torch.int32).view(-1, sort_cuda.TILE)
     row = kernel_row(err, cuda_ms(lambda: sort_cuda.sort_tiles(timed)),
                      cuda_ms(lambda: sort_cuda.sort_tiles_ref(timed)), 16 * SF1_ROWS,
                      library_ms("torch.sort of 4096-element rows", lambda: torch.sort(k32, dim=1)))
-    print(f"[sort_tiles] n={SF1_ROWS} 1 payload: kernel {row['ms']:.4f} ms, plain"
-          f" {row['plain_ms']:.4f} ms, torch.sort of the key's rows {row['library_ms']} ms, bound"
-          f" {row['bound_ms']:.4f} ms (median of {REPS}, CUDA events) [{card}]", flush=True)
+    row["graph_ms"] = graph_ms(
+        lambda: [sort_cuda.sort_tiles(timed) for _ in range(GRAPH_CALLS)]) / GRAPH_CALLS
+    row["library_graph_ms"] = graph_ms(
+        lambda: [torch.sort(k32, dim=1) for _ in range(GRAPH_CALLS)]) / GRAPH_CALLS
+    print(f"[sort_tiles] n={SF1_ROWS} 1 payload: kernel {row['ms']:.4f} ms eager,"
+          f" {row['graph_ms']:.4f} graph, plain {row['plain_ms']:.4f} ms, torch.sort of the key's"
+          f" rows {row['library_ms']} ms eager, {row['library_graph_ms']:.4f} graph, bound"
+          f" {row['bound_ms']:.4f} ms (median of {REPS}, CUDA events; graph: {GRAPH_CALLS} calls"
+          f" a replay) [{card}]", flush=True)
     return row
 
 
@@ -1173,45 +1184,79 @@ def phase_fill_kernels(rng, card: str) -> dict:
     }
 
 
-def _bitonic_planes(rng, n: int, block: int, hi: int, n_pay: int):
-    """Planes whose every block is an ascending run then a descending one."""
-    key = rng.integers(0, hi, n, dtype=np.uint32).reshape(-1, 2, block // 2)
+MERGE_TOP_BIT = np.array([0, 1, 3, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF], np.uint32)
+
+
+def _bitonic_planes(rng, n: int, block: int, hi: int, n_pay: int, kind: str = "below"):
+    """Planes whose every block is an ascending run then a descending one;
+    keys below hi, all equal, or drawn from the top-bit edges."""
+    if kind == "equal":
+        key = np.full(n, 7, np.uint32)
+    elif kind == "top_bit":
+        key = MERGE_TOP_BIT[rng.integers(0, len(MERGE_TOP_BIT), n)]
+    else:
+        key = rng.integers(0, hi, n, dtype=np.uint32)
+    key = key.reshape(-1, 2, block // 2)
     key.sort(axis=2)
     key[:, 1] = key[:, 1, ::-1]
     return [key.reshape(n), *(rng.integers(0, 2**32, n, dtype=np.uint32) for _ in range(n_pay))]
 
 
+def _join_merge_planes(rng):
+    """The sorted-build join's bitonic_merge input at TPC-H SF=1, laid out as
+    ops/merge.py's join_shard_sorted_build lays it out: [ascending o_orderkey
+    << 1 | 0xFFFFFFFF pad | descending l_orderkey << 1 | 1] over FILL_N, one
+    merged payload plane (x, 0 in the pad, the sorted lineitems' y)."""
+    i = np.arange(TPCH_ORDERS, dtype=np.uint32)
+    okey = (i // 8) * 32 + i % 8 + 1
+    k2_l = np.sort((np.repeat(okey, rng.integers(1, 8, TPCH_ORDERS)) << 1) | 1)[::-1]
+    pad = FILL_N - TPCH_ORDERS - k2_l.size
+    key = np.concatenate([okey << 1, np.full(pad, 0xFFFFFFFF, np.uint32), k2_l])
+    pay = np.concatenate([rng.integers(0, 2**32, TPCH_ORDERS, dtype=np.uint32),
+                          np.zeros(pad, np.uint32),
+                          rng.integers(0, 2**32, k2_l.size, dtype=np.uint32)])
+    return [on_card(key), on_card(pay)]
+
+
 def phase_merge_kernels(rng, card: str) -> dict:
-    """bitonic_merge_blocks kernel == plain, bit for bit (ties included), on
-    the card; bitonic_merge at the sorted-build join's 8Mi; timed."""
+    """bitonic_merge_blocks kernel == plain, bit for bit (ties in every
+    case), on the card, at blocks that reach every pass structure of
+    merge_plan (the tile pass alone on 128- and 4096-element tiles and on
+    whole SET tiles, one strided pass of 2 and of 9 stages, two strided
+    passes); bitonic_merge at the sorted-build join's 8Mi call, timed eager
+    and replayed beside torch.sort of its key (a yardstick: a sort is not the
+    same function)."""
+    import torch
+
     from dpu_olap_tpu_torch.ops import bitonic_cuda, merge, sort_cuda
 
     err = 0
-    for block_rows in (bitonic_cuda.DEF_R, 32, 1):
-        block = block_rows * 128
-        planes = [on_card(p) for p in _bitonic_planes(rng, FILL_N, block, 16, 1)]
-        got = [host(t) for t in bitonic_cuda.bitonic_merge_blocks(planes, block_rows)]
-        ref = [host(t) for t in bitonic_cuda.bitonic_merge_blocks_ref(planes, block_rows)]
-        k = ref[0].reshape(-1, block)
-        require(np.all(k[:, 1:] >= k[:, :-1]), f"plain merge blocks of {block}: not sorted")
-        require(all(np.array_equal(g, r) for g, r in zip(got, ref)),
-                f"merge_blocks kernel != plain: block {block}")
-        err = max(err, *(max_err(g, r) for g, r in zip(got, ref)))
-        print(f"[merge] bitonic_merge_blocks n={FILL_N} block={block} keys < 16:"
-              " kernel == plain", flush=True)
-    timed = None
-    for n_pay in (1, 3):
-        host_planes = _bitonic_planes(rng, FILL_N, FILL_N, 2**31, n_pay)
-        planes = [on_card(p) for p in host_planes]
-        got = [host(t) for t in merge.bitonic_merge(planes)]
-        ref = [host(t) for t in bitonic_cuda.bitonic_merge_blocks_ref(planes, FILL_N // 128)]
-        require(np.array_equal(ref[0], np.sort(host_planes[0])), "plain bitonic_merge keys")
-        require(all(np.array_equal(g, r) for g, r in zip(got, ref)),
-                f"bitonic_merge kernel != plain: {n_pay} payloads")
-        err = max(err, *(max_err(g, r) for g, r in zip(got, ref)))
-        print(f"[merge] bitonic_merge n={FILL_N} payloads={n_pay}: kernel == plain", flush=True)
-        if n_pay == 1:
-            timed = planes
+    cases = [(128, FILL_N + 128, 16, 3, "below"), (4096, FILL_N + 4096, 16, 8, "below"),
+             (bitonic_cuda.SET, FILL_N, 16, 0, "below"), (1 << 16, FILL_N, 16, 1, "below"),
+             (FILL_N, FILL_N, 16, 1, "below"), (FILL_N, FILL_N, 0, 2, "equal"),
+             (FILL_N, FILL_N, 0, 1, "top_bit"), (2 * FILL_N, 2 * FILL_N, 16, 0, "below")]
+    for block, n, hi, n_pay, kind in cases:
+        planes = [on_card(p) for p in _bitonic_planes(rng, n, block, hi, n_pay, kind)]
+        got = bitonic_cuda.bitonic_merge_blocks(planes, block // 128)
+        ref = bitonic_cuda.bitonic_merge_blocks_ref(planes, block // 128)
+        k = ref[0].to(torch.int64).view(-1, block)
+        require(bool((k[:, 1:] >= k[:, :-1]).all()), f"plain merge blocks of {block}: not sorted")
+        require(card_equal(got, ref), f"merge_blocks kernel != plain: block {block}, {kind}")
+        err = max(err, card_err(got, ref))
+        passes = len(bitonic_cuda.merge_plan(n, block, n_pay))
+        print(f"[merge] bitonic_merge_blocks n={n} block={block} payloads={n_pay} keys {kind}"
+              f"{f' {hi}' if hi else ''} ({passes} passes): kernel == plain", flush=True)
+        del planes, got, ref, k
+    timed = _join_merge_planes(rng)
+    for planes in (timed, [on_card(p) for p in _bitonic_planes(rng, FILL_N, FILL_N, 2**31, 3)]):
+        got = merge.bitonic_merge(planes)
+        ref = bitonic_cuda.bitonic_merge_blocks_ref(planes, FILL_N // 128)
+        require(torch.equal(ref[0].to(torch.int64), torch.sort(planes[0].to(torch.int64)).values),
+                "plain bitonic_merge keys")
+        require(card_equal(got, ref), f"bitonic_merge kernel != plain: {len(planes) - 1} payloads")
+        err = max(err, card_err(got, ref))
+        print(f"[merge] bitonic_merge n={FILL_N} payloads={len(planes) - 1}: kernel == plain",
+              flush=True)
     # below one 128-element block the ported sort finishes the merge
     host_planes = _bitonic_planes(rng, 64, 64, 16, 2)
     planes = [on_card(p) for p in host_planes]
@@ -1222,19 +1267,26 @@ def phase_merge_kernels(rng, card: str) -> dict:
     require(np.array_equal(got[0], np.sort(host_planes[0])) and np.array_equal(canon(got), canon(ref)),
             "bitonic_merge n=64 (sort kernel) != plain")
     print("[merge] bitonic_merge n=64 payloads=2: sort kernel == plain", flush=True)
+    torch.cuda.synchronize()
+    key32 = timed[0].view(torch.int32)
     ms = cuda_ms(lambda: merge.bitonic_merge(timed))
+    graph = graph_ms(lambda: [merge.bitonic_merge(timed) for _ in range(GRAPH_CALLS)]) / GRAPH_CALLS
     plain_ms = cuda_ms(lambda: bitonic_cuda.bitonic_merge_blocks_ref(timed, FILL_N // 128))
+    sort_ms = cuda_ms(lambda: torch.sort(key32))
+    sort_graph = graph_ms(lambda: [torch.sort(key32) for _ in range(GRAPH_CALLS)]) / GRAPH_CALLS
     blocks = [on_card(p) for p in _bitonic_planes(rng, FILL_N, 1 << 16, 16, 1)]
     blk_ms = cuda_ms(lambda: bitonic_cuda.bitonic_merge_blocks(blocks))
-    blk_plain = cuda_ms(lambda: bitonic_cuda.bitonic_merge_blocks_ref(blocks))
     print(
-        f"[merge] n={FILL_N} 1 payload: bitonic_merge kernel {ms:.4f} ms, plain {plain_ms:.4f} ms;"
-        f" bitonic_merge_blocks (64Ki blocks) kernel {blk_ms:.4f} ms, plain {blk_plain:.4f} ms"
-        f" (median of {REPS}, CUDA events) [{card}]",
+        f"[merge] n={FILL_N} 1 payload, the sorted-build join's call (TPC-H SF=1 keys):"
+        f" bitonic_merge kernel {ms:.4f} ms eager, {graph:.4f} graph, plain {plain_ms:.4f} ms,"
+        f" bound {bound_ms(16 * FILL_N):.4f} ms; torch.sort of its key (yardstick) {sort_ms:.4f}"
+        f" eager, {sort_graph:.4f} graph; bitonic_merge_blocks (64Ki blocks) {blk_ms:.4f} ms eager"
+        f" (median of {REPS}, CUDA events; graph: {GRAPH_CALLS} calls a replay) [{card}]",
         flush=True,
     )
     # no PyTorch call merges a bitonic sequence: no library time
-    return kernel_row(err, ms, plain_ms, 2 * 2 * 4 * FILL_N, None)
+    return {**kernel_row(err, ms, plain_ms, 2 * 2 * 4 * FILL_N, None), "graph_ms": graph,
+            "torch_sort_ms": sort_graph}
 
 
 def phase_partition_kernel(rng, card: str) -> dict:
@@ -2201,7 +2253,8 @@ def main() -> dict:
         "sum_u64_pair": ("sum", "sum.cu", "dpu_olap_tpu/ops/aggregate.py:113", None),
         "propagate_fill": ("fill", "scan.cu", "dpu_olap_tpu/ops/scan_pallas.py:178", None),
         "propagate_last": ("last", "scan.cu", "dpu_olap_tpu/ops/scan_pallas.py:222", None),
-        "bitonic_merge_blocks": ("merge", "sort.cu", "dpu_olap_tpu/ops/bitonic_pallas.py:91", None),
+        "bitonic_merge_blocks": ("merge", "sort.cu", "dpu_olap_tpu/ops/bitonic_pallas.py:91",
+                                 ["dpu_olap_tpu/ops/sort_pallas.py:327"]),
         "partition_cells": ("partition", "partition.cu",
                             "dpu_olap_tpu/ops/partition_pallas.py:161", None),
         "merge_probe": ("merge_probe", "merge_probe.cu", "dpu_olap_tpu/ops/merge_pallas.py:250",

@@ -35,7 +35,19 @@ Inputs are drawn on the card from seed 42:
     ``_filter_inputs``; a quarter kept) beside the predicate +
     ``torch.masked_select`` (eager: its output length is read back to the
     host, so it cannot be captured), with the per-launch breakdown of
-    ``filter_compact``.
+    ``filter_compact``;
+  * merge: ``merge.bitonic_merge`` at the sorted-build join's call on the
+    TPC-H SF=1 key shape (1.5M sorted ``o_orderkey << 1`` rows, the pad,
+    then 5,996,462 ``l_orderkey << 1 | 1`` rows descending: one 8Mi block,
+    one merged payload plane) and ``bitonic_cuda.bitonic_merge_blocks`` at
+    8Mi in 64Ki blocks of keys below 16, beside ``torch.sort`` of the 8Mi
+    key's int32 view (a yardstick: a sort is not the same function), each
+    with a per-launch breakdown;
+  * tiles: ``sort_cuda.sort_tiles`` at 2Mi + 1 payload (measure_filter's
+    sort section) beside ``torch.sort`` of the key's 4096-element rows,
+    with a per-launch breakdown;
+  * sum: ``sum_cuda.sum_u64_pair`` at 16Mi (one sum round at SF=8) beside
+    ``x.sum(dtype=torch.int64)``, with a per-launch breakdown.
 Each call is captured several times in one graph (CALLS, or BIG_CALLS from
 BIG_ROWS rows on), each with outputs of its own, so that no call finds the
 last one's outputs in L2; a reading is the median of REPS replays over the
@@ -47,11 +59,13 @@ It calls the wrappers only through ``sort_bitonic(planes)``,
 ``gather_sorted(data, sidx)``, ``merge_probe(left, right, payloads)``,
 ``partition_cells(keys, payloads, P, cell, with_sel)``,
 ``propagate_fill(planes)``, ``propagate_last(alive, planes)``,
-``filter_compact(values)`` and ``filter_with_indices(values)``, so the
+``filter_compact(values)``, ``filter_with_indices(values)``,
+``bitonic_merge(planes)``, ``bitonic_merge_blocks(planes, block_rows)``,
+``sort_tiles(planes)`` and ``sum_u64_pair(values)``, so the
 same file can time another checkout of the package: run it by its path
 with that checkout first on PYTHONPATH, and alternate the two checkouts on
 one card. ``--only`` takes a subset of the groups (sort, gather,
-merge_probe, partition, fill, filter). It prints one line a reading and,
+merge_probe, partition, fill, filter, merge, tiles, sum). It prints one line a reading and,
 last, a JSON object of them; ``--out`` writes that object to a file too.
 It needs a CUDA device.
 """
@@ -60,6 +74,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 
@@ -67,11 +82,14 @@ import numpy as np
 import torch
 
 from dpu_olap_tpu_torch.ops import (
+    bitonic_cuda,
     filter_cuda,
+    merge,
     merge_cuda,
     partition_cuda,
     scan_cuda,
     sort_cuda,
+    sum_cuda,
     take_cuda,
 )
 from dpu_olap_tpu_torch.ops.hashing import bucket_shift, wang_hash
@@ -84,9 +102,13 @@ FILL_N = 1 << 23  # chip_smoke.py FILL_N
 FILL_DENSITY = 0.18
 ROUND_CELL = 1 << 27  # one side's cell in an SF=64 shuffle round (64 x 2Mi rows)
 FILTER_N = 1 << 26  # chip_smoke.py FILTER_N
+MERGE_N = 1 << 23  # the sorted-build join's merge length at TPC-H SF=1
+TPCH_ORDERS = 1_500_000  # chip_smoke.py TPCH_ORDERS
+TILES_N = 1 << 21  # measure_filter's sort section
+SUM_N = 1 << 24  # chip_smoke.py SUM_N
 EMPTY = 0xFFFFFFFF
 CALLS = 10
-GROUPS = ("sort", "gather", "merge_probe", "partition", "fill", "filter")
+GROUPS = ("sort", "gather", "merge_probe", "partition", "fill", "filter", "merge", "tiles", "sum")
 BIG_ROWS = 1 << 27
 BIG_CALLS = 2
 REPS = 7
@@ -140,9 +162,10 @@ def eager_ms(fn) -> float:
 
 
 def launch_breakdown(fn, calls: int = BREAKDOWN_CALLS) -> dict:
-    """Device ms of one eager call of fn by device event name (kernels and
-    memsets): ``calls`` calls under torch.profiler, each event's time summed
-    and divided by the calls."""
+    """Device ms of one eager call of fn by device event name (kernels,
+    memsets and copies): ``calls`` calls under torch.profiler, each event's
+    time summed and divided by the calls. A name launched c > 1 times a call
+    gets one entry per launch, "name [j/c]", in launch order."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -152,13 +175,23 @@ def launch_breakdown(fn, calls: int = BREAKDOWN_CALLS) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    per: dict = {}
+    spans: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            per[e.name] = per.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
-    if not per:
+            spans.setdefault(e.name, []).append(
+                (e.time_range.start, (e.time_range.end - e.time_range.start) / 1e3))
+    if not spans:
         raise SystemExit("launch_breakdown: the profiler saw no device events")
-    return {k: v / calls for k, v in sorted(per.items(), key=lambda kv: -kv[1])}
+    per: dict = {}
+    for name, ts in spans.items():
+        ts.sort()
+        c = len(ts) // calls
+        if c <= 1 or len(ts) % calls:
+            per[name] = sum(d for _, d in ts) / calls
+            continue
+        for j in range(c):
+            per[f"{name} [{j + 1}/{c}]"] = sum(d for _, d in ts[j::c]) / calls
+    return dict(sorted(per.items(), key=lambda kv: -kv[1]))
 
 
 def _u32(n: int, gen: torch.Generator, high: int | None = None) -> torch.Tensor:
@@ -247,8 +280,13 @@ def partition_readings(n: int, p: int, with_sel: bool) -> tuple:
 
 
 def _breakdown_line(label: str, what: str, parts: dict, card: str) -> None:
+    def short(k):  # a kernel's name without its namespace and argument list
+        k = k.replace("(anonymous namespace)::", "")
+        head = re.match(r"(.*?[\w>])\(", k)
+        return head.group(1) + (k[k.rindex(" ["):] if k.endswith("]") else "") if head else k
+
     print(f"[{label}] {what} per launch, eager, ms: "
-          + "; ".join(f"{k[:70]} {v:.4f}" for k, v in parts.items()) + f" [{card}]", flush=True)
+          + "; ".join(f"{short(k)} {v:.4f}" for k, v in parts.items()) + f" [{card}]", flush=True)
 
 
 def fill_readings() -> tuple:
@@ -326,6 +364,84 @@ def filter_readings() -> tuple:
     return ms, launch_breakdown(lambda: filter_cuda.filter_compact(values))
 
 
+def _join_merge_planes(gen: torch.Generator) -> tuple:
+    """The sorted-build join's bitonic_merge input at TPC-H SF=1, as
+    ops/merge.py's join_shard_sorted_build lays it out: [ascending pk << 1
+    | 0xFFFFFFFF pad | descending fk << 1 | 1], one payload plane beside
+    it (the orders' x, 0 in the pad, the sorted lineitems' y)."""
+    i = torch.arange(TPCH_ORDERS, device="cuda")
+    okey = (i // 8) * 32 + i % 8 + 1  # the first 8 of every 32 key values
+    per = torch.randint(1, 8, (TPCH_ORDERS,), generator=gen, device="cuda")
+    k2_l = torch.sort((torch.repeat_interleave(okey, per) << 1) | 1, descending=True).values
+    pad = MERGE_N - TPCH_ORDERS - k2_l.shape[0]
+    key = torch.cat([okey << 1, torch.full((pad,), EMPTY, device="cuda"), k2_l])
+    pay = torch.cat([_u32(TPCH_ORDERS, gen).to(torch.int64), torch.zeros(pad, device="cuda",
+                     dtype=torch.int64), _u32(k2_l.shape[0], gen).to(torch.int64)])
+    return key.to(torch.uint32), pay.to(torch.uint32)
+
+
+def _block_bitonic(n: int, block: int, high: int, gen: torch.Generator) -> torch.Tensor:
+    """n keys below high whose every block is an ascending run, then a
+    descending one."""
+    key = torch.sort(_u32(n, gen, high).to(torch.int64).view(-1, 2, block // 2), dim=2).values
+    key[:, 1] = key[:, 1].flip(1)
+    return key.reshape(n).to(torch.uint32)
+
+
+def merge_readings() -> tuple:
+    """bitonic_merge at the join's 8Mi call and bitonic_merge_blocks at 8Mi
+    in 64Ki blocks, each checked against bitonic_merge_blocks_ref, beside
+    torch.sort of the 8Mi key; with the per-launch breakdown of each."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + MERGE_N)
+    planes = _join_merge_planes(gen)
+    blocks = (_block_bitonic(MERGE_N, 1 << 16, 16, gen), _u32(MERGE_N, gen))
+    for got, ref, what in (
+            (merge.bitonic_merge(planes),
+             bitonic_cuda.bitonic_merge_blocks_ref(planes, MERGE_N // bitonic_cuda.LANES),
+             "bitonic_merge"),
+            (bitonic_cuda.bitonic_merge_blocks(blocks),
+             bitonic_cuda.bitonic_merge_blocks_ref(blocks), "bitonic_merge_blocks")):
+        if not _same(got, ref):
+            raise SystemExit(f"{what} at n={MERGE_N}: kernel != plain")
+    key32 = planes[0].view(torch.int32)
+    ms = _in_turns({"bitonic_merge": lambda: merge.bitonic_merge(planes),
+                    "merge_blocks_64Ki": lambda: bitonic_cuda.bitonic_merge_blocks(blocks),
+                    "torch_sort": lambda: torch.sort(key32)})
+    parts = {"bitonic_merge": launch_breakdown(lambda: merge.bitonic_merge(planes)),
+             "merge_blocks_64Ki": launch_breakdown(
+                 lambda: bitonic_cuda.bitonic_merge_blocks(blocks))}
+    return ms, parts
+
+
+def tiles_readings() -> tuple:
+    """sort_tiles at TILES_N + 1 payload (ties in the key), checked against
+    sort_tiles_ref, beside torch.sort of the key's tile rows."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + TILES_N)
+    key = _u32(TILES_N, gen, 2**31)
+    key[-64:] = key[0]
+    planes = (key, _u32(TILES_N, gen))
+    got, ref = sort_cuda.sort_tiles(planes), sort_cuda.sort_tiles_ref(planes)
+    if not (_same(got[:1], ref[:1])
+            and _same(sort_cuda.canonical_tiles(got), sort_cuda.canonical_tiles(ref))):
+        raise SystemExit(f"sort_tiles at n={TILES_N}: kernel != plain")
+    rows = key.view(torch.int32).view(-1, sort_cuda.TILE)
+    ms = _in_turns({"sort_tiles": lambda: sort_cuda.sort_tiles(planes),
+                    "torch_sort_rows": lambda: torch.sort(rows, dim=1)})
+    return ms, launch_breakdown(lambda: sort_cuda.sort_tiles(planes))
+
+
+def sum_readings() -> tuple:
+    """sum_u64_pair at SUM_N, checked against its plain version, beside
+    x.sum(dtype=torch.int64)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + SUM_N)
+    values = _u32(SUM_N, gen)
+    if not _same(sum_cuda.sum_u64_pair(values), sum_cuda.sum_u64_pair_ref(values)):
+        raise SystemExit(f"sum_u64_pair at n={SUM_N}: kernel != plain")
+    ms = _in_turns({"sum_u64_pair": lambda: sum_cuda.sum_u64_pair(values),
+                    "x_sum_int64": lambda: values.sum(dtype=torch.int64)})
+    return ms, launch_breakdown(lambda: sum_cuda.sum_u64_pair(values))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--label", default="", help="a name for this run, kept in the JSON")
@@ -367,6 +483,21 @@ def main(argv=None) -> int:
     for size, what, readings in ((f"{FILL_N >> 20}Mi", "fill", fill_readings),
                                  (f"{2 * ROUND_CELL >> 20}Mi", "fill", round_fill_readings),
                                  (f"{FILTER_N >> 20}Mi", "filter", filter_readings)):
+        if what not in only:
+            continue
+        ms, parts = readings()
+        record(size, ms)
+        out["breakdown"][f"{what}_{size}"] = parts
+        _breakdown_line(args.label, f"{what} {size}", parts, card)
+    if "merge" in only:
+        ms, parts = merge_readings()
+        size = f"{MERGE_N >> 20}Mi"
+        record(size, ms)
+        for what, p in parts.items():
+            out["breakdown"][f"{what}_{size}"] = p
+            _breakdown_line(args.label, f"{what} {size}", p, card)
+    for size, what, readings in ((f"{TILES_N >> 20}Mi", "tiles", tiles_readings),
+                                 (f"{SUM_N >> 20}Mi", "sum", sum_readings)):
         if what not in only:
             continue
         ms, parts = readings()

@@ -9,11 +9,16 @@ Contract (bitonic_pallas.py:91-99): the half-cleaner cascade d = block/2 ..
 (planes[0] the uint32 key, the others following it); each block comes out
 sorted when it went in bitonic. On a tie each slot keeps its own pair
 (bitonic_pallas.py:71-72), so kernel and plain version agree bit for bit.
+
+``merge_plan`` gives the kernel's launches, which ``csrc/sort.cu``'s
+``run_merge`` mirrors: strided passes for the stages d >= SET, then one tile
+pass for the rest. Two passes in all for any block up to 8Mi elements.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -22,7 +27,48 @@ from .sort_cuda import MAX_PAYLOADS
 
 LANES = 128
 DEF_R = 512  # rows per block: 64Ki elements (bitonic_pallas.py DEF_R)
-LAUNCHES = 0  # kernel launches by bitonic_merge_blocks
+LAUNCHES = 0  # calls of bitonic_merge_blocks that launched the kernel (the CPU path adds none)
+SET = 1 << 14  # elements a thread block of a merge pass holds (csrc/sort.cu SET)
+MAX_STRIDED = 9  # stages of one strided pass: rows of at least SET >> 9 = 32 elements
+
+
+class MergePass(NamedTuple):
+    """One launch of the merge kernel. Each of its ``ctas`` thread blocks
+    owns ``rows`` rows of ``width`` consecutive elements at stride ``low_d``:
+    block b's row m, column c is element (b // q) * low_d * rows + (b % q) *
+    width + m * low_d + c, with q = low_d // width. It runs the cascade's
+    ``stages`` (their distances d, in order) on those elements in
+    ``smem_bytes`` of shared memory. The tile pass has one row (width =
+    low_d = its tile)."""
+
+    low_d: int
+    rows: int
+    width: int
+    stages: tuple
+    ctas: int
+    smem_bytes: int
+
+
+def merge_plan(n: int, block: int, n_pay: int = 1) -> tuple:
+    """The merge kernel's passes for n elements in blocks of ``block``
+    (csrc/sort.cu run_merge): strided passes of at most MAX_STRIDED stages
+    each, from d = block/2 down to SET, then the tile pass, on tiles of
+    min(SET, n & -n) elements, for d = min(block, tile)/2 .. 1. A set keeps
+    4 bytes an element for the key and, with payloads, 2 for its position."""
+    elem = 6 if n_pay else 4
+    passes = []
+    top = block // 2
+    while top >= SET:
+        s = min(top.bit_length() - SET.bit_length() + 1, MAX_STRIDED)
+        low = top >> (s - 1)
+        passes.append(MergePass(low, 1 << s, SET >> s, tuple(low << j for j in range(s - 1, -1, -1)),
+                                n // SET, SET * elem))
+        top = low // 2
+    tile = min(SET, n & -n)
+    first = min(block, tile) // 2
+    passes.append(MergePass(tile, 1, tile, tuple(first >> j for j in range(first.bit_length())),
+                            n // tile, tile * elem))
+    return tuple(passes)
 
 
 def _check(planes, block_rows: int) -> torch.device:

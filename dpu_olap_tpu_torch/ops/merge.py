@@ -3,8 +3,8 @@
 
 ``bitonic_merge`` sorts a bitonic sequence of power-of-two length: the
 merge-length cascade of ``bitonic_cuda.bitonic_merge_blocks``, whose kernel
-runs the cross-block stages (``bitonic_xblock`` on the TPU) as the sort's
-global steps and then the in-block cascade.
+runs the cross-block stages (``bitonic_xblock`` on the TPU) as one strided
+pass and then the in-block cascade as one tile pass.
 
 ``join_shard_sorted_build`` joins a unique-pk build side that arrives sorted
 (or is sorted once) with 31-bit keys: sort the probe side only, bitonic-merge

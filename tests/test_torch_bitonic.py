@@ -134,3 +134,82 @@ def test_merge_rejects_bad_shapes():
     before = bitonic_cuda.LAUNCHES
     bitonic_merge((u,))
     assert bitonic_cuda.LAUNCHES == before  # the CPU path launches nothing
+
+
+def test_merge_plan_by_hand():
+    MP = bitonic_cuda.MergePass
+    # the sorted-build join's 8Mi block: the 9 stages 4Mi..16Ki in one
+    # strided pass of 512 rows x 32, then 16Ki tiles for 8Ki..1
+    assert bitonic_cuda.merge_plan(1 << 23, 1 << 23) == (
+        MP(1 << 14, 512, 32, tuple(1 << j for j in range(22, 13, -1)), 512, 98304),
+        MP(1 << 14, 1, 1 << 14, tuple(1 << j for j in range(13, -1, -1)), 512, 98304),
+    )
+    # 64Ki blocks at 8Mi: the stages 32Ki and 16Ki, 4 rows of 4096
+    assert bitonic_cuda.merge_plan(1 << 23, 1 << 16, n_pay=0) == (
+        MP(1 << 14, 4, 4096, (1 << 15, 1 << 14), 512, 65536),
+        MP(1 << 14, 1, 1 << 14, tuple(1 << j for j in range(13, -1, -1)), 512, 65536),
+    )
+    # the smallest block: one tile pass on 128-element tiles (n & -n)
+    assert bitonic_cuda.merge_plan(3 * 128, 128) == (MP(128, 1, 128, (64, 32, 16, 8, 4, 2, 1), 3, 768),)
+    assert bitonic_cuda.merge_plan(1 << 16, 128)[0] == MP(1 << 14, 1, 1 << 14, (64, 32, 16, 8, 4, 2, 1),
+                                                         4, 98304)
+    # the largest block with two strided passes (9 + 9 stages), and one more
+    big = bitonic_cuda.merge_plan(1 << 32, 1 << 32)
+    assert [(p.low_d, p.rows, p.width) for p in big] == [
+        (1 << 23, 512, 32), (1 << 14, 512, 32), (1 << 14, 1, 1 << 14)]
+    assert big[0].stages[0] == 1 << 31 and big[1].stages[-1] == 1 << 14
+    three = bitonic_cuda.merge_plan(1 << 33, 1 << 33)
+    assert [(p.low_d, p.rows) for p in three] == [(1 << 24, 512), (1 << 15, 512), (1 << 14, 2),
+                                                  (1 << 14, 1)]
+
+
+def _run_plan(planes, block):
+    """The planned passes in plain torch: for each pass, every thread
+    block's set gathered (all sets at once), the pass's stages run on it as
+    the set's own compare-exchanges (lower set slot = lower element), and
+    scattered back."""
+    key = planes[0].view(torch.int32) ^ -(1 << 31)  # orders like the unsigned key
+    pays = [p.view(torch.int32) for p in planes[1:]]
+    n = key.shape[0]
+    for p in bitonic_cuda.merge_plan(n, block, len(pays)):
+        b = torch.arange(p.ctas)[:, None]
+        q = p.low_d // p.width
+        slot = torch.arange(p.rows * p.width)[None, :]
+        idx = (b // q) * p.low_d * p.rows + (b % q) * p.width + slot // p.width * p.low_d + slot % p.width
+        assert torch.equal(idx.reshape(-1).sort().values, torch.arange(n))  # each element once
+        k, ps = key[idx], [x[idx] for x in pays]
+        for d in p.stages:
+            dl = d // p.low_d * p.width if d >= p.low_d else d  # the stage's distance in the set
+            lo = slot[(slot & dl) == 0]
+            assert torch.equal(idx[:, lo + dl], idx[:, lo] + d)  # the pairs are the cascade's
+            swap = k[:, lo] > k[:, lo + dl]
+            a, c = k[:, lo], k[:, lo + dl]
+            k[:, lo], k[:, lo + dl] = torch.where(swap, c, a), torch.where(swap, a, c)
+            for x in ps:
+                a, c = x[:, lo], x[:, lo + dl]
+                x[:, lo], x[:, lo + dl] = torch.where(swap, c, a), torch.where(swap, a, c)
+        key[idx] = k
+        pays = [x.clone() for x in pays]  # the first pass's are views of the inputs
+        for x, y in zip(pays, ps):
+            x[idx] = y
+    return ((key ^ -(1 << 31)).view(torch.uint32), *(x.view(torch.uint32) for x in pays))
+
+
+@pytest.mark.parametrize("n, block, hi, n_pay, shrink", [
+    (1 << 17, 1 << 17, 16, 1, False),  # one strided pass of 3 stages, then the tile pass
+    (1 << 17, 1 << 15, 2**32, 2, False),  # one strided stage: 2 rows of 8192
+    (3 * 128, 128, 4, 1, False),  # the tile pass alone on 128-element tiles
+    (1 << 16, 1 << 16, 1, 0, False),  # all keys equal
+    (1 << 13, 1 << 13, 16, 1, True),  # SET = 256, 3 stages a pass: two strided passes
+    (1 << 14, 1 << 12, 3, 3, True),
+])
+def test_merge_plan_run_in_torch_equals_plain(monkeypatch, n, block, hi, n_pay, shrink):
+    if shrink:  # the same plan at a scale where the rows would be 32 elements of a 256 set
+        monkeypatch.setattr(bitonic_cuda, "SET", 256)
+        monkeypatch.setattr(bitonic_cuda, "MAX_STRIDED", 3)
+    rng = np.random.default_rng(n + block + n_pay)
+    planes = tuple(map(torch.from_numpy, _bitonic_blocks(rng, n, block, hi, n_pay)))
+    got = _run_plan(planes, block)
+    ref = bitonic_cuda.bitonic_merge_blocks_ref(planes, block // 128)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.view(torch.int32), r.view(torch.int32))

@@ -8,12 +8,15 @@ unsorted and a misaligned probe), the filter alternates
 (csrc/filter.cu), the in-block primitive ops (csrc/block_ops.cu), the
 probe primitives (csrc/probes.cu), the sort's tile stage (csrc/sort.cu),
 the radix sort (csrc/radix_sort.cu) and the sorted gather (csrc/gather.cu),
+the block merge (csrc/sort.cu: every pass structure of merge_plan, ties,
+the top-bit edges, misaligned views, in == out, the sorted-build join's
+call) and the tile stage at its geometry's edges,
 the forward fill in both modes (csrc/scan.cu) and filter v1
 (csrc/filter.cu) at their one-sweep edges (lengths around a tile and not a
 multiple of 4, misaligned views, dead stretches over many tiles, one kept
 value in the last tile), and the graph-captured chain timing, a captured
-sort and gather, a captured merge-probe and partition and a captured fill
-and filter. A CUDA
+sort and gather, a captured merge-probe and partition, a captured fill
+and filter and a captured block merge and tile stage. A CUDA
 kernel has no CPU mode, so
 every test here is marked ``cuda`` and skips without a device. This file
 imports no jax (the machine with the card has none) and takes no fixture of
@@ -22,16 +25,21 @@ tests/conftest.py, which imports jax; on that machine run
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
 from dpu_olap_tpu_torch.bench import device_time
 from dpu_olap_tpu_torch.ops import (
+    _kernels,
+    bitonic_cuda,
     block_ops_cuda,
     filter_alt_cuda,
     filter_cuda,
     filter_stages,
+    merge,
     merge_cuda,
     partition_cuda,
     probes_cuda,
@@ -542,3 +550,157 @@ def test_fill_and_filter_back_to_back_and_replayed_in_a_graph(cuda_device):
         graph.replay()
         torch.cuda.synchronize()
         _same(outs, ref())
+
+
+MERGE_TOP_BIT = np.array([0, 1, 3, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF], np.uint32)
+
+
+def _bitonic_keys(kind, n, block, rng):
+    """n keys whose every block is an ascending run, then a descending one."""
+    if kind == "random":
+        k = rng.integers(0, 2**32, n, dtype=np.uint32)
+    elif kind == "below16":
+        k = rng.integers(0, 16, n, dtype=np.uint32)
+    elif kind == "all_equal":
+        k = np.full(n, 12345, np.uint32)
+    elif kind == "all_max":
+        k = np.full(n, EMPTY, np.uint32)
+    else:  # the top-bit edges only
+        k = MERGE_TOP_BIT[rng.integers(0, len(MERGE_TOP_BIT), n)]
+    k = k.reshape(-1, 2, block // 2)
+    k.sort(axis=2)
+    k[:, 1] = k[:, 1, ::-1]
+    return k.reshape(n)
+
+
+def _card_same(got, ref):
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and torch.equal(g.view(torch.int32), r.view(torch.int32))
+
+
+MERGE_KINDS = ["random", "below16", "all_equal", "all_max", "top_bit"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [128, 4096, bitonic_cuda.SET, 1 << 16, 1 << 23])
+@pytest.mark.parametrize("n_pay", [0, 1, 3, 8])
+@pytest.mark.parametrize("kind", MERGE_KINDS)
+def test_merge_blocks_kernel_matches_plain(cuda_device, block, n_pay, kind):
+    rng = np.random.default_rng(block + n_pay)
+    n = max(block, 1 << 16) if block < 1 << 16 else block * (2 if block < 1 << 23 else 1)
+    n += block if block <= 4096 else 0  # n & -n below the tile: smaller tiles
+    planes = [torch.from_numpy(_bitonic_keys(kind, n, block, rng)).to(cuda_device)] + [
+        torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(cuda_device)
+        for _ in range(n_pay)]
+    before = bitonic_cuda.LAUNCHES
+    got = bitonic_cuda.bitonic_merge_blocks(planes, block // 128)
+    assert bitonic_cuda.LAUNCHES == before + 1
+    _card_same(got, bitonic_cuda.bitonic_merge_blocks_ref(planes, block // 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", MERGE_KINDS)
+def test_merge_blocks_kernel_two_strided_passes(cuda_device, kind):
+    n = 1 << 24  # one 16Mi block: 10 stages d >= SET, so two strided passes
+    assert len(bitonic_cuda.merge_plan(n, n, 0)) == 3
+    planes = [torch.from_numpy(_bitonic_keys(kind, n, n, np.random.default_rng(24))).to(cuda_device)]
+    _card_same(bitonic_cuda.bitonic_merge_blocks(planes, n // 128),
+               bitonic_cuda.bitonic_merge_blocks_ref(planes, n // 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("block", [128, 1 << 16])
+def test_merge_blocks_kernel_on_misaligned_views(cuda_device, offset, block):
+    rng = np.random.default_rng(offset)
+    n = 1 << 17
+    keys = np.concatenate([np.zeros(offset, np.uint32), _bitonic_keys("below16", n, block, rng)])
+    planes = [torch.from_numpy(keys).to(cuda_device)[offset:]] + [
+        torch.from_numpy(rng.integers(0, 2**32, n + offset, dtype=np.uint32)).to(cuda_device)[offset:]
+        for _ in range(2)]
+    _card_same(bitonic_cuda.bitonic_merge_blocks(planes, block // 128),
+               bitonic_cuda.bitonic_merge_blocks_ref(planes, block // 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [4096, 1 << 23])
+def test_merge_blocks_kernel_in_place(cuda_device, block):
+    # the C entry point takes in == out: every pass reads its whole set first
+    rng = np.random.default_rng(block)
+    n = 1 << 23
+    planes = [torch.from_numpy(_bitonic_keys("below16", n, block, rng)).to(cuda_device),
+              torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(cuda_device)]
+    ref = bitonic_cuda.bitonic_merge_blocks_ref(planes, block // 128)
+    ptrs = (ctypes.c_void_p * 2)(*[p.data_ptr() for p in planes])
+    rc = _kernels.library().dpu_merge_blocks_u32(ptrs, ptrs, 2, n, block,
+                                                 _kernels.stream_handle(cuda_device))
+    assert rc == 0
+    _card_same(planes, ref)
+
+
+@pytest.mark.cuda
+def test_bitonic_merge_at_the_sorted_build_joins_call(cuda_device):
+    # TPC-H SF=1: 1.5M sorted o_orderkey << 1, the pad, 5,996,462-ish
+    # l_orderkey << 1 | 1 descending; one merged payload plane; 8Mi
+    rng = np.random.default_rng(1)
+    i = np.arange(1_500_000, dtype=np.uint32)
+    okey = (i // 8) * 32 + i % 8 + 1
+    lkey = np.repeat(okey, rng.integers(1, 8, okey.size))
+    n = 1 << 23
+    k2_l = np.sort((lkey << 1) | 1)[::-1]
+    key = np.concatenate([okey << 1, np.full(n - okey.size - lkey.size, EMPTY), k2_l]).astype(np.uint32)
+    pay = rng.integers(0, 2**32, n, dtype=np.uint32)
+    planes = [torch.from_numpy(key).to(cuda_device), torch.from_numpy(pay).to(cuda_device)]
+    got = merge.bitonic_merge(planes)
+    _card_same(got, bitonic_cuda.bitonic_merge_blocks_ref(planes, n // 128))
+    assert np.array_equal(got[0].cpu().numpy(), np.sort(key))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 128, 129, 1000, 4095, 8191, 8193, 3 * 4096 - 1, (2 << 20) - 1,
+                               (2 << 20) + 1])
+@pytest.mark.parametrize("n_pay, offset", [(0, 0), (8, 0), (1, 3)])
+@pytest.mark.parametrize("kind", ["random", "all_max"])
+def test_sort_tiles_at_the_tile_edges(cuda_device, n, n_pay, offset, kind):
+    # all_max: real 0xFFFFFFFF keys beside the pad keep their payloads
+    rng = np.random.default_rng(n + n_pay)
+    keys = (rng.integers(0, 2**32, n + offset, dtype=np.uint32) if kind == "random"
+            else np.full(n + offset, EMPTY, np.uint32))
+    planes = [torch.from_numpy(a).to(cuda_device)[offset:] for a in
+              (keys, *(rng.integers(0, 2**32, n + offset, dtype=np.uint32) for _ in range(n_pay)))]
+    got = sort_cuda.sort_tiles(planes)
+    ref = sort_cuda.sort_tiles_ref(planes)
+    _card_same(got[:1], ref[:1])
+    _card_same(sort_cuda.canonical_tiles(got), sort_cuda.canonical_tiles(ref))
+
+
+@pytest.mark.cuda
+def test_merge_and_sort_tiles_replay_in_a_graph(cuda_device):
+    rng = np.random.default_rng(12)
+    n = 1 << 20
+    mplanes = [torch.from_numpy(_bitonic_keys("below16", n, n, rng)).to(cuda_device),
+               torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(cuda_device)]
+    tplanes = [torch.from_numpy(rng.integers(0, 2**32, n - 5, dtype=np.uint32)).to(cuda_device)
+               for _ in range(3)]
+
+    def step():
+        return (*bitonic_cuda.bitonic_merge_blocks(mplanes, n // 128), *sort_cuda.sort_tiles(tplanes))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    for r in range(2):
+        mplanes[0].copy_(torch.from_numpy(_bitonic_keys(MERGE_KINDS[r], n, n, rng)).to(cuda_device))
+        tplanes[0].copy_(torch.from_numpy(rng.integers(0, 2**(16 * r + 4), n - 5, dtype=np.uint32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        _card_same(outs[:2], bitonic_cuda.bitonic_merge_blocks_ref(mplanes, n // 128))
+        ref = sort_cuda.sort_tiles_ref(tplanes)
+        _card_same(outs[2:3], ref[:1])
+        _card_same(sort_cuda.canonical_tiles(outs[2:]), sort_cuda.canonical_tiles(ref))
