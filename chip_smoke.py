@@ -612,10 +612,11 @@ def phase_filter_alternates(rng, card: str) -> dict:
     their plain versions, whole arrays with their tails, with and without
     indices, and against v1's kernel where v1 computes the same function
     (threshold 2^30): 64Mi and 8Mi random (measure_filter's two sizes),
-    3·2^20+17, 1, all pass, none pass, one kept value at the end; thresholds
+    3·2^20+17, 1, 4095-4097 (around the tile), v3 also on views at offsets
+    1-3, all pass, none pass, one kept value at the end; thresholds
     2^30, 0, 2^31 and 0xFFFFFFFF; the _padded wrappers with fill 7. Timed
-    at 64Mi beside the bound, the plain version and predicate +
-    masked_select."""
+    at 64Mi, eager and as graph replays, beside the bound, the plain
+    version and predicate + masked_select."""
     import torch
 
     from dpu_olap_tpu_torch.ops import filter_alt_cuda as alt
@@ -634,6 +635,8 @@ def phase_filter_alternates(rng, card: str) -> dict:
         ("all pass", rng.integers(0, t, odd, dtype=np.uint32), (t,)),
         ("none pass", rng.integers(t, 2**32, odd, dtype=np.uint32), (t,)),
         ("one kept value at the end", one_end, (t,)),
+        *((f"random {n}", rng.integers(0, 2**32, n, dtype=np.uint32), (t,))
+          for n in (4095, 4096, 4097)),  # around the one-sweep kernels' tile
     ]
     errs = dict.fromkeys(alt.VERSIONS, 0)
     timed = None
@@ -665,6 +668,16 @@ def phase_filter_alternates(rng, card: str) -> dict:
         print(f"[filter alternates] {name} (n={n}), thresholds"
               f" {', '.join(f'{x:#x}' for x in thresholds)}: v2, v3, v4 == plain (and == v1 at"
               f" 2^30, padded with fill 7 too), with and without indices", flush=True)
+    views = on_card(cases[2][1])
+    for off in (1, 2, 3):  # v3 reads a view that is not 16-byte aligned with 4-byte loads
+        xv = views[off:]
+        got = alt.filter_compact(xv, "v3", t, 7), alt.filter_with_indices(xv, "v3", t)
+        ref = alt.filter_compact_ref(xv, "v3", t, 7), alt.filter_with_indices_ref(xv, "v3", t)
+        v1 = filter_cuda.filter_compact(xv, 7), filter_cuda.filter_with_indices(xv)
+        require(all(card_equal(g, r) and card_equal(g, w) for g, r, w in zip(got, ref, v1)),
+                f"filter v3 != plain or v1 on a view at offset {off}")
+    print("[filter alternates] v3 on views at offsets 1-3 of the 3·2^20+17 values: == plain"
+          " and == v1, with and without indices", flush=True)
     torch.cuda.synchronize()
     t32 = timed.view(torch.int32)
     lib = library_ms("torch.masked_select",
@@ -675,65 +688,96 @@ def phase_filter_alternates(rng, card: str) -> dict:
         plain_ms = cuda_ms(lambda: alt.filter_compact_ref(timed, ver))
         wi_ms = cuda_ms(lambda: alt.filter_with_indices(timed, ver))
         wi_plain = cuda_ms(lambda: alt.filter_with_indices_ref(timed, ver))
+        replay = graph_ms(
+            lambda: [alt.filter_compact(timed, ver) for _ in range(GRAPH_CALLS)]) / GRAPH_CALLS
+        wi_replay = graph_ms(
+            lambda: [alt.filter_with_indices(timed, ver) for _ in range(GRAPH_CALLS)]) / GRAPH_CALLS
         rows[ver] = {**kernel_row(errs[ver], ms, plain_ms, 8 * FILTER_N, lib),
-                     "indices_ms": wi_ms, "indices_plain_ms": wi_plain,
-                     "indices_bound_ms": bound_ms(12 * FILTER_N)}
-        print(f"[filter {ver}] n={FILTER_N}: filter_compact kernel {ms:.4f} ms, plain"
-              f" {plain_ms:.4f} ms, bound {bound_ms(8 * FILTER_N):.4f} ms; filter_with_indices"
-              f" kernel {wi_ms:.4f} ms, plain {wi_plain:.4f} ms, bound"
-              f" {bound_ms(12 * FILTER_N):.4f} ms; predicate + torch.masked_select {lib} ms"
-              f" (median of {REPS}, CUDA events) [{card}]", flush=True)
+                     "graph_ms": replay, "indices_ms": wi_ms, "indices_graph_ms": wi_replay,
+                     "indices_plain_ms": wi_plain, "indices_bound_ms": bound_ms(12 * FILTER_N)}
+        print(f"[filter {ver}] n={FILTER_N}: filter_compact kernel {ms:.4f} ms eager,"
+              f" {replay:.4f} graph, plain {plain_ms:.4f} ms, bound {bound_ms(8 * FILTER_N):.4f}"
+              f" ms; filter_with_indices kernel {wi_ms:.4f} ms eager, {wi_replay:.4f} graph,"
+              f" plain {wi_plain:.4f} ms, bound {bound_ms(12 * FILTER_N):.4f} ms; predicate +"
+              f" torch.masked_select {lib} ms (median of {REPS}, CUDA events; graph:"
+              f" {GRAPH_CALLS} calls a replay) [{card}]", flush=True)
     return rows
 
 
 def phase_filter_stages(rng, card: str) -> dict:
-    """The stage ablation (copy, count, scan, full) bit for bit against its
-    plain version on the card at 64Mi, 8Mi (the size measure_filter's parts
-    section runs it at), 3·2^20+17 and 1; each stage timed at
-    64Mi beside its bound (copy 8n, count and scan 4n, full 8n bytes); copy,
-    the pure-IO stage, against torch's clone of the same values in
-    interleaved rounds."""
+    """The stage ablation, v1's own sweep kernel cut at each stage (copy,
+    count, prefix, lookback, full), bit for bit against its plain version
+    on the card at 64Mi, 8Mi (the size measure_filter's parts section runs
+    it at), 3·2^20+17 and 1; lookback on out[:count], since the stage
+    leaves the rest unwritten. Each stage moves 8n bytes (the input read
+    once, n values written), so they share one bound, except lookback,
+    which writes only the count's values: 4n + 4·count. Timed at 64Mi: every
+    stage and torch.clone (the copy stage's yardstick, the same bytes) over
+    MP_ROUNDS interleaved rounds of eager readings, and once as graph
+    replays; the differences between consecutive stages are printed as the
+    attribution of v1's time (IO, predicate and count, rank and staging,
+    look-back, tail)."""
     import torch
 
     from dpu_olap_tpu_torch.ops import filter_stages
 
+    stage_names = filter_stages.STAGES
     err, timed = 0, None
     for n in (FILTER_N, MF_N, 3 * (1 << 20) + 17, 1):
         tv = on_card(rng.integers(0, 2**32, n, dtype=np.uint32))
         timed = timed if timed is not None else tv
-        for stage in filter_stages.STAGES:
-            got = [g for g in filter_stages.filter_stage(tv, stage) if g is not None]
-            ref = [r for r in filter_stages.filter_stage_ref(tv, stage) if r is not None]
+        for stage in stage_names:
+            got = list(filter_stages.filter_stage(tv, stage))
+            ref = list(filter_stages.filter_stage_ref(tv, stage))
+            require([g is None for g in got] == [r is None for r in ref],
+                    f"filter stage {stage}: outputs differ from plain's (n={n})")
+            if stage == "lookback":
+                c = int(ref[2])
+                got[0], ref[0] = got[0][:c], ref[0][:c]
+            got = [g for g in got if g is not None]
+            ref = [r for r in ref if r is not None]
             require(card_equal(got, ref), f"filter stage {stage} kernel != plain (n={n})")
             err = max(err, card_err(got, ref))
-        print(f"[filter stages] n={n}: copy, count, scan, full == plain", flush=True)
+        print(f"[filter stages] n={n}: {', '.join(stage_names)} == plain (lookback on"
+              f" [:count])", flush=True)
     torch.cuda.synchronize()
-    stage_bytes = {"copy": 8, "count": 4, "scan": 4, "full": 8}
-    stages = {}
-    for stage, b in stage_bytes.items():
-        stages[stage] = {"ms": cuda_ms(lambda: filter_stages.filter_stage(timed, stage)),
-                         "plain_ms": cuda_ms(lambda: filter_stages.filter_stage_ref(timed, stage)),
-                         "bound_ms": bound_ms(b * FILTER_N)}
-    # copy against torch.clone, the same bytes: single readings spread
-    # between calls, so MP_ROUNDS rounds, each timing one after the other
-    times = {"copy": [], "clone": []}
-    for _ in range(MP_ROUNDS):
-        times["copy"].append(cuda_ms(lambda: filter_stages.filter_stage(timed, "copy")))
-        times["clone"].append(cuda_ms(lambda: timed.clone()))
-    stages["copy"]["ms"] = float(np.median(times["copy"]))
-    lib = float(np.median(times["clone"]))
+    bound = bound_ms(8 * FILTER_N)
+    kept = int(filter_stages.filter_stage_ref(timed, "full")[2])
+    fns = {s: (lambda s=s: filter_stages.filter_stage(timed, s)) for s in stage_names}
+    fns["clone"] = timed.clone
+    # single readings spread between calls, so MP_ROUNDS rounds in turns
+    times = {k: [] for k in fns}
+    for r in range(MP_ROUNDS):
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            times[k].append(cuda_ms(fns[k]))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    replay = {k: graph_ms(lambda f=f: [f() for _ in range(GRAPH_CALLS)]) / GRAPH_CALLS
+              for k, f in fns.items()}
+    stages = {s: {"ms": med[s], "graph_ms": replay[s],
+                  "plain_ms": cuda_ms(lambda s=s: filter_stages.filter_stage_ref(timed, s)),
+                  "bound_ms": bound_ms(4 * (FILTER_N + kept)) if s == "lookback" else bound}
+              for s in stage_names}
+    lib = med["clone"]
     faster = sum(c < t for c, t in zip(times["copy"], times["clone"]))
     print(f"[filter stages] n={FILTER_N}: "
-          + "; ".join(f"{s} kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, bound"
-                      f" {r['bound_ms']:.4f}" for s, r in stages.items())
-          + f"; torch.clone {lib:.4f} ms (median of {REPS}, CUDA events; copy and clone:"
-          f" medians over {MP_ROUNDS} interleaved rounds) [{card}]", flush=True)
+          + "; ".join(f"{s} kernel {r['ms']:.4f} ms eager, {r['graph_ms']:.4f} graph, plain"
+                      f" {r['plain_ms']:.4f}" for s, r in stages.items())
+          + f"; torch.clone {lib:.4f} ms eager, {replay['clone']:.4f} graph; bound {bound:.4f}"
+          f" ms each, lookback {stages['lookback']['bound_ms']:.4f} (eager: medians over {MP_ROUNDS} interleaved rounds of medians of {REPS},"
+          f" CUDA events; graph: {GRAPH_CALLS} calls a replay) [{card}]", flush=True)
     print(f"[filter stages] copy against torch.clone over {MP_ROUNDS} rounds, ms: "
-          + "; ".join(f"{k} min {min(v):.4f} median {np.median(v):.4f} max {max(v):.4f}"
-                      for k, v in times.items())
+          + "; ".join(f"{k} min {min(times[k]):.4f} median {med[k]:.4f} max {max(times[k]):.4f}"
+                      for k in ("copy", "clone"))
           + f"; copy faster in {faster} of {MP_ROUNDS} rounds [{card}]", flush=True)
+    parts = ("IO", "predicate and count", "rank and staging", "look-back", "tail")
+    for how, ms in (("eager", med), ("graph", replay)):
+        steps = [ms[stage_names[0]]] + [ms[b] - ms[a] for a, b in zip(stage_names, stage_names[1:])]
+        print(f"[filter stages] attribution of v1's time at n={FILTER_N} ({how}; full"
+              f" {ms['full']:.4f} ms): " + "; ".join(f"{p} {d:+.4f} ms" for p, d in zip(parts, steps))
+              + f" [{card}]", flush=True)
     copy = stages["copy"]
-    return {**kernel_row(err, copy["ms"], copy["plain_ms"], 8 * FILTER_N, lib), "stages": stages}
+    return {**kernel_row(err, copy["ms"], copy["plain_ms"], 8 * FILTER_N, lib), "stages": stages,
+            "clone_graph_ms": replay["clone"]}
 
 
 def phase_measure_filter(card: str) -> dict:

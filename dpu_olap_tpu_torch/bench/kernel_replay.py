@@ -30,12 +30,15 @@ Inputs are drawn on the card from seed 42:
     ``propagate_last`` of one plane at 8Mi on the same mask. No PyTorch
     call computes a segmented forward fill: no library reading. Both fill
     shapes get a per-launch breakdown;
-  * filter: ``filter_cuda.filter_compact`` and ``filter_with_indices`` of
-    64Mi uniform uint32 values (one filter round at SF=8, chip_smoke.py's
-    ``_filter_inputs``; a quarter kept) beside the predicate +
-    ``torch.masked_select`` (eager: its output length is read back to the
-    host, so it cannot be captured), with the per-launch breakdown of
-    ``filter_compact``;
+  * filter: ``filter_cuda.filter_compact`` and ``filter_with_indices`` (v1)
+    and ``filter_alt_cuda``'s v3, compact and with indices, of 64Mi uniform
+    uint32 values (one filter round at SF=8, chip_smoke.py's
+    ``_filter_inputs``; a quarter kept), every stage of
+    ``filter_stages.STAGES`` (the package's own list) and ``clone`` (the
+    copy stage's yardstick), beside the predicate + ``torch.masked_select``
+    (eager: its output length is read back to the host, so it cannot be
+    captured), with the per-launch breakdowns of v1's and v3's compaction,
+    v3 with indices, each stage and the clone;
   * merge: ``merge.bitonic_merge`` at the sorted-build join's call on the
     TPC-H SF=1 key shape (1.5M sorted ``o_orderkey << 1`` rows, the pad,
     then 5,996,462 ``l_orderkey << 1 | 1`` rows descending: one 8Mi block,
@@ -59,7 +62,9 @@ It calls the wrappers only through ``sort_bitonic(planes)``,
 ``gather_sorted(data, sidx)``, ``merge_probe(left, right, payloads)``,
 ``partition_cells(keys, payloads, P, cell, with_sel)``,
 ``propagate_fill(planes)``, ``propagate_last(alive, planes)``,
-``filter_compact(values)``, ``filter_with_indices(values)``,
+``filter_compact(values)``, ``filter_with_indices(values)``, the
+alternates' ``filter_compact(values, "v3")`` and
+``filter_with_indices(values, "v3")``, ``filter_stage(values, stage)``,
 ``bitonic_merge(planes)``, ``bitonic_merge_blocks(planes, block_rows)``,
 ``sort_tiles(planes)`` and ``sum_u64_pair(values)``, so the
 same file can time another checkout of the package: run it by its path
@@ -83,7 +88,9 @@ import torch
 
 from dpu_olap_tpu_torch.ops import (
     bitonic_cuda,
+    filter_alt_cuda,
     filter_cuda,
+    filter_stages,
     merge,
     merge_cuda,
     partition_cuda,
@@ -343,25 +350,55 @@ def round_fill_readings() -> tuple:
     return _in_turns({"propagate_fill": call}, BIG_CALLS), launch_breakdown(call)
 
 
+def _stage_same(stage: str, got, ref) -> bool:
+    """A stage's outputs equal its plain version's (lookback on out[:count],
+    which the stage leaves unwritten past the count)."""
+    got, ref = list(got), list(ref)
+    if [g is None for g in got] != [r is None for r in ref]:
+        return False
+    if stage == "lookback":
+        c = int(ref[2])
+        got[0], ref[0] = got[0][:c], ref[0][:c]
+    return _same([g for g in got if g is not None], [r for r in ref if r is not None])
+
+
 def filter_readings() -> tuple:
     """filter_compact and filter_with_indices of FILTER_N uniform uint32
-    values, beside the predicate + torch.masked_select."""
+    values by v1 and by v3, every stage of the stage ablation and
+    torch.clone (the copy stage's yardstick), beside the predicate +
+    torch.masked_select; per-launch breakdowns of v1, v3 and each stage."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + FILTER_N)
     values = _u32(FILTER_N, gen)
-    got, ref = filter_cuda.filter_compact(values), filter_cuda.filter_compact_ref(values)
-    got_i = filter_cuda.filter_with_indices(values)
-    ref_i = filter_cuda.filter_with_indices_ref(values)
-    if not (_same(got, ref) and _same(got_i, ref_i)):
-        raise SystemExit(f"filter at n={FILTER_N}: kernel != plain")
-    del got, ref, got_i, ref_i
-    v32 = values.view(torch.int32)
-    ms = _in_turns({
+    calls = {
         "filter_compact": lambda: filter_cuda.filter_compact(values),
         "filter_with_indices": lambda: filter_cuda.filter_with_indices(values),
-    })
+        "v3_compact": lambda: filter_alt_cuda.filter_compact(values, "v3"),
+        "v3_with_indices": lambda: filter_alt_cuda.filter_with_indices(values, "v3"),
+    }
+    refs = {
+        "filter_compact": lambda: filter_cuda.filter_compact_ref(values),
+        "filter_with_indices": lambda: filter_cuda.filter_with_indices_ref(values),
+        "v3_compact": lambda: filter_alt_cuda.filter_compact_ref(values, "v3"),
+        "v3_with_indices": lambda: filter_alt_cuda.filter_with_indices_ref(values, "v3"),
+    }
+    for name, call in calls.items():
+        if not _same(call(), refs[name]()):
+            raise SystemExit(f"{name} at n={FILTER_N}: kernel != plain")
+    for stage in filter_stages.STAGES:
+        if not _stage_same(stage, filter_stages.filter_stage(values, stage),
+                           filter_stages.filter_stage_ref(values, stage)):
+            raise SystemExit(f"filter stage {stage} at n={FILTER_N}: kernel != plain")
+        calls[f"stage_{stage}"] = lambda stage=stage: filter_stages.filter_stage(values, stage)
+    torch.cuda.synchronize()
+    v32 = values.view(torch.int32)
+    ms = _in_turns({**calls, "clone": values.clone})
     ms["masked_select_eager"] = eager_ms(
         lambda: torch.masked_select(v32, filter_cuda.below_threshold(values)))
-    return ms, launch_breakdown(lambda: filter_cuda.filter_compact(values))
+    kept = ("filter_compact", "v3_compact", "v3_with_indices")
+    parts = {name: launch_breakdown(call) for name, call in calls.items()
+             if name in kept or name.startswith("stage_")}
+    parts["clone"] = launch_breakdown(values.clone)
+    return ms, parts
 
 
 def _join_merge_planes(gen: torch.Generator) -> tuple:
@@ -481,17 +518,18 @@ def main(argv=None) -> int:
         out["breakdown"][size] = parts
         _breakdown_line(args.label, f"partition {size}", parts, card)
     for size, what, readings in ((f"{FILL_N >> 20}Mi", "fill", fill_readings),
-                                 (f"{2 * ROUND_CELL >> 20}Mi", "fill", round_fill_readings),
-                                 (f"{FILTER_N >> 20}Mi", "filter", filter_readings)):
+                                 (f"{2 * ROUND_CELL >> 20}Mi", "fill", round_fill_readings)):
         if what not in only:
             continue
         ms, parts = readings()
         record(size, ms)
         out["breakdown"][f"{what}_{size}"] = parts
         _breakdown_line(args.label, f"{what} {size}", parts, card)
-    if "merge" in only:
-        ms, parts = merge_readings()
-        size = f"{MERGE_N >> 20}Mi"
+    for size, group, readings in ((f"{FILTER_N >> 20}Mi", "filter", filter_readings),
+                                  (f"{MERGE_N >> 20}Mi", "merge", merge_readings)):
+        if group not in only:
+            continue
+        ms, parts = readings()
         record(size, ms)
         for what, p in parts.items():
             out["breakdown"][f"{what}_{size}"] = p

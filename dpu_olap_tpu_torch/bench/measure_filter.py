@@ -8,9 +8,14 @@ and the sort's stage split on the card (counterpart of
   e2e       v1 (``ops/filter_cuda.py``) at 8Mi and 64Mi; beside it the chain
             step alone (``chain``) and v1's chain run eagerly (``v1_eager``,
             the launch gap).
-  parts     the v1 skeleton cut at a stage (``ops/filter_stages.py``: copy,
-            count, scan, full) at 8Mi, interleaved with ``torch.clone``
-            (``clone``), the pure-IO yardstick of the copy stage.
+  parts     v1's own one-sweep kernel cut at a stage
+            (``ops/filter_stages.py``: copy, count, prefix, lookback, full;
+            each one memset and one sweep launch on v1's ticket, launch
+            bounds and grid, full adding the tail pass; 8n bytes each) at
+            8Mi, interleaved with ``torch.clone`` (``clone``), the pure-IO
+            yardstick of the copy stage. The differences between
+            consecutive stages split v1's time: IO, predicate and count,
+            rank and staging, look-back, tail.
   v3        v1 against v3 and v2, and v1 against v3 with indices,
             interleaved, at 8Mi and 64Mi.
   v4        v4's parity with numpy on the card at 2Mi first, then v4
@@ -126,8 +131,8 @@ def _stage_step(stage):
     from ..ops import filter_stages
 
     def step(c):
-        out, tiles, cnt = filter_stages.filter_stage(c, stage)
-        return _mix(c, out if out is not None else tiles[:1], cnt)
+        out, _, cnt = filter_stages.filter_stage(c, stage)
+        return _mix(c, out, cnt)
     return step
 
 
@@ -187,7 +192,7 @@ def measure_e2e(results, device="cuda", sizes=SIZES["e2e"], reps=REPS):
 
 
 def measure_parts(results, device="cuda", sizes=SIZES["parts"], reps=REPS):
-    """The v1 skeleton cut at each stage and torch.clone, interleaved."""
+    """v1's kernel cut at each stage and torch.clone, interleaved."""
     import torch
 
     from ..ops.filter_stages import STAGES

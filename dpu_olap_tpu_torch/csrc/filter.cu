@@ -29,12 +29,13 @@
 //        writes them out as one contiguous run, 16 bytes a store where the
 //        run's address allows;
 //      - the last tile writes the count.
-//   2. tail_kernel writes `fill` (and n) over [count, n), 16 bytes a store
-//      where aligned: csrc/lookback.cuh's fill_lanes, as in
-//      csrc/partition.cu's pad.
+//   2. csrc/lookback.cuh's tail_kernel writes `fill` (and n) over [count,
+//      n), 16 bytes a store where aligned (fill_lanes, as in
+//      csrc/partition.cu's pad).
 // Work memory (ops/filter_cuda.py filter_plan): one 64-bit status word a
 // tile and the ticket, cleared by one cudaMemsetAsync: a call is one memset
 // and two launches, with no host decision, so it replays from a CUDA graph.
+// csrc/filter3.cu runs the same skeleton around its own in-tile design.
 // A tile that is not whole, or an input that is not 16-byte aligned (a
 // view), reads with 4-byte loads.
 //
@@ -42,30 +43,40 @@
 // once and every output lane written once, by the sweep or by the tail: 8n
 // bytes, 12n with indices.
 
-#include "filter_tiles.cuh"
+#include <cstdint>
+#include <cuda_runtime.h>
+
 #include "lookback.cuh"
 
 namespace {
 
-constexpr int THREADS = COUNT_THREADS;
+constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int VEC = 4;              // values of a 16-byte access
 constexpr int ROWS = 4;             // 16-byte accesses a thread makes
 constexpr int ROW = THREADS * VEC;  // values of a row of the tile
-constexpr int TAIL_BLOCKS = 1024;
+constexpr int TILE = ROWS * ROW;    // ops/filter_cuda.py TILE
 constexpr int SWEEP_BLOCKS_PER_SM = 6;  // see sweep_kernel
+constexpr unsigned FULL = 0xFFFFFFFFu;
 
-static_assert(ROWS * ROW == TILE, "a tile is the count pass's tile");
+// How far sweep_kernel runs: the whole filter, or one of the stage
+// ablation's cuts of it (see the end of the file).
+enum Stage { STAGE_COPY = 0, STAGE_COUNT = 1, STAGE_PREFIX = 2, STAGE_LOOKBACK = 3, STAGE_FULL = 4 };
 
-// Four values at x + i: one 16-byte load when `vec`, else four loads of the
-// positions below n.
-__device__ __forceinline__ uint4 load4(const uint32_t* __restrict__ x, long long i, long long n,
-                                       bool vec) {
-  if (vec) return *reinterpret_cast<const uint4*>(x + i);
-  uint32_t v[VEC];
+long long tiles_of(long long n) { return (n + TILE - 1) / TILE; }
+
+// The four values of w to out + i: one 16-byte store when `vec`, else a
+// store for each position below n.
+__device__ __forceinline__ void store4(uint32_t* __restrict__ out, long long i, long long n,
+                                       bool vec, uint4 w) {
+  if (vec) {
+    *reinterpret_cast<uint4*>(out + i) = w;
+    return;
+  }
+  const uint32_t v[VEC] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-  for (int e = 0; e < VEC; ++e) v[e] = i + e < n ? x[i + e] : 0u;
-  return make_uint4(v[0], v[1], v[2], v[3]);
+  for (int e = 0; e < VEC; ++e)
+    if (i + e < n) out[i + e] = v[e];
 }
 
 // dst[j] = src[j] for j < count by the block: a scalar head up to 16-byte
@@ -86,53 +97,39 @@ __device__ __forceinline__ void write_run(uint32_t* __restrict__ dst, const uint
   if (t < count - rest) dst[rest + t] = src[rest + t];
 }
 
-__device__ __forceinline__ unsigned warp_sum(unsigned v) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(FULL, v, d);
-  return v;
+// dst[j] = 0 for j < count by the block, stored as write_run stores.
+__device__ __forceinline__ void zero_run(uint32_t* __restrict__ dst, int count) {
+  const int t = threadIdx.x;
+  const uintptr_t word = reinterpret_cast<uintptr_t>(dst) >> 2;
+  const int head = min(count, (int)((4 - word) & 3));
+  if (t < head) dst[t] = 0u;
+  const int vecs = (count - head) / 4;
+  uint4* vd = reinterpret_cast<uint4*>(dst + head);
+  for (int j = t; j < vecs; j += THREADS) vd[j] = make_uint4(0u, 0u, 0u, 0u);
+  const int rest = head + 4 * vecs;
+  if (t < count - rest) dst[rest + t] = 0u;
 }
 
-// csrc/lookback.cuh's look_back<1> by one warp, 32 status words a step: the
-// kept values of the tiles before `tile`. It adds the counts of the
-// published words up to and including the nearest inclusive prefix, and
-// waits where a word before it is not published yet.
-__device__ __forceinline__ unsigned look_back_warp(const unsigned long long* status,
-                                                   long long tile) {
-  const int lane = threadIdx.x & 31;
-  const volatile unsigned long long* words = status;
-  unsigned before = 0;
-  long long t = tile - 1;  // the nearest tile not added yet
-  for (;;) {
-    const long long j = t - lane;
-    const unsigned long long w = j >= 0 ? words[j] : FLAG_PREFIX;
-    const unsigned long long flag = w & ~0xFFFFFFFFull;
-    const unsigned pre = __ballot_sync(FULL, flag == FLAG_PREFIX);
-    const unsigned unpub = __ballot_sync(FULL, flag == 0);
-    const unsigned stop = pre & (0u - pre);  // the nearest inclusive prefix
-    if (pre && !(unpub & (stop - 1u)))
-      return before + warp_sum(lane < __ffs(pre) ? (unsigned)w : 0u);
-    const int passed = unpub ? __ffs(unpub) - 1 : 32;  // aggregates before the first gap
-    before += warp_sum(lane < passed ? (unsigned)w : 0u);
-    t -= passed;
-    if (passed == 0) __nanosleep(32);
-  }
-}
-
-// One tile of the sweep (see the note at the top). Value (k, e) of a thread
-// is tile position k * ROW + threadIdx.x * VEC + e. status: ntiles words and
-// the ticket, zero at the start. tile_offs, when not null, receives each
-// tile's exclusive offset (the stage ablation's output). At most 40
+// One tile of the sweep (see the note at the top), up to STAGE. Value (k,
+// e) of a thread is tile position k * ROW + threadIdx.x * VEC + e. status:
+// ntiles words and the ticket, zero at the start. tile_offs, when not
+// null, receives each tile's exclusive offset (the stage ablation's
+// output; its cut stages write the tile's count there). At most 40
 // registers a thread, so that six blocks share an SM: a tile holds its
 // loads in flight only until its look-back, and more tiles an SM keep more
 // bytes in flight. Measured beside four blocks at 52 registers and eight at
-// 32 (PERF.md §6), it was the fastest.
-template <bool IDX>
+// 32 (PERF.md §6), it was the fastest. The cut stages keep the bounds, the
+// ticket and the grid, and end where the stage ends: copy stores the loaded
+// tile back in place, count stores it back too (before its ballots, so that
+// the tile is not held across the barrier), prefix writes the tile's
+// compaction at the tile's own base.
+template <bool IDX, int STAGE>
 __global__ void __launch_bounds__(THREADS, SWEEP_BLOCKS_PER_SM)
 sweep_kernel(const uint32_t* __restrict__ x, long long n, uint32_t thr, bool vec,
              long long ntiles, uint32_t* __restrict__ out, uint32_t* __restrict__ sel,
              uint32_t* __restrict__ count, uint32_t* __restrict__ tile_offs, unsigned* ticket,
              unsigned long long* status) {
-  __shared__ uint32_t s_val[TILE];
+  __shared__ uint32_t s_val[STAGE >= STAGE_PREFIX ? TILE : 1];
   __shared__ uint32_t s_row[IDX ? TILE : 1];
   __shared__ unsigned s_warp[ROWS][WARPS];  // a warp's kept values in a row
   __shared__ unsigned s_tile, s_before;
@@ -149,6 +146,12 @@ sweep_kernel(const uint32_t* __restrict__ x, long long n, uint32_t thr, bool vec
   uint4 w[ROWS];  // every load started before any is used
 #pragma unroll
   for (int k = 0; k < ROWS; ++k) w[k] = load4(x, base + k * ROW + mine0, n, whole);
+  if constexpr (STAGE == STAGE_COPY) {
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) store4(out, base + k * ROW + mine0, n, whole, w[k]);
+    if (threadIdx.x == 0 && tile == ntiles - 1) *count = 0;
+    return;
+  }
   uint32_t v[ROWS][VEC];
   unsigned keep = 0;  // bit 4k + e
 #pragma unroll
@@ -157,6 +160,10 @@ sweep_kernel(const uint32_t* __restrict__ x, long long n, uint32_t thr, bool vec
     v[k][0] = w[k].x, v[k][1] = w[k].y, v[k][2] = w[k].z, v[k][3] = w[k].w;
 #pragma unroll
     for (int e = 0; e < VEC; ++e) keep |= v[k][e] < thr && i + e < n ? 1u << (VEC * k + e) : 0u;
+  }
+  if constexpr (STAGE == STAGE_COUNT) {  // stored as loaded, before the ballots
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) store4(out, base + k * ROW + mine0, n, whole, w[k]);
   }
 
   // rank[k]: the kept values of the warp's row k before the thread's run
@@ -184,8 +191,16 @@ sweep_kernel(const uint32_t* __restrict__ x, long long n, uint32_t thr, bool vec
     }
     rank[k] += pre;
   }
+  if constexpr (STAGE == STAGE_COUNT) {
+    if (threadIdx.x == 0) {
+      tile_offs[tile] = total;
+      if (tile == ntiles - 1) *count = 0;
+    }
+    return;
+  }
   unsigned long long* word = status + tile;
-  if (threadIdx.x == 0) publish(word, tile == 0 ? FLAG_PREFIX : FLAG_AGG, total);
+  if (STAGE == STAGE_FULL && threadIdx.x == 0)
+    publish(word, tile == 0 ? FLAG_PREFIX : FLAG_AGG, total);
 
   // stage the kept values in input order while the earlier tiles publish
 #pragma unroll
@@ -199,6 +214,17 @@ sweep_kernel(const uint32_t* __restrict__ x, long long n, uint32_t thr, bool vec
         ++r;
       }
     }
+  }
+  if constexpr (STAGE == STAGE_PREFIX) {
+    if (threadIdx.x == 0) {
+      tile_offs[tile] = total;
+      if (tile == ntiles - 1) *count = 0;
+    }
+    __syncthreads();
+    const int len = (int)min((long long)TILE, n - base);
+    write_run(out + base, s_val, (int)total);
+    zero_run(out + base + total, len - (int)total);
+    return;
   }
   if (warp == 0) {
     unsigned before = 0;  // kept values in the earlier tiles
@@ -218,36 +244,34 @@ sweep_kernel(const uint32_t* __restrict__ x, long long n, uint32_t thr, bool vec
   if constexpr (IDX) write_run(sel + before, s_row, (int)total);
 }
 
-// out[count:] = fill, sel[count:] = n.
-__global__ void __launch_bounds__(THREADS)
-tail_kernel(const uint32_t* __restrict__ count, long long n, uint32_t fill,
-            uint32_t* __restrict__ out, uint32_t* __restrict__ sel) {
-  const long long from = *count;
-  if (from >= n) return;
-  fill_lanes<THREADS>(out, from, n, fill);
-  if (sel) fill_lanes<THREADS>(sel, from, n, (uint32_t)n);
+// One memset of the work words, then the sweep up to STAGE (STAGE_FULL:
+// the whole sweep); n > 0.
+template <int STAGE>
+cudaError_t run_sweep(const uint32_t* x, long long n, uint32_t thr, bool vec, uint32_t* out,
+                      uint32_t* sel, unsigned long long* work, uint32_t* count,
+                      uint32_t* tile_offs, cudaStream_t s) {
+  const long long ntiles = tiles_of(n);
+  cudaError_t err = cudaMemsetAsync(work, 0, (size_t)(ntiles + 1) * 8, s);
+  if (err != cudaSuccess) return err;
+  unsigned* ticket = reinterpret_cast<unsigned*>(work + ntiles);
+  if (STAGE == STAGE_FULL && sel)
+    sweep_kernel<true, STAGE_FULL><<<(unsigned)ntiles, THREADS, 0, s>>>(
+        x, n, thr, vec, ntiles, out, sel, count, tile_offs, ticket, work);
+  else
+    sweep_kernel<false, STAGE><<<(unsigned)ntiles, THREADS, 0, s>>>(
+        x, n, thr, vec, ntiles, out, sel, count, tile_offs, ticket, work);
+  return cudaGetLastError();
 }
 
 cudaError_t run_filter(const uint32_t* x, long long n, uint32_t thr, uint32_t fill,
                        uint32_t* out, uint32_t* sel, unsigned long long* work, uint32_t* count,
                        uint32_t* tile_offs, cudaStream_t s) {
   if (n == 0) return cudaMemsetAsync(count, 0, sizeof(uint32_t), s);
-  const long long ntiles = tiles_of(n);
-  cudaError_t err = cudaMemsetAsync(work, 0, (size_t)(ntiles + 1) * 8, s);
-  if (err != cudaSuccess) return err;
-  unsigned* ticket = reinterpret_cast<unsigned*>(work + ntiles);
   const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  if (sel)
-    sweep_kernel<true><<<(unsigned)ntiles, THREADS, 0, s>>>(x, n, thr, vec, ntiles, out, sel,
-                                                            count, tile_offs, ticket, work);
-  else
-    sweep_kernel<false><<<(unsigned)ntiles, THREADS, 0, s>>>(x, n, thr, vec, ntiles, out, sel,
-                                                             count, tile_offs, ticket, work);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const long long blocks = (n / 4 + THREADS - 1) / THREADS + 1;
-  tail_kernel<<<(unsigned)(blocks < TAIL_BLOCKS ? blocks : TAIL_BLOCKS), THREADS, 0, s>>>(
-      count, n, fill, out, sel);
-  return cudaGetLastError();
+  const cudaError_t err = run_sweep<STAGE_FULL>(x, n, thr, vec, out, sel, work, count,
+                                                tile_offs, s);
+  if (err != cudaSuccess) return err;
+  return launch_tail<THREADS>(count, n, fill, out, sel, s);
 }
 
 }  // namespace
@@ -272,72 +296,63 @@ extern "C" int dpu_filter_u32(const void* x, long long n, unsigned thr,
 // ---- the stage ablation ----------------------------------------------------
 // Counterpart of the TPU filter's stage-ablated variants
 // (scripts/measure_filter.py _variant_kernel/_variant, section `parts`):
-// the filter cut at a stage. The first three stages are the two-pass
-// skeleton of csrc/filter_tiles.cuh (a count pass, then a one-block scan)
-// that filter3.cu and filter4.cu use; v1 is the one sweep above, so their
-// differences do not split v1's time. Every stage writes what its caller
-// reads:
-//   STAGE_COPY  reads each tile and writes it to out (pure IO, 8n bytes);
-//               *count = 0;
-//   STAGE_COUNT the tile-count pass: tile_offs[t] = tile t's kept values
-//               (4n bytes read); *count = 0;
-//   STAGE_SCAN  count + the tile scan: tile_offs = exclusive tile offsets,
-//               *count = the total (the TPU's `prefix` stage);
-//   STAGE_FULL  the whole v1 filter into out (fill 0, no indices), with
-//               each tile's exclusive offset in tile_offs.
+// the filter cut at a stage of its own kernel. Every stage is one memset of
+// filter_plan's work words and one sweep_kernel launch with v1's ticket,
+// launch bounds and grid (full adds the tail pass), reads the input once
+// and writes n values (lookback: count of them), so the differences
+// between consecutive stages split v1's time. The predicate is v < 2^30.
+//   STAGE_COPY     the tile's loads, stored back in place: out = the
+//                  values; *count = 0;
+//   STAGE_COUNT    + the predicate, the three ballots a row and the tile
+//                  total: out = the values; tile_offs[t] = tile t's kept
+//                  values; *count = 0;
+//   STAGE_PREFIX   + the ranks and the kept values staged in shared memory,
+//                  written at the tile's own base with zeros up to the
+//                  tile's end: out = each tile's own compaction; tile_offs =
+//                  the counts; *count = 0;
+//   STAGE_LOOKBACK + publish and the warp look-back, the run written at its
+//                  global offset (v1's sweep, no tail pass): out[:count] =
+//                  v1's, out[count:] not written; tile_offs = exclusive
+//                  offsets; *count = the total;
+//   STAGE_FULL     v1 with fill 0 (sweep + tail pass), tile_offs as above.
 // The TPU stages `lane_levels` and `row_levels` time the butterfly network's
 // levels, which this kernel does not have; they have no counterpart.
 
 namespace {
-
-enum Stage { STAGE_COPY = 0, STAGE_COUNT = 1, STAGE_SCAN = 2, STAGE_FULL = 3 };
 constexpr uint32_t STAGE_THRESHOLD = 1u << 30;  // the TPU variants' predicate v < 2^30
-
-// The two-pass skeleton's read and write pattern with no selection.
-__global__ void tile_copy_kernel(const uint32_t* __restrict__ x, long long n,
-                                 uint32_t* __restrict__ out) {
-  const long long base = (long long)blockIdx.x * TILE;
-#pragma unroll
-  for (int j = 0; j < COUNT_ITEMS; ++j) {
-    const long long i = base + j * THREADS + threadIdx.x;
-    if (i < n) out[i] = x[i];
-  }
-}
-
 }  // namespace
 
 // Run the v1 filter of the n values at x (predicate v < 2^30) up to `stage`
-// (0 copy, 1 count, 2 scan, 3 full; see above). out (n uint32) is written by
-// copy and full and may be null for count and scan; tile_offs holds
-// ceil(n / TILE) uint32; work (filter_plan's words) is read by full only and
-// may be null for the others; count is one device uint32. Launches on
-// `stream`, does not synchronise; returns 0 or the first CUDA error.
+// (0 copy, 1 count, 2 prefix, 3 lookback, 4 full; see above). out holds n
+// uint32, tile_offs ceil(n / 4096) uint32, work filter_plan's words, count
+// one device uint32; none may be null. Launches on `stream`, does not
+// synchronise; returns 0 or the first CUDA error.
 extern "C" int dpu_filter_stage_u32(const void* x, long long n, int stage, void* out,
                                     void* tile_offs, void* work, void* count, void* stream) {
   if (n < 0 || n > 0xFFFFFFFFLL || stage < STAGE_COPY || stage > STAGE_FULL)
     return (int)cudaErrorInvalidValue;
-  if ((stage == STAGE_COPY || stage == STAGE_FULL) && out == nullptr)
+  if (out == nullptr || tile_offs == nullptr || work == nullptr || count == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (stage == STAGE_FULL && work == nullptr) return (int)cudaErrorInvalidValue;
   const uint32_t thr = STAGE_THRESHOLD;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t* xs = static_cast<const uint32_t*>(x);
+  uint32_t* o = static_cast<uint32_t*>(out);
   uint32_t* offs = static_cast<uint32_t*>(tile_offs);
+  unsigned long long* w = static_cast<unsigned long long*>(work);
   uint32_t* cnt = static_cast<uint32_t*>(count);
-  if (stage == STAGE_FULL)
-    return (int)run_filter(xs, n, thr, 0u, static_cast<uint32_t*>(out), nullptr,
-                           static_cast<unsigned long long*>(work), cnt, offs, s);
-  if (n == 0 || stage != STAGE_SCAN) {
-    const cudaError_t err = cudaMemsetAsync(cnt, 0, sizeof(uint32_t), s);
-    if (err != cudaSuccess || n == 0) return (int)err;
+  if (stage == STAGE_FULL) return (int)run_filter(xs, n, thr, 0u, o, nullptr, w, cnt, offs, s);
+  if (n == 0) return (int)cudaMemsetAsync(cnt, 0, sizeof(uint32_t), s);
+  // the cut stages store whole tiles with 16-byte stores only where out is aligned too
+  const bool vec = reinterpret_cast<uintptr_t>(xs) % 16 == 0;
+  const bool vec_io = vec && reinterpret_cast<uintptr_t>(o) % 16 == 0;
+  switch (stage) {
+    case STAGE_COPY:
+      return (int)run_sweep<STAGE_COPY>(xs, n, thr, vec_io, o, nullptr, w, cnt, offs, s);
+    case STAGE_COUNT:
+      return (int)run_sweep<STAGE_COUNT>(xs, n, thr, vec_io, o, nullptr, w, cnt, offs, s);
+    case STAGE_PREFIX:
+      return (int)run_sweep<STAGE_PREFIX>(xs, n, thr, vec, o, nullptr, w, cnt, offs, s);
+    default:  // STAGE_LOOKBACK: v1's whole sweep, without the tail pass
+      return (int)run_sweep<STAGE_FULL>(xs, n, thr, vec, o, nullptr, w, cnt, offs, s);
   }
-  const long long ntiles = tiles_of(n);
-  if (stage == STAGE_COPY) {
-    tile_copy_kernel<<<(unsigned)ntiles, THREADS, 0, s>>>(xs, n, static_cast<uint32_t*>(out));
-  } else if (stage == STAGE_COUNT) {
-    tile_count_kernel<<<(unsigned)ntiles, COUNT_THREADS, 0, s>>>(xs, n, thr, offs);
-  } else {
-    return (int)count_and_scan(xs, n, thr, offs, cnt, s);
-  }
-  return (int)cudaGetLastError();
 }

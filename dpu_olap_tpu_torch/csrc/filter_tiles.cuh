@@ -1,10 +1,9 @@
-// The two passes that give the filter kernels their tile offsets: a tile
-// count and a one-block exclusive scan of the counts. filter3.cu and
-// filter4.cu take their offsets from them, and csrc/filter.cu's stage
-// ablation times them; they stand in for the TPU kernels' sequential SMEM
-// offset carry (blocks here run in no order). v1 itself (csrc/filter.cu)
-// carries its offsets by a look-back instead and uses only TILE and
-// tiles_of. Included by each of those sources: the kernels are per file.
+// The two passes that give filter v4 (csrc/filter4.cu) its tile offsets: a
+// tile count and a one-block exclusive scan of the counts. They stand in
+// for the TPU kernels' sequential SMEM offset carry (blocks here run in no
+// order). v4 is their only user: v1 (csrc/filter.cu), its stage ablation
+// and v3 (csrc/filter3.cu) carry their offsets by a decoupled look-back
+// (csrc/lookback.cuh) in one sweep instead.
 
 #pragma once
 
@@ -15,7 +14,7 @@ namespace {
 
 constexpr int COUNT_THREADS = 256;
 constexpr int COUNT_ITEMS = 16;  // elements per thread per tile
-constexpr int TILE = COUNT_THREADS * COUNT_ITEMS;  // ops/filter_cuda.py TILE
+constexpr int TILE = COUNT_THREADS * COUNT_ITEMS;  // ops/filter_alt_cuda.py TILE
 constexpr int SCAN_THREADS = 1024;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 

@@ -49,11 +49,12 @@ _SIGNATURES = {
     # (x, n, threshold, fill, out, sel or NULL, work, count, stream)
     "dpu_filter_u32": [_P, _LL, ctypes.c_uint, ctypes.c_uint, _P, _P, _P, _P, _P],
     # (x, n, threshold, fill, out, sel or NULL, scratch, count, stream): the
-    # filter alternates v2 (scratch: ticket + tile words), v3 and v4 (tile offsets)
+    # filter alternates v2 (scratch: ticket + tile words), v3 (tile words +
+    # ticket) and v4 (tile offsets)
     "dpu_filter2_u32": [_P, _LL, ctypes.c_uint, ctypes.c_uint, _P, _P, _P, _P, _P],
     "dpu_filter3_u32": [_P, _LL, ctypes.c_uint, ctypes.c_uint, _P, _P, _P, _P, _P],
     "dpu_filter4_u32": [_P, _LL, ctypes.c_uint, ctypes.c_uint, _P, _P, _P, _P, _P],
-    # (x, n, stage, out or NULL, tile_offs, work or NULL, count, stream)
+    # (x, n, stage, out, tile_offs, work, count, stream)
     "dpu_filter_stage_u32": [_P, _LL, ctypes.c_int, _P, _P, _P, _P, _P],
     # (x, n, out_u64, stream)
     "dpu_sum_u32": [_P, _LL, _P, _P],

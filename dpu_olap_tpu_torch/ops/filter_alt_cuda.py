@@ -10,13 +10,15 @@ alternates v2, v3 and v4, three Hopper designs of v1's function
   v3  ``csrc/filter3.cu`` (``filter_pallas3.py``: ``filter_compact_pallas3``,
       ``filter_pallas3_padded`` and ``filter_with_indices_pallas3``,
       ``_call`` at :215): compaction staged in shared memory and written
-      out whole. v1's tile count and scan, then per tile: each warp's kept
-      values to the front of its slice of shared memory, the warps' runs
-      packed, the run stored with 16-byte writes.
+      out whole, on v1's one-sweep skeleton (a ticket, a warp look-back, a
+      tail pass). Per tile: each warp's kept values to the front of its
+      slice of shared memory, the warps' runs packed, the run stored with
+      16-byte writes.
   v4  ``csrc/filter4.cu`` (``filter_pallas4.py``: ``filter_compact_pallas4``,
       ``filter_pallas4_padded`` and ``filter_with_indices_pallas4``,
       ``_call`` at :200): the scan and the inverse map on the tensor cores.
-      v1's tile count and scan, then per 16x16 fragment: the in-row prefix,
+      A tile count and a one-block scan (``csrc/filter_tiles.cuh``), then
+      per 16x16 fragment: the in-row prefix,
       the row starts and each output slot's source row as exact counting
       products with wmma, a front-compaction of each row and a gather.
 
@@ -50,13 +52,14 @@ from . import filter_cuda
 from .filter_cuda import THRESHOLD, _as_i32, below, check_threshold, compact_scatter, on_cpu
 
 VERSIONS = ("v2", "v3", "v4")
-TILE = 4096  # elements per block of each kernel (csrc/filter2.cu, csrc/filter_tiles.cuh TILE)
+TILE = 4096  # elements per block of each kernel (csrc/filter2.cu, filter3.cu, filter_tiles.cuh TILE)
 # version: (C entry point, scratch dtype, scratch words beyond one a tile).
 # v2's scratch is the tile ticket, then one (flag, value) status word a
-# tile; v3's and v4's are v1's tile offsets.
+# tile; v3's is one status word a tile, then the ticket (v1's
+# ``filter_plan``); v4's is the tile offsets.
 _ENTRIES = {
     "v2": ("dpu_filter2_u32", torch.int64, 1),
-    "v3": ("dpu_filter3_u32", torch.uint32, 0),
+    "v3": ("dpu_filter3_u32", torch.int64, 1),
     "v4": ("dpu_filter4_u32", torch.uint32, 0),
 }
 LAUNCHES = dict.fromkeys(VERSIONS, 0)  # kernel launches of each version
@@ -65,6 +68,13 @@ LAUNCHES = dict.fromkeys(VERSIONS, 0)  # kernel launches of each version
 def _check_version(version: str) -> None:
     if version not in VERSIONS:
         raise ValueError(f"filter version must be one of {VERSIONS}, got {version!r}")
+
+
+def scratch_words(version: str, n: int) -> int:
+    """The words of ``version``'s scratch for a call of n values (at least
+    one, so that a call of none still gets a pointer)."""
+    _check_version(version)
+    return max(1, -(-n // TILE) + _ENTRIES[version][2])
 
 
 def _gather_form(values: torch.Tensor, threshold: int, fill: int, with_indices: bool):
@@ -104,8 +114,8 @@ def _run(values: torch.Tensor, version: str, threshold: int, fill: int, with_ind
     thr = check_threshold(threshold)
     if on_cpu(values, f"filter {version}"):
         return _ref(values, version, thr, fill, with_indices)
-    entry, dtype, extra = _ENTRIES[version]
-    scratch = torch.empty(max(1, -(-values.shape[0] // TILE) + extra), dtype=dtype,
+    entry, dtype, _ = _ENTRIES[version]
+    scratch = torch.empty(scratch_words(version, values.shape[0]), dtype=dtype,
                           device=values.device)
     res = filter_cuda.run_entry(entry, values, thr, fill, with_indices, scratch,
                                 f"filter {version}")

@@ -4,8 +4,10 @@ one bucket with and without overflow, P = 16 with two payload groups), the
 merge-probe kernel (csrc/merge_probe.cu: empty and one-key sides, sparse
 and dense probes, keys outside the build range, a run over tile edges, an
 unsorted and a misaligned probe), the filter alternates
-(csrc/filter2.cu, filter3.cu, filter4.cu) and the filter stage ablation
-(csrc/filter.cu), the in-block primitive ops (csrc/block_ops.cu), the
+(csrc/filter2.cu, filter3.cu, filter4.cu; v3 also at its one-sweep edges,
+with indices at 8Mi and 64Mi, and replayed from a graph) and the five
+stages of the filter stage ablation (csrc/filter.cu; lookback on
+[:count]), the in-block primitive ops (csrc/block_ops.cu), the
 probe primitives (csrc/probes.cu), the sort's tile stage (csrc/sort.cu),
 the radix sort (csrc/radix_sort.cu) and the sorted gather (csrc/gather.cu),
 the block merge (csrc/sort.cu: every pass structure of merge_plan, ties,
@@ -236,6 +238,9 @@ def test_filter_stage_matches_plain(cuda_device, stage, n):
     assert filter_stages.LAUNCHES == before + 1
     ref = filter_stages.filter_stage_ref(x, stage)
     assert [g is None for g in got] == [r is None for r in ref]
+    if stage == "lookback":  # the stage leaves out[count:] unwritten
+        c = int(ref[2])
+        got, ref = (got[0][:c], *got[1:]), (ref[0][:c], *ref[1:])
     _same([g for g in got if g is not None], [r for r in ref if r is not None])
 
 
@@ -506,6 +511,77 @@ def test_filter_kernel_matches_plain(cuda_device, n, kind, offset):
     keep = v < filter_cuda.THRESHOLD
     assert int(got[1]) == keep.sum()
     assert np.array_equal(got_i[1].cpu().numpy()[: keep.sum()], np.flatnonzero(keep))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, FILTER_TILE - 1, FILTER_TILE, FILTER_TILE + 1,
+                               3 * FILTER_TILE + 17, (1 << 20) + 3])
+@pytest.mark.parametrize("kind", ["random", "all_kept", "none_kept", "one_in_last_tile"])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_filter_v3_at_the_one_sweep_edges(cuda_device, n, kind, offset):
+    """v3 against its plain version and v1's kernel, whole arrays with their
+    tails: lengths around a tile, every value kept or none, one kept value
+    in the last tile, and input views that are not 16-byte aligned."""
+    v = _filter_values(kind, n, np.random.default_rng(n + 7))
+    x = torch.from_numpy(np.concatenate([np.zeros(offset, np.uint32), v])).to(cuda_device)[offset:]
+    before = filter_alt_cuda.LAUNCHES["v3"]
+    got = filter_alt_cuda.filter_compact(x, "v3", filter_cuda.THRESHOLD, 0xDEADBEEF)
+    got_i = filter_alt_cuda.filter_with_indices(x, "v3")
+    assert filter_alt_cuda.LAUNCHES["v3"] == before + 2
+    _same(got, filter_alt_cuda.filter_compact_ref(x, "v3", filter_cuda.THRESHOLD, 0xDEADBEEF))
+    _same(got_i, filter_alt_cuda.filter_with_indices_ref(x, "v3"))
+    _same(got, filter_cuda.filter_compact(x, 0xDEADBEEF))
+    _same(got_i, filter_cuda.filter_with_indices(x))
+    keep = v < filter_cuda.THRESHOLD
+    assert int(got[1]) == keep.sum()
+    assert np.array_equal(got_i[1].cpu().numpy()[: keep.sum()], np.flatnonzero(keep))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8 << 20, 64 << 20])
+def test_filter_v3_with_indices_at_scale(cuda_device, n):
+    """v3 with indices at measure_filter's two sizes, against its plain
+    version and v1's kernel, compared on the card."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    x = torch.randint(-2**31, 2**31, (n,), dtype=torch.int32, device=cuda_device,
+                      generator=gen).view(torch.uint32)
+    got = filter_alt_cuda.filter_with_indices(x, "v3")
+    for ref in (filter_alt_cuda.filter_with_indices_ref(x, "v3"), filter_cuda.filter_with_indices(x)):
+        assert all(torch.equal(g.view(torch.int32), r.view(torch.int32)) for g, r in zip(got, ref))
+
+
+@pytest.mark.cuda
+def test_filter_v3_back_to_back_and_replayed_in_a_graph(cuda_device):
+    """v3 called twice in a row, then captured in a CUDA graph and replayed
+    twice on new inputs: each call clears its own ticket and status words."""
+    rng = np.random.default_rng(29)
+    n = 9 * FILTER_TILE + 7
+    key = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(cuda_device)
+
+    def step():
+        return (*filter_alt_cuda.filter_with_indices(key, "v3"),
+                *filter_alt_cuda.filter_compact(key, "v3", 1 << 31, 3))
+
+    def ref():
+        return (*filter_alt_cuda.filter_with_indices_ref(key, "v3"),
+                *filter_alt_cuda.filter_compact_ref(key, "v3", 1 << 31, 3))
+
+    first, second = step(), step()
+    _same(first, second)
+    _same(second, ref())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    for _ in range(2):
+        key.copy_(torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        _same(outs, ref())
 
 
 @pytest.mark.cuda

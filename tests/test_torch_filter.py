@@ -12,6 +12,7 @@ from dpu_olap_tpu.ops import filter as jax_filter
 from dpu_olap_tpu.ops.filter_pallas import (
     DEF_R,
     LANES,
+    filter_compact_pallas,
     filter_pallas_padded,
     filter_with_indices_pallas,
 )
@@ -206,3 +207,63 @@ def test_filter_plan_hand_worked(n, tiles, work_words):
 def test_filter_argument_checks(call, match):
     with pytest.raises(ValueError, match=match):
         call()
+
+
+STAGE_TILE = filter_cuda.TILE
+STAGE_SIZES = [1, STAGE_TILE - 1, STAGE_TILE, STAGE_TILE + 1, 3 * STAGE_TILE + 17, 20000]
+
+
+def _tile_counts(v):
+    """Each tile's count of v < 2^30, in numpy."""
+    keep = (v < T).astype(np.int64)
+    return np.add.reduceat(keep, np.arange(0, len(v), STAGE_TILE)) if len(v) else keep
+
+
+@pytest.mark.parametrize("n", STAGE_SIZES)
+@pytest.mark.parametrize("stage", filter_stages.STAGES)
+def test_filter_stage_ref_outputs(stage, n):
+    """filter_stage_ref gives each stage's outputs as csrc/filter.cu's cut
+    of v1 writes them."""
+    v = np.random.default_rng(n).integers(0, 2**32, n, dtype=np.uint32)
+    x = torch.from_numpy(v)
+    out, tiles, count = filter_stages.filter_stage_ref(x, stage)
+    assert out.dtype == count.dtype == torch.uint32 and count.dim() == 0 and out.shape == (n,)
+    counts = _tile_counts(v)
+    offs = np.cumsum(counts) - counts
+    if stage == "copy":
+        assert tiles is None and int(count) == 0
+        np.testing.assert_array_equal(out.numpy(), v)
+        return
+    assert tiles.dtype == torch.uint32 and tiles.shape == (-(-n // STAGE_TILE),)
+    if stage == "count":
+        assert int(count) == 0
+        np.testing.assert_array_equal(out.numpy(), v)
+        np.testing.assert_array_equal(tiles.numpy(), counts)
+    elif stage == "prefix":
+        assert int(count) == 0
+        np.testing.assert_array_equal(tiles.numpy(), counts)
+        for b in range(0, n, STAGE_TILE):  # each tile is compacted on its own
+            tv = x[b: b + STAGE_TILE]
+            own, c = filter_cuda.compact_scatter(tv, filter_cuda.below_threshold(tv), 0)
+            np.testing.assert_array_equal(out.numpy()[b: b + STAGE_TILE], own.numpy())
+            assert int(c) == counts[b // STAGE_TILE]
+    else:
+        v1, c1 = filter_cuda.filter_compact(x, 0)
+        assert int(count) == int(c1) == (v < T).sum()
+        np.testing.assert_array_equal(tiles.numpy(), offs)
+        if stage == "lookback":  # the kernel leaves out[count:] unwritten
+            np.testing.assert_array_equal(out.numpy()[: int(c1)], v1.numpy()[: int(c1)])
+        else:
+            np.testing.assert_array_equal(out.numpy(), v1.numpy())
+
+
+def test_filter_stage_full_matches_jax_pallas():
+    """The full stage at a whole TPU block equals the Pallas v1 kernel in
+    interpret mode on [:count] (its tail is undefined) and fill 0 past it."""
+    v = _pattern("random", BLK, np.random.default_rng(23))
+    out, _, count = filter_stages.filter_stage_ref(torch.from_numpy(v), "full")
+    jout, jcnt = filter_compact_pallas(jnp.asarray(v), interpret=True)
+    c = int(jcnt)
+    assert int(count) == c == (v < T).sum()
+    np.testing.assert_array_equal(out.numpy()[:c], np.asarray(jout)[:c])
+    assert np.all(out.numpy()[c:] == 0)

@@ -27,6 +27,7 @@ from dpu_olap_tpu.ops.filter_pallas4 import (
     filter_with_indices_pallas4,
 )
 from dpu_olap_tpu_torch.ops import filter_alt_cuda as alt
+from dpu_olap_tpu_torch.ops import filter_cuda
 
 THR = 1 << 30
 THRESHOLDS = [THR, 0, 1 << 31, 0xFFFFFFFF]
@@ -181,3 +182,21 @@ def test_v2_plain_version_is_the_gather_form():
         ref = alt.filter_with_indices_ref(t, "v3", thr)
         for g, r in zip(got, ref):
             np.testing.assert_array_equal(g.numpy(), r.numpy())
+
+
+# n: tiles of 4096 values (at least one scratch word, so a call of none
+# still gets a pointer)
+SCRATCH_CASES = [(0, 0), (1, 1), (4096, 1), (4097, 2), (8 << 20, 2048), (64 << 20, 16384),
+                 ((1 << 32) - 1, 1 << 20)]
+
+
+@pytest.mark.parametrize("n, tiles", SCRATCH_CASES)
+@pytest.mark.parametrize("version", list(VERSIONS))
+def test_scratch_words_hand_worked(version, n, tiles):
+    words = alt.scratch_words(version, n)
+    if version == "v4":  # the tile offsets of the count and scan passes
+        assert words == max(1, tiles)
+    else:  # v2: the ticket, then a status word a tile; v3: v1's filter_plan
+        assert words == tiles + 1
+    if version == "v3":
+        assert words == filter_cuda.filter_plan(n).work_words

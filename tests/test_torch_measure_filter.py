@@ -25,7 +25,7 @@ def results():
 
 EXPECTED = {
     "e2e": ["v1_20K", "chain_20K", "v1_eager_20K"],
-    "parts": ["copy_20K", "count_20K", "scan_20K", "full_20K", "clone_20K"],
+    "parts": ["copy_20K", "count_20K", "prefix_20K", "lookback_20K", "full_20K", "clone_20K"],
     "v3": ["v1_20K", "v3_20K", "v2_20K", "v1wi_20K", "v3wi_20K"],
     "v4": ["v4_20K", "v3_20K", "v1_20K", "v4wi_20K", "v1wi_20K"],
     "defaultab": ["v1_20K#0", "v3_20K#0", "v1b_20K#0", "v3b_20K#0"],
@@ -48,7 +48,7 @@ def test_section_candidates(results, section):
 def test_run_prints_one_line_per_candidate(capsys):
     mf.run(["parts"], device="cpu", sizes=SIZES, reps=1)
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[measure_filter] parts ")]
-    assert len(lines) == 5
+    assert len(lines) == len(EXPECTED["parts"])
 
 
 def test_record_flags_a_reading_under_its_floor():
