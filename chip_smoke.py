@@ -612,9 +612,9 @@ def phase_filter_alternates(rng, card: str) -> dict:
     their plain versions, whole arrays with their tails, with and without
     indices, and against v1's kernel where v1 computes the same function
     (threshold 2^30): 64Mi and 8Mi random (measure_filter's two sizes),
-    3·2^20+17, 1, 4095-4097 (around the tile), v3 also on views at offsets
-    1-3, all pass, none pass, one kept value at the end; thresholds
-    2^30, 0, 2^31 and 0xFFFFFFFF; the _padded wrappers with fill 7. Timed
+    3·2^20+17, 1, 4095-4097 (around the tile), views at offsets 1-3, all
+    pass, none pass, one kept value at the end; thresholds 2^30, 0, 2^31
+    and 0xFFFFFFFF; the _padded wrappers with fill 7. Timed
     at 64Mi, eager and as graph replays, beside the bound, the plain
     version and predicate + masked_select."""
     import torch
@@ -635,7 +635,8 @@ def phase_filter_alternates(rng, card: str) -> dict:
         ("all pass", rng.integers(0, t, odd, dtype=np.uint32), (t,)),
         ("none pass", rng.integers(t, 2**32, odd, dtype=np.uint32), (t,)),
         ("one kept value at the end", one_end, (t,)),
-        *((f"random {n}", rng.integers(0, 2**32, n, dtype=np.uint32), (t,))
+        *((f"random {n}", rng.integers(0, 2**32, n, dtype=np.uint32),
+           (t, 0, 1 << 31, 0xFFFFFFFF))
           for n in (4095, 4096, 4097)),  # around the one-sweep kernels' tile
     ]
     errs = dict.fromkeys(alt.VERSIONS, 0)
@@ -669,15 +670,16 @@ def phase_filter_alternates(rng, card: str) -> dict:
               f" {', '.join(f'{x:#x}' for x in thresholds)}: v2, v3, v4 == plain (and == v1 at"
               f" 2^30, padded with fill 7 too), with and without indices", flush=True)
     views = on_card(cases[2][1])
-    for off in (1, 2, 3):  # v3 reads a view that is not 16-byte aligned with 4-byte loads
+    for off in (1, 2, 3):  # a view that is not 16-byte aligned is read with 4-byte loads
         xv = views[off:]
-        got = alt.filter_compact(xv, "v3", t, 7), alt.filter_with_indices(xv, "v3", t)
-        ref = alt.filter_compact_ref(xv, "v3", t, 7), alt.filter_with_indices_ref(xv, "v3", t)
         v1 = filter_cuda.filter_compact(xv, 7), filter_cuda.filter_with_indices(xv)
-        require(all(card_equal(g, r) and card_equal(g, w) for g, r, w in zip(got, ref, v1)),
-                f"filter v3 != plain or v1 on a view at offset {off}")
-    print("[filter alternates] v3 on views at offsets 1-3 of the 3·2^20+17 values: == plain"
-          " and == v1, with and without indices", flush=True)
+        for ver in alt.VERSIONS:
+            got = alt.filter_compact(xv, ver, t, 7), alt.filter_with_indices(xv, ver, t)
+            ref = alt.filter_compact_ref(xv, ver, t, 7), alt.filter_with_indices_ref(xv, ver, t)
+            require(all(card_equal(g, r) and card_equal(g, w) for g, r, w in zip(got, ref, v1)),
+                    f"filter {ver} != plain or v1 on a view at offset {off}")
+    print("[filter alternates] v2, v3, v4 on views at offsets 1-3 of the 3·2^20+17 values:"
+          " == plain and == v1, with and without indices", flush=True)
     torch.cuda.synchronize()
     t32 = timed.view(torch.int32)
     lib = library_ms("torch.masked_select",

@@ -31,14 +31,14 @@ Inputs are drawn on the card from seed 42:
     call computes a segmented forward fill: no library reading. Both fill
     shapes get a per-launch breakdown;
   * filter: ``filter_cuda.filter_compact`` and ``filter_with_indices`` (v1)
-    and ``filter_alt_cuda``'s v3, compact and with indices, of 64Mi uniform
-    uint32 values (one filter round at SF=8, chip_smoke.py's
+    and ``filter_alt_cuda``'s v2, v3 and v4, compact and with indices, of
+    64Mi uniform uint32 values (one filter round at SF=8, chip_smoke.py's
     ``_filter_inputs``; a quarter kept), every stage of
     ``filter_stages.STAGES`` (the package's own list) and ``clone`` (the
     copy stage's yardstick), beside the predicate + ``torch.masked_select``
     (eager: its output length is read back to the host, so it cannot be
-    captured), with the per-launch breakdowns of v1's and v3's compaction,
-    v3 with indices, each stage and the clone;
+    captured), with the per-launch breakdowns of v1's compaction, each
+    alternate compact and with indices, each stage and the clone;
   * merge: ``merge.bitonic_merge`` at the sorted-build join's call on the
     TPC-H SF=1 key shape (1.5M sorted ``o_orderkey << 1`` rows, the pad,
     then 5,996,462 ``l_orderkey << 1 | 1`` rows descending: one 8Mi block,
@@ -63,8 +63,8 @@ It calls the wrappers only through ``sort_bitonic(planes)``,
 ``partition_cells(keys, payloads, P, cell, with_sel)``,
 ``propagate_fill(planes)``, ``propagate_last(alive, planes)``,
 ``filter_compact(values)``, ``filter_with_indices(values)``, the
-alternates' ``filter_compact(values, "v3")`` and
-``filter_with_indices(values, "v3")``, ``filter_stage(values, stage)``,
+alternates' ``filter_compact(values, version)`` and
+``filter_with_indices(values, version)``, ``filter_stage(values, stage)``,
 ``bitonic_merge(planes)``, ``bitonic_merge_blocks(planes, block_rows)``,
 ``sort_tiles(planes)`` and ``sum_u64_pair(values)``, so the
 same file can time another checkout of the package: run it by its path
@@ -364,23 +364,27 @@ def _stage_same(stage: str, got, ref) -> bool:
 
 def filter_readings() -> tuple:
     """filter_compact and filter_with_indices of FILTER_N uniform uint32
-    values by v1 and by v3, every stage of the stage ablation and
-    torch.clone (the copy stage's yardstick), beside the predicate +
-    torch.masked_select; per-launch breakdowns of v1, v3 and each stage."""
+    values by v1 and by each alternate (v2, v3, v4), every stage of the
+    stage ablation and torch.clone (the copy stage's yardstick), beside the
+    predicate + torch.masked_select; per-launch breakdowns of v1, each
+    alternate (compact and with indices) and each stage."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + FILTER_N)
     values = _u32(FILTER_N, gen)
     calls = {
         "filter_compact": lambda: filter_cuda.filter_compact(values),
         "filter_with_indices": lambda: filter_cuda.filter_with_indices(values),
-        "v3_compact": lambda: filter_alt_cuda.filter_compact(values, "v3"),
-        "v3_with_indices": lambda: filter_alt_cuda.filter_with_indices(values, "v3"),
     }
     refs = {
         "filter_compact": lambda: filter_cuda.filter_compact_ref(values),
         "filter_with_indices": lambda: filter_cuda.filter_with_indices_ref(values),
-        "v3_compact": lambda: filter_alt_cuda.filter_compact_ref(values, "v3"),
-        "v3_with_indices": lambda: filter_alt_cuda.filter_with_indices_ref(values, "v3"),
     }
+    for ver in filter_alt_cuda.VERSIONS:
+        calls[f"{ver}_compact"] = lambda ver=ver: filter_alt_cuda.filter_compact(values, ver)
+        calls[f"{ver}_with_indices"] = (
+            lambda ver=ver: filter_alt_cuda.filter_with_indices(values, ver))
+        refs[f"{ver}_compact"] = lambda ver=ver: filter_alt_cuda.filter_compact_ref(values, ver)
+        refs[f"{ver}_with_indices"] = (
+            lambda ver=ver: filter_alt_cuda.filter_with_indices_ref(values, ver))
     for name, call in calls.items():
         if not _same(call(), refs[name]()):
             raise SystemExit(f"{name} at n={FILTER_N}: kernel != plain")
@@ -394,9 +398,8 @@ def filter_readings() -> tuple:
     ms = _in_turns({**calls, "clone": values.clone})
     ms["masked_select_eager"] = eager_ms(
         lambda: torch.masked_select(v32, filter_cuda.below_threshold(values)))
-    kept = ("filter_compact", "v3_compact", "v3_with_indices")
     parts = {name: launch_breakdown(call) for name, call in calls.items()
-             if name in kept or name.startswith("stage_")}
+             if name != "filter_with_indices"}
     parts["clone"] = launch_breakdown(values.clone)
     return ms, parts
 

@@ -26,15 +26,16 @@
 //       slice);
 //     one warp takes the tile's offset from the look-back
 //       (csrc/lookback.cuh look_back_warp);
-//     stage C: the run goes to out[offset, + run) in one coalesced sweep:
-//       scalar stores up to the first 16-byte boundary, uint4 stores in
-//       between, scalar stores for the rest; the last tile writes the count;
+//     stage C: the run goes to out[offset, + run) in one coalesced sweep
+//       (csrc/lookback.cuh store_run: scalar stores up to the first 16-byte
+//       boundary, uint4 stores in between, scalar stores for the rest); the
+//       last tile writes the count;
 //   tail_kernel (csrc/lookback.cuh) writes `fill` (and n) over [count, n).
-// Work memory (ops/filter_alt_cuda.py scratch_words): one 64-bit status
-// word a tile and the ticket, cleared by one cudaMemsetAsync: a call is one
-// memset and two launches, with no host decision, so it replays from a CUDA
-// graph. Shared memory: one TILE of values, and one of row numbers only
-// with indices (16 or 32 KB).
+// Work memory (ops/filter_cuda.py filter_plan): one 64-bit status word a
+// tile and the ticket, cleared by one cudaMemsetAsync: a call is one
+// memset and two launches (csrc/lookback.cuh launch_filter), with no host
+// decision, so it replays from a CUDA graph. Shared memory: one TILE of
+// values, and one of row numbers only with indices (16 or 32 KB).
 //
 // What bounds it on the H100: device-memory traffic, 8n bytes (12n with
 // indices): the input is read once and each output lane written once, by
@@ -54,21 +55,6 @@ constexpr int SLICE = TILE / WARPS;  // values a warp owns
 constexpr int LOADS = SLICE / 128;   // 16-byte loads a lane makes in its slice
 constexpr int ROUNDS = SLICE / 32;   // values a lane moves in stage B
 constexpr unsigned FULL = 0xFFFFFFFFu;
-
-// g[o + k] = s[k] for k < total, 16-byte stores where g + o + k is aligned.
-__device__ __forceinline__ void store_run(uint32_t* __restrict__ g, unsigned long long o,
-                                          const uint32_t* s, unsigned total) {
-  const unsigned lead = (unsigned)((4u - (unsigned)(o & 3u)) & 3u);
-  const unsigned head = total < lead ? total : lead;
-  if (threadIdx.x < head) g[o + threadIdx.x] = s[threadIdx.x];
-  const unsigned nvec = (total - head) / 4;
-  uint4* gv = reinterpret_cast<uint4*>(g + o + head);
-  for (unsigned q = threadIdx.x; q < nvec; q += THREADS) {
-    const unsigned k = head + 4 * q;
-    gv[q] = make_uint4(s[k], s[k + 1], s[k + 2], s[k + 3]);
-  }
-  for (unsigned k = head + 4 * nvec + threadIdx.x; k < total; k += THREADS) g[o + k] = s[k];
-}
 
 // Stage B for one plane of shared memory: the warp's run buf[wbase, +run)
 // moves to buf[off, +run). Every warp reads its run before any writes.
@@ -173,42 +159,21 @@ sweep_kernel(const uint32_t* __restrict__ x, long long n, uint32_t thr, bool vec
 
   // stage C
   const unsigned before = s_before;
-  store_run(out, before, s_v, total);
-  if constexpr (IDX) store_run(sel, before, s_i, total);
+  store_run<THREADS>(out, before, s_v, total);
+  if constexpr (IDX) store_run<THREADS>(sel, before, s_i, total);
 }
 
 }  // namespace
 
 // Compact the n uint32 values at x that are < thr into out (tail = fill)
 // and, when sel is not null, their row numbers into sel (tail = n); write
-// the count to *count. work holds ops/filter_alt_cuda.py scratch_words'
-// words: one uint64 a tile of 4096 and the ticket, which the function
-// clears on the stream. out and sel must be 16-byte aligned. All pointers
-// are device pointers; n must be below 2^32. Launches on `stream`, does not
+// the count to *count. work holds ops/filter_cuda.py filter_plan's words:
+// one uint64 a tile of 4096 and the ticket, which the function clears on
+// the stream. out and sel must be 16-byte aligned. All pointers are device
+// pointers; n must be below 2^32. Launches on `stream`, does not
 // synchronise; returns 0 or the first CUDA error.
 extern "C" int dpu_filter3_u32(const void* x, long long n, unsigned thr, unsigned fill,
                                void* out, void* sel, void* work, void* count, void* stream) {
-  if (n < 0 || n > 0xFFFFFFFFLL) return (int)cudaErrorInvalidValue;
-  if ((reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(sel)) & 15u)
-    return (int)cudaErrorMisalignedAddress;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n == 0) return (int)cudaMemsetAsync(count, 0, sizeof(uint32_t), s);
-  const uint32_t* xs = static_cast<const uint32_t*>(x);
-  uint32_t* o = static_cast<uint32_t*>(out);
-  uint32_t* sl = static_cast<uint32_t*>(sel);
-  uint32_t* cnt = static_cast<uint32_t*>(count);
-  unsigned long long* status = static_cast<unsigned long long*>(work);
-  const long long ntiles = (n + TILE - 1) / TILE;
-  cudaError_t err = cudaMemsetAsync(status, 0, (size_t)(ntiles + 1) * 8, s);
-  if (err != cudaSuccess) return (int)err;
-  unsigned* ticket = reinterpret_cast<unsigned*>(status + ntiles);
-  const bool vec = reinterpret_cast<uintptr_t>(xs) % 16 == 0;
-  if (sl)
-    sweep_kernel<true><<<(unsigned)ntiles, THREADS, 0, s>>>(xs, n, thr, vec, ntiles, o, sl, cnt,
-                                                            ticket, status);
-  else
-    sweep_kernel<false><<<(unsigned)ntiles, THREADS, 0, s>>>(xs, n, thr, vec, ntiles, o, sl, cnt,
-                                                             ticket, status);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  return (int)launch_tail<THREADS>(cnt, n, fill, o, sl, s);
+  return launch_filter<THREADS>(sweep_kernel<false>, sweep_kernel<true>, TILE, x, n, thr, fill,
+                                out, sel, work, count, stream);
 }

@@ -1,18 +1,19 @@
 // The decoupled look-back (Merrill and Garland, "Single-pass Parallel
 // Prefix Scan with Decoupled Look-back", 2016) of the one-sweep kernels:
 // csrc/radix_sort.cu (256 buckets a tile) and csrc/partition.cu (P
-// buckets a tile) walk the words with look_back; csrc/filter.cu and
-// csrc/filter3.cu (one count a tile) walk them with a whole warp,
-// look_back_warp. (csrc/scan.cu's look-back combines positions by max, in
-// a layout of its own.) Each tile publishes one 64-bit status word per
-// bucket, flag in the high 32 bits and count in the low 32, so that one
-// store publishes both: FLAG_AGG with the tile's own count, then
-// FLAG_PREFIX with the count of the bucket in every tile up to and
-// including it. The words start at zero (not published). Tiles are taken
-// by an atomic ticket, so a tile waits only on tiles whose blocks are
-// already running. fill_lanes is the pad pass that follows the
-// partition's and the filters' sweeps; load4 and tail_kernel are the two
-// filter sweeps' shared load and tail pass.
+// buckets a tile) walk the words with look_back; the four filters,
+// csrc/filter.cu, filter2.cu, filter3.cu and filter4.cu (one count a
+// tile), walk them with a whole warp, look_back_warp. (csrc/scan.cu's
+// look-back combines positions by max, in a layout of its own.) Each tile
+// publishes one 64-bit status word per bucket, flag in the high 32 bits
+// and count in the low 32, so that one store publishes both: FLAG_AGG with
+// the tile's own count, then FLAG_PREFIX with the count of the bucket in
+// every tile up to and including it. The words start at zero (not
+// published). Tiles are taken by an atomic ticket, so a tile waits only on
+// tiles whose blocks are already running. fill_lanes is the pad pass that
+// follows the partition's and the filters' sweeps; load4, store_run,
+// tail_kernel and launch_filter are the filter sweeps' shared load, run
+// store, tail pass and entry.
 
 #pragma once
 
@@ -142,6 +143,63 @@ cudaError_t launch_tail(const uint32_t* count, long long n, uint32_t fill, uint3
   tail_kernel<BLOCK><<<(unsigned)(blocks < 1024 ? blocks : 1024), BLOCK, 0, s>>>(count, n, fill,
                                                                                   out, sel);
   return cudaGetLastError();
+}
+
+// g[o + k] = s[k] for k < total by a block of BLOCK threads: scalar stores
+// up to the first 16-byte boundary of g + o, uint4 stores in between,
+// scalar stores for the rest (g must be 16-byte aligned).
+template <int BLOCK>
+__device__ __forceinline__ void store_run(uint32_t* __restrict__ g, unsigned long long o,
+                                          const uint32_t* s, unsigned total) {
+  const unsigned lead = (unsigned)((4u - (unsigned)(o & 3u)) & 3u);
+  const unsigned head = total < lead ? total : lead;
+  if (threadIdx.x < head) g[o + threadIdx.x] = s[threadIdx.x];
+  const unsigned nvec = (total - head) / 4;
+  uint4* gv = reinterpret_cast<uint4*>(g + o + head);
+  for (unsigned q = threadIdx.x; q < nvec; q += BLOCK) {
+    const unsigned k = head + 4 * q;
+    gv[q] = make_uint4(s[k], s[k + 1], s[k + 2], s[k + 3]);
+  }
+  for (unsigned k = head + 4 * nvec + threadIdx.x; k < total; k += BLOCK) g[o + k] = s[k];
+}
+
+// A filter sweep: (x, n, thr, vec, ntiles, out, sel, count, ticket,
+// status), one tile of `tile` values a block.
+using FilterSweep = void (*)(const uint32_t*, long long, uint32_t, bool, long long, uint32_t*,
+                             uint32_t*, uint32_t*, unsigned*, unsigned long long*);
+
+// The entry of the filters v2, v3 and v4 (their extern "C" functions): out,
+// sel (or null) and count as csrc/filter.cu's; work holds
+// ops/filter_cuda.py filter_plan's words (one uint64 a tile, then the
+// ticket). Checks n < 2^32 and that out and sel are 16-byte aligned, then
+// on `stream` clears the work words (one memset), runs `with_idx` when sel
+// is not null and `compact` when it is (BLOCK threads a tile of `tile`
+// values) and the tail pass: a call is one memset and two launches, with
+// no host decision, so it replays from a CUDA graph. Returns 0 or the
+// first CUDA error.
+template <int BLOCK>
+int launch_filter(FilterSweep compact, FilterSweep with_idx, long long tile, const void* x,
+                  long long n, unsigned thr, unsigned fill, void* out, void* sel, void* work,
+                  void* count, void* stream) {
+  if (n < 0 || n > 0xFFFFFFFFLL) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(sel)) & 15u)
+    return (int)cudaErrorMisalignedAddress;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 0) return (int)cudaMemsetAsync(count, 0, sizeof(uint32_t), s);
+  const uint32_t* xs = static_cast<const uint32_t*>(x);
+  uint32_t* o = static_cast<uint32_t*>(out);
+  uint32_t* sl = static_cast<uint32_t*>(sel);
+  uint32_t* cnt = static_cast<uint32_t*>(count);
+  unsigned long long* status = static_cast<unsigned long long*>(work);
+  const long long ntiles = (n + tile - 1) / tile;
+  cudaError_t err = cudaMemsetAsync(status, 0, (size_t)(ntiles + 1) * 8, s);
+  if (err != cudaSuccess) return (int)err;
+  unsigned* ticket = reinterpret_cast<unsigned*>(status + ntiles);
+  const bool vec = reinterpret_cast<uintptr_t>(xs) % 16 == 0;
+  const FilterSweep sweep = sl ? with_idx : compact;
+  sweep<<<(unsigned)ntiles, BLOCK, 0, s>>>(xs, n, thr, vec, ntiles, o, sl, cnt, ticket, status);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)launch_tail<BLOCK>(cnt, n, fill, o, sl, s);
 }
 
 }  // namespace

@@ -48,9 +48,8 @@ _SIGNATURES = {
     "dpu_gather_sorted_u32": [_P, _LL, _P, _P, _LL, _P, _P],
     # (x, n, threshold, fill, out, sel or NULL, work, count, stream)
     "dpu_filter_u32": [_P, _LL, ctypes.c_uint, ctypes.c_uint, _P, _P, _P, _P, _P],
-    # (x, n, threshold, fill, out, sel or NULL, scratch, count, stream): the
-    # filter alternates v2 (scratch: ticket + tile words), v3 (tile words +
-    # ticket) and v4 (tile offsets)
+    # (x, n, threshold, fill, out, sel or NULL, work, count, stream): the
+    # filter alternates v2, v3 and v4 (work: filter_plan's tile words + ticket)
     "dpu_filter2_u32": [_P, _LL, ctypes.c_uint, ctypes.c_uint, _P, _P, _P, _P, _P],
     "dpu_filter3_u32": [_P, _LL, ctypes.c_uint, ctypes.c_uint, _P, _P, _P, _P, _P],
     "dpu_filter4_u32": [_P, _LL, ctypes.c_uint, ctypes.c_uint, _P, _P, _P, _P, _P],

@@ -4,23 +4,28 @@ alternates v2, v3 and v4, three Hopper designs of v1's function
 
   v2  ``csrc/filter2.cu`` (``dpu_olap_tpu/ops/filter_pallas2.py``:
       ``filter_compact_pallas2`` and ``filter_with_indices_pallas2``,
-      ``_call`` at :220): an output-driven gather in one pass. The tile
-      prefix in shared memory, a decoupled look-back for the tile offset, a
-      binary search per output slot.
+      ``_call`` at :220): an output-driven gather. The tile's keep bits in
+      words of 32 positions and their count prefix; each output slot finds
+      its word by a 7-step search and its position as a set bit of the
+      word, and reads the value from the tile in shared memory.
   v3  ``csrc/filter3.cu`` (``filter_pallas3.py``: ``filter_compact_pallas3``,
       ``filter_pallas3_padded`` and ``filter_with_indices_pallas3``,
       ``_call`` at :215): compaction staged in shared memory and written
-      out whole, on v1's one-sweep skeleton (a ticket, a warp look-back, a
-      tail pass). Per tile: each warp's kept values to the front of its
+      out whole. Per tile: each warp's kept values to the front of its
       slice of shared memory, the warps' runs packed, the run stored with
       16-byte writes.
   v4  ``csrc/filter4.cu`` (``filter_pallas4.py``: ``filter_compact_pallas4``,
       ``filter_pallas4_padded`` and ``filter_with_indices_pallas4``,
       ``_call`` at :200): the scan and the inverse map on the tensor cores.
-      A tile count and a one-block scan (``csrc/filter_tiles.cuh``), then
-      per 16x16 fragment: the in-row prefix,
-      the row starts and each output slot's source row as exact counting
-      products with wmma, a front-compaction of each row and a gather.
+      Per 16x16 fragment: the in-row prefix, the row starts and each output
+      slot's source row as exact counting products (mma.sync), a
+      front-compaction of each row and a gather into the tile's run, which
+      is stored with 16-byte writes.
+
+All three run on v1's one-sweep skeleton (``csrc/lookback.cuh``): a call is
+one memset of ``filter_plan``'s work words (a 64-bit status word a tile of
+TILE values, then the ticket), one sweep (a tile a block, taken by the
+ticket; its offset from a warp's decoupled look-back) and one tail pass.
 
 ``filter_compact``, ``filter_padded`` and ``filter_with_indices`` take the
 version and launch its kernel for CUDA tensors and run its plain version
@@ -52,15 +57,14 @@ from . import filter_cuda
 from .filter_cuda import THRESHOLD, _as_i32, below, check_threshold, compact_scatter, on_cpu
 
 VERSIONS = ("v2", "v3", "v4")
-TILE = 4096  # elements per block of each kernel (csrc/filter2.cu, filter3.cu, filter_tiles.cuh TILE)
-# version: (C entry point, scratch dtype, scratch words beyond one a tile).
-# v2's scratch is the tile ticket, then one (flag, value) status word a
-# tile; v3's is one status word a tile, then the ticket (v1's
-# ``filter_plan``); v4's is the tile offsets.
+TILE = 4096  # elements per block of each kernel (csrc/filter2.cu, filter3.cu, filter4.cu TILE)
+# version: (C entry point, scratch dtype, scratch words beyond one a tile):
+# each version's scratch is v1's ``filter_plan``: one status word a tile,
+# then the ticket.
 _ENTRIES = {
     "v2": ("dpu_filter2_u32", torch.int64, 1),
     "v3": ("dpu_filter3_u32", torch.int64, 1),
-    "v4": ("dpu_filter4_u32", torch.uint32, 0),
+    "v4": ("dpu_filter4_u32", torch.int64, 1),
 }
 LAUNCHES = dict.fromkeys(VERSIONS, 0)  # kernel launches of each version
 

@@ -4,8 +4,9 @@ one bucket with and without overflow, P = 16 with two payload groups), the
 merge-probe kernel (csrc/merge_probe.cu: empty and one-key sides, sparse
 and dense probes, keys outside the build range, a run over tile edges, an
 unsorted and a misaligned probe), the filter alternates
-(csrc/filter2.cu, filter3.cu, filter4.cu; v3 also at its one-sweep edges,
-with indices at 8Mi and 64Mi, and replayed from a graph) and the five
+(csrc/filter2.cu, filter3.cu, filter4.cu; each at its one-sweep edges,
+with indices at 8Mi and 64Mi, replayed from a graph, and refusing an
+output that is not 16-byte aligned) and the five
 stages of the filter stage ablation (csrc/filter.cu; lookback on
 [:count]), the in-block primitive ops (csrc/block_ops.cu), the
 probe primitives (csrc/probes.cu), the sort's tile stage (csrc/sort.cu),
@@ -582,6 +583,140 @@ def test_filter_v3_back_to_back_and_replayed_in_a_graph(cuda_device):
         graph.replay()
         torch.cuda.synchronize()
         _same(outs, ref())
+
+
+ONE_SWEEP_LENGTHS = [1, FILTER_TILE - 1, FILTER_TILE, FILTER_TILE + 1, 3 * (1 << 20) + 17]
+THRESHOLDS = [0, 1 << 30, 1 << 31, 0xFFFFFFFF]
+
+
+def _alternate_same(x, version, threshold, fill):
+    """One version's kernel against its plain version and, at 2^30, v1's
+    kernel: compact with ``fill`` and with indices, whole arrays with their
+    tails. Each call launches the version's memset, sweep and tail once."""
+    before = filter_alt_cuda.LAUNCHES[version]
+    got = filter_alt_cuda.filter_compact(x, version, threshold, fill)
+    got_i = filter_alt_cuda.filter_with_indices(x, version, threshold)
+    assert filter_alt_cuda.LAUNCHES[version] == before + 2
+    _same(got, filter_alt_cuda.filter_compact_ref(x, version, threshold, fill))
+    _same(got_i, filter_alt_cuda.filter_with_indices_ref(x, version, threshold))
+    if threshold == filter_cuda.THRESHOLD:
+        _same(got, filter_cuda.filter_compact(x, fill))
+        _same(got_i, filter_cuda.filter_with_indices(x))
+    return got, got_i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", ["v2", "v4"])
+@pytest.mark.parametrize("n", ONE_SWEEP_LENGTHS)
+@pytest.mark.parametrize("kind", ["random", "all_kept", "none_kept", "one_in_last_tile"])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_filter_v2_v4_at_the_one_sweep_edges(cuda_device, version, n, kind, offset):
+    """v2 and v4 against their plain versions and v1's kernel: lengths around
+    a tile, every value kept or none, one kept value at the end, and input
+    views that are not 16-byte aligned."""
+    v = _filter_values(kind, n, np.random.default_rng(n + 11))
+    x = torch.from_numpy(np.concatenate([np.zeros(offset, np.uint32), v])).to(cuda_device)[offset:]
+    got, got_i = _alternate_same(x, version, filter_cuda.THRESHOLD, 0xDEADBEEF)
+    keep = v < filter_cuda.THRESHOLD
+    assert int(got[1]) == keep.sum()
+    assert np.array_equal(got_i[1].cpu().numpy()[: keep.sum()], np.flatnonzero(keep))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", ["v2", "v4"])
+@pytest.mark.parametrize("n", ONE_SWEEP_LENGTHS)
+@pytest.mark.parametrize("threshold", THRESHOLDS)
+def test_filter_v2_v4_thresholds(cuda_device, version, n, threshold):
+    """v2 and v4 at the runtime thresholds 0 (none kept), 2^30, 2^31 and
+    0xFFFFFFFF (all but 0xFFFFFFFF kept) against their plain versions, with
+    the edge keys among the values."""
+    v = _filter_values("random", n, np.random.default_rng(n + 13))
+    _, got_i = _alternate_same(torch.from_numpy(v).to(cuda_device), version, threshold, 7)
+    keep = v.astype(np.int64) < threshold
+    assert np.array_equal(got_i[1].cpu().numpy()[: keep.sum()], np.flatnonzero(keep))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", ["v2", "v4"])
+@pytest.mark.parametrize("n", [8 << 20, 64 << 20])
+def test_filter_v2_v4_at_scale(cuda_device, version, n):
+    """v2 and v4 at measure_filter's two sizes, compact and with indices,
+    against their plain versions and v1's kernel, compared on the card."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n + 1)
+    x = torch.randint(-2**31, 2**31, (n,), dtype=torch.int32, device=cuda_device,
+                      generator=gen).view(torch.uint32)
+
+    def equal(got, ref):
+        return all(torch.equal(g.view(torch.int32), r.view(torch.int32)) for g, r in zip(got, ref))
+
+    got = filter_alt_cuda.filter_compact(x, version, fill=5)
+    for ref in (filter_alt_cuda.filter_compact_ref(x, version, fill=5),
+                filter_cuda.filter_compact(x, 5)):
+        assert equal(got, ref)
+    got = filter_alt_cuda.filter_with_indices(x, version)
+    for ref in (filter_alt_cuda.filter_with_indices_ref(x, version),
+                filter_cuda.filter_with_indices(x)):
+        assert equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", ["v2", "v4"])
+def test_filter_v2_v4_back_to_back_and_replayed_in_a_graph(cuda_device, version):
+    """v2 and v4 called twice in a row, then captured in a CUDA graph and
+    replayed twice on new inputs: each call clears its own ticket and status
+    words."""
+    rng = np.random.default_rng(31)
+    n = 9 * FILTER_TILE + 7
+    key = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(cuda_device)
+
+    def step():
+        return (*filter_alt_cuda.filter_with_indices(key, version),
+                *filter_alt_cuda.filter_compact(key, version, 1 << 31, 3))
+
+    def ref():
+        return (*filter_alt_cuda.filter_with_indices_ref(key, version),
+                *filter_alt_cuda.filter_compact_ref(key, version, 1 << 31, 3))
+
+    first, second = step(), step()
+    _same(first, second)
+    _same(second, ref())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    for _ in range(2):
+        key.copy_(torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        _same(outs, ref())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", filter_alt_cuda.VERSIONS)
+@pytest.mark.parametrize("plane", ["out", "sel"])
+def test_filter_alternate_rejects_a_misaligned_output(cuda_device, version, plane):
+    """The entry points store 16-byte runs: an out or sel that is not 16-byte
+    aligned is refused at launch (cudaErrorMisalignedAddress), and the
+    wrappers' check raises on it."""
+    n = 3 * FILTER_TILE + 5
+    x = torch.zeros(n, dtype=torch.uint32, device=cuda_device)
+    out = torch.empty(n + 1, dtype=torch.uint32, device=cuda_device)
+    sel = torch.empty(n + 1, dtype=torch.uint32, device=cuda_device)
+    count = torch.empty((), dtype=torch.uint32, device=cuda_device)
+    work = torch.empty(filter_cuda.filter_plan(n).work_words, dtype=torch.int64,
+                       device=cuda_device)
+    ptrs = {"out": out.data_ptr(), "sel": sel.data_ptr()}
+    ptrs[plane] += 4
+    rc = getattr(_kernels.library(), f"dpu_filter{version[1]}_u32")(
+        x.data_ptr(), n, 1 << 30, 0, ptrs["out"], ptrs["sel"], work.data_ptr(),
+        count.data_ptr(), _kernels.stream_handle(cuda_device))
+    assert rc == 716  # cudaErrorMisalignedAddress
+    with pytest.raises(RuntimeError, match="misaligned"):
+        _kernels.check(rc, f"filter {version}")
 
 
 @pytest.mark.cuda

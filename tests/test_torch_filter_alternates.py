@@ -194,9 +194,14 @@ SCRATCH_CASES = [(0, 0), (1, 1), (4096, 1), (4097, 2), (8 << 20, 2048), (64 << 2
 @pytest.mark.parametrize("version", list(VERSIONS))
 def test_scratch_words_hand_worked(version, n, tiles):
     words = alt.scratch_words(version, n)
-    if version == "v4":  # the tile offsets of the count and scan passes
-        assert words == max(1, tiles)
-    else:  # v2: the ticket, then a status word a tile; v3: v1's filter_plan
-        assert words == tiles + 1
-    if version == "v3":
-        assert words == filter_cuda.filter_plan(n).work_words
+    assert words == tiles + 1  # a status word a tile, then the ticket: v1's filter_plan
+    assert words == filter_cuda.filter_plan(n).work_words
+
+
+@pytest.mark.parametrize("version", list(VERSIONS))
+def test_scratch_is_int64_status_words(version):
+    """Every alternate's work memory is filter_plan's 64-bit words: a flag and
+    a count in each status word, as csrc/lookback.cuh publishes them."""
+    entry, dtype, extra = alt._ENTRIES[version]
+    assert entry == f"dpu_filter{version[1]}_u32"
+    assert dtype == torch.int64 and extra == 1
