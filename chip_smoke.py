@@ -12,8 +12,11 @@ four also timed as graph replays, the partition with its per-launch
 breakdown; filter v1 and the forward fill in both modes, also timed as
 graph replays and checked on views at offsets 1-3, in two calls in a row
 and in CUDA-graph replays; sum, block merge, the filter alternates and
-stage ablation, the block ops, the probe primitives and the sort's tile
-stage), the partition, sort and fill kernels also
+stage ablation, the block ops (count_matmul also on 1 to 264 tiles at
+reps 0 to 17), the probe primitives (the lane gather also at 1 to 32768
+rows and on misaligned views) and the sort's tile stage; the block ops and
+probes timed as one call replayed and per call of ten in one graph), the
+partition, sort and fill kernels also
 at the SF=64 main path's shapes, and times each beside its bound and the
 one PyTorch call that computes the same function, then drives each
 operator path through Prepare().Run() at the reference benchmark
@@ -443,15 +446,11 @@ def phase_sort_gather(rng, card: str) -> dict:
         # index_select needs in-range indices: the out-of-range tail clipped
         idx = sidx.to(torch.int64).clamp(max=n - 1).to(torch.int32)
         data32 = data.view(torch.int32)
-
-        def calls(fn):
-            return lambda: [fn() for _ in range(GRAPH_CALLS)]
-
         eager = interleaved({"kernel": lambda: cuda_ms(lambda: take_cuda.gather_sorted(data, sidx)),
                              "lib": lambda: cuda_ms(lambda: torch.index_select(data32, 0, idx))})
         graph = interleaved({
-            "kernel": lambda: graph_ms(calls(lambda: take_cuda.gather_sorted(data, sidx))) / GRAPH_CALLS,
-            "lib": lambda: graph_ms(calls(lambda: torch.index_select(data32, 0, idx))) / GRAPH_CALLS})
+            "kernel": lambda: graph10_ms(lambda: take_cuda.gather_sorted(data, sidx)),
+            "lib": lambda: graph10_ms(lambda: torch.index_select(data32, 0, idx))})
         plain_ms = cuda_ms(lambda: take_cuda.gather_sorted_ref(data, sidx))
         plain_graph = graph_ms(lambda: take_cuda.gather_sorted_ref(data, sidx))
         nbytes = 3 * 4 * n  # table and positions read, values written
@@ -568,25 +567,24 @@ def phase_filter_kernel(rng, card: str) -> dict:
     plain_ms = cuda_ms(lambda: filter_cuda.filter_compact_ref(timed))
     idx_ms = cuda_ms(lambda: filter_cuda.filter_with_indices(timed))
     idx_plain_ms = cuda_ms(lambda: filter_cuda.filter_with_indices_ref(timed))
-    replay_ms = graph_ms(lambda: [filter_cuda.filter_compact(timed) for _ in range(GRAPH_CALLS)])
-    replay_idx_ms = graph_ms(
-        lambda: [filter_cuda.filter_with_indices(timed) for _ in range(GRAPH_CALLS)])
+    replay_ms = graph10_ms(lambda: filter_cuda.filter_compact(timed))
+    replay_idx_ms = graph10_ms(lambda: filter_cuda.filter_with_indices(timed))
     t32 = timed.view(torch.int32)
     lib = library_ms("torch.masked_select",
                      lambda: torch.masked_select(t32, filter_cuda.below_threshold(timed)))
     nbytes = 2 * 4 * FILTER_N  # values read, padded values written
     print(
         f"[filter] n={FILTER_N}: filter_compact kernel {ms:.4f} ms eager,"
-        f" {replay_ms / GRAPH_CALLS:.4f} graph, plain {plain_ms:.4f} ms,"
+        f" {replay_ms:.4f} graph, plain {plain_ms:.4f} ms,"
         f" predicate + torch.masked_select {lib} ms, bound {bound_ms(nbytes):.4f} ms;"
         f" filter_with_indices kernel {idx_ms:.4f} ms eager,"
-        f" {replay_idx_ms / GRAPH_CALLS:.4f} graph, plain {idx_plain_ms:.4f} ms, bound"
+        f" {replay_idx_ms:.4f} graph, plain {idx_plain_ms:.4f} ms, bound"
         f" {bound_ms(12 * FILTER_N):.4f} ms (median of {REPS}, CUDA events; graph:"
         f" {GRAPH_CALLS} calls a replay) [{card}]",
         flush=True,
     )
-    return {**kernel_row(err, ms, plain_ms, nbytes, lib), "graph_ms": replay_ms / GRAPH_CALLS,
-            "indices_ms": idx_ms, "indices_graph_ms": replay_idx_ms / GRAPH_CALLS,
+    return {**kernel_row(err, ms, plain_ms, nbytes, lib), "graph_ms": replay_ms,
+            "indices_ms": idx_ms, "indices_graph_ms": replay_idx_ms,
             "indices_bound_ms": bound_ms(12 * FILTER_N)}
 
 
@@ -690,10 +688,8 @@ def phase_filter_alternates(rng, card: str) -> dict:
         plain_ms = cuda_ms(lambda: alt.filter_compact_ref(timed, ver))
         wi_ms = cuda_ms(lambda: alt.filter_with_indices(timed, ver))
         wi_plain = cuda_ms(lambda: alt.filter_with_indices_ref(timed, ver))
-        replay = graph_ms(
-            lambda: [alt.filter_compact(timed, ver) for _ in range(GRAPH_CALLS)]) / GRAPH_CALLS
-        wi_replay = graph_ms(
-            lambda: [alt.filter_with_indices(timed, ver) for _ in range(GRAPH_CALLS)]) / GRAPH_CALLS
+        replay = graph10_ms(lambda: alt.filter_compact(timed, ver))
+        wi_replay = graph10_ms(lambda: alt.filter_with_indices(timed, ver))
         rows[ver] = {**kernel_row(errs[ver], ms, plain_ms, 8 * FILTER_N, lib),
                      "graph_ms": replay, "indices_ms": wi_ms, "indices_graph_ms": wi_replay,
                      "indices_plain_ms": wi_plain, "indices_bound_ms": bound_ms(12 * FILTER_N)}
@@ -753,8 +749,7 @@ def phase_filter_stages(rng, card: str) -> dict:
         for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
             times[k].append(cuda_ms(fns[k]))
     med = {k: float(np.median(v)) for k, v in times.items()}
-    replay = {k: graph_ms(lambda f=f: [f() for _ in range(GRAPH_CALLS)]) / GRAPH_CALLS
-              for k, f in fns.items()}
+    replay = {k: graph10_ms(f) for k, f in fns.items()}
     stages = {s: {"ms": med[s], "graph_ms": replay[s],
                   "plain_ms": cuda_ms(lambda s=s: filter_stages.filter_stage_ref(timed, s)),
                   "bound_ms": bound_ms(4 * (FILTER_N + kept)) if s == "lookback" else bound}
@@ -900,15 +895,42 @@ def _sum_rows(rows: dict, err: int, nbytes: int, flops: int) -> dict:
             "calls": rows}
 
 
+def graph10_ms(fn) -> float:
+    """graph_ms of GRAPH_CALLS calls of fn captured in one graph, each with
+    its output kept, over the calls: a call's time without the single
+    replay's fixed cost."""
+    return graph_ms(lambda: [fn() for _ in range(GRAPH_CALLS)]) / GRAPH_CALLS
+
+
+def _count_matmul_inputs(rng, nblk: int):
+    """Tiles whose products are not all 0: v in [-2^14, 2^14) with the edge
+    values (negative v, where v >> 7 is negative), half the indices equal to
+    (v >> 7) & 127, the others any int32; from 2 tiles on the second is all
+    0, where every sum of the first rep is 128."""
+    x = rng.integers(-2**14, 2**14, (nblk * 128, 128), dtype=np.int64).astype(np.int32)
+    x.flat[: len(EDGE_I32)] = EDGE_I32
+    x[-1, -len(EDGE_I32):] = EDGE_I32
+    idx = np.where(rng.random(x.shape) < 0.5, (x >> 7) & 127,
+                   rng.integers(-2**31, 2**31, x.shape, dtype=np.int64)).astype(np.int32)
+    idx.flat[: len(EDGE_I32)] = EDGE_I32
+    if nblk > 1:
+        x[128:256] = 0
+        idx[128:256] = 0
+    return on_card(x), on_card(idx)
+
+
 def phase_block_ops(rng, card: str) -> dict:
     """Every block op at its probe's block shape (OPS at 256 rows, COPS at
     128), reps 2 and 16, bit for bit against its plain version on the card,
-    at 2Mi int32 values with the +-2^31 edges in them; each op timed at reps
-    16, one call replayed from a CUDA graph (an eager call's time is mostly
-    the host's), beside its bound (8 bytes an element for the ops that never
-    read idx, 12 for the others), its plain version (eager) and the same
-    torch chain captured in one CUDA graph (torch.roll, torch.where,
-    torch.gather, .transpose, a bf16 batched matmul of the 0/1 planes)."""
+    at 2Mi int32 values with the +-2^31 edges in them; count_matmul also at
+    reps 0, 1, 2, 16 and 17 on 1, 5, 128 and 264 tiles (two waves on 132
+    SMs) whose products are not all 0. Each op timed at reps 16 two ways:
+    one call replayed from a CUDA graph (an eager call's time is mostly the
+    host's), and per call from GRAPH_CALLS calls in one graph; beside its
+    bound (8 bytes an element for the ops that never read idx, 12 for the
+    others), its plain version (eager) and the same torch chain captured
+    the same two ways (torch.roll, torch.where, torch.gather, .transpose, a
+    bf16 batched matmul of the 0/1 planes)."""
     import torch
 
     from dpu_olap_tpu_torch.ops import block_ops_cuda as bo
@@ -927,6 +949,16 @@ def phase_block_ops(rng, card: str) -> dict:
             errs[op] = max(errs[op], card_err([got.view(-1)], [ref.view(-1)]))
         print(f"[block ops] {op}: kernel == plain at {BLOCK_N} values, blocks of"
               f" {bo.ROWS[op]} rows, reps 2 and {OP_REPS}", flush=True)
+    for nblk in (1, 5, 128, 264):
+        cx, ci = _count_matmul_inputs(rng, nblk)
+        for reps in (0, 1, 2, OP_REPS, OP_REPS + 1):
+            got = bo.block_op(cx, ci, "count_matmul", reps)
+            ref = bo.block_op_ref(cx, ci, "count_matmul", reps)
+            require(card_equal([got], [ref]), f"count_matmul != plain: {nblk} tiles, reps {reps}")
+            errs["count_matmul"] = max(errs["count_matmul"],
+                                       card_err([got.view(-1)], [ref.view(-1)]))
+    print(f"[block ops] count_matmul: kernel == plain on 1, 5, 128 and 264 tiles, reps 0, 1, 2,"
+          f" {OP_REPS}, {OP_REPS + 1}, products not all 0", flush=True)
     torch.cuda.synchronize()
     out = {}
     for entry, ops in (("block_ops", bo.OPS), ("block_cops", bo.COPS)):
@@ -934,19 +966,27 @@ def phase_block_ops(rng, card: str) -> dict:
         for op in ops:
             flops = 2 * 128**3 * OP_REPS * (BLOCK_N // (128 * 128)) if op == "count_matmul" else 0
             nbytes[op] = (8 if op in bo.IDX_FREE else 12) * BLOCK_N
-            calls[op] = work_row(
-                errs[op], graph_ms(lambda: bo.block_op(x, idx, op, OP_REPS)),
-                cuda_ms(lambda: bo.block_op_ref(x, idx, op, OP_REPS)), nbytes[op], flops,
-                graph_ms(lambda: bo.block_op_ref(x, idx, op, OP_REPS,
-                                                 matmul_dtype=torch.bfloat16)))
+
+            def kern(op=op):
+                return bo.block_op(x, idx, op, OP_REPS)
+
+            def chain(op=op):
+                return bo.block_op_ref(x, idx, op, OP_REPS, matmul_dtype=torch.bfloat16)
+
+            calls[op] = work_row(errs[op], graph_ms(kern),
+                                 cuda_ms(lambda: bo.block_op_ref(x, idx, op, OP_REPS)),
+                                 nbytes[op], flops, graph_ms(chain))
+            calls[op].update(graph10_ms=graph10_ms(kern), library_graph10_ms=graph10_ms(chain))
         total_flops = 2 * 128**3 * OP_REPS * (BLOCK_N // (128 * 128)) * ("count_matmul" in ops)
         out[entry] = _sum_rows(calls, max(errs[op] for op in ops), sum(nbytes.values()),
                                total_flops)
         print(f"[{entry}] {BLOCK_N} values in {bo.ROWS[ops[0]]}-row blocks, {OP_REPS} ops a call: "
-              + "; ".join(f"{op} kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, torch chain"
-                          f" in one graph {r['library_ms']:.4f}, bound {r['bound_ms']:.4f}"
-                          f" ({r['bound_by']})" for op, r in calls.items())
-              + f" (median of {REPS}; kernel and chain: graph replays) [{card}]", flush=True)
+              + "; ".join(f"{op} kernel {r['ms']:.4f} ms ({r['graph10_ms']:.4f} a call of"
+                          f" {GRAPH_CALLS}), plain {r['plain_ms']:.4f}, torch chain in one graph"
+                          f" {r['library_ms']:.4f} ({r['library_graph10_ms']:.4f}), bound"
+                          f" {r['bound_ms']:.4f} ({r['bound_by']})" for op, r in calls.items())
+              + f" (median of {REPS}; kernel and chain: graph replays of one call and of"
+                f" {GRAPH_CALLS}) [{card}]", flush=True)
     return out
 
 
@@ -954,10 +994,13 @@ def phase_probes(rng, card: str) -> dict:
     """The lane gather at measure_r3's shapes (8192 and 32768 rows of 128
     int32) and the lowering probes' primitives at theirs, each bit for bit
     against its plain version on the card (out-of-range gather indices and
-    rows too), and timed beside its bound, its plain version and one torch
-    call (torch.gather, .t().contiguous(), a bf16 torch.matmul,
-    index_select): each replayed from a CUDA graph, since an eager call of
-    these small kernels times the host's launch, not the card."""
+    rows too); the lane gather also at 1, 31, 32, 33, 8192 and 32768 rows
+    of 128 and 256 indices over 128 values and on views that do not start
+    16-byte aligned. Each is timed beside its bound, its plain version and
+    one torch call (torch.gather, .t().contiguous(), a bf16 torch.matmul,
+    index_select), each replayed from a CUDA graph, since an eager call of
+    these small kernels times the host's launch, not the card: one call
+    replayed, and per call from GRAPH_CALLS calls in one graph."""
     import torch
 
     from dpu_olap_tpu_torch.ops import probes_cuda as pc
@@ -965,19 +1008,48 @@ def phase_probes(rng, card: str) -> dict:
     def u32(shape):
         return on_card(rng.integers(0, 2**32, shape, dtype=np.uint32))
 
+    def gather_inputs(rows, wi):
+        x = on_card(rng.integers(0, 2**31, (rows, 128), dtype=np.int32))
+        i = rng.integers(0, 128, (rows, wi), dtype=np.int32)
+        i[0, :3] = [-1, 128, 2**31 - 1]
+        i[-1, -3:] = [128, -1, -2**31]
+        return x, on_card(i)
+
+    def misaligned(t):  # the same values in a contiguous view 4 bytes past 16
+        view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    gather_err = 0
+    for rows in (1, 31, 32, 33, 8192, 32768):
+        for wi in (128, 256):
+            x, i = gather_inputs(rows, wi)
+            for vx, vi, how in ((x, i, ""), (misaligned(x), i, ", x misaligned"),
+                                (x, misaligned(i), ", idx misaligned")):
+                got, ref = pc.lane_gather(vx, vi), pc.lane_gather_ref(vx, vi)
+                require(card_equal([got], [ref]),
+                        f"lane_gather != plain: {rows} rows of {wi} indices{how}")
+                gather_err = max(gather_err, card_err([got.view(-1)], [ref.view(-1)]))
+    print("[lane_gather] kernel == plain at 1, 31, 32, 33, 8192 and 32768 rows of 128 and 256"
+          " indices over 128 values, out-of-range indices, x or idx 4 bytes past 16-byte"
+          " alignment", flush=True)
     gathers = {}
     for rows in (8192, 32768):
-        x = on_card(rng.integers(0, 2**31, (rows, 128), dtype=np.int32))
-        i = rng.integers(0, 128, (rows, 128), dtype=np.int32)
-        i[0, :3] = [-1, 128, 2**31 - 1]
-        i = on_card(i)
+        x, i = gather_inputs(rows, 128)
         got, ref = pc.lane_gather(x, i), pc.lane_gather_ref(x, i)
         require(card_equal([got], [ref]), f"lane_gather != plain: {rows} rows")
         i64 = i.to(torch.int64).clamp(0, 127)
+
+        def kern(x=x, i=i):
+            return pc.lane_gather(x, i)
+
+        def lib(x=x, i64=i64):
+            return torch.gather(x, 1, i64)
+
         gathers[rows] = kernel_row(
-            card_err([got.view(-1)], [ref.view(-1)]), graph_ms(lambda: pc.lane_gather(x, i)),
-            graph_ms(lambda: pc.lane_gather_ref(x, i)), 12 * rows * 128,
-            graph_ms(lambda: torch.gather(x, 1, i64)))
+            max(gather_err, card_err([got.view(-1)], [ref.view(-1)])), graph_ms(kern),
+            graph_ms(lambda: pc.lane_gather_ref(x, i)), 12 * rows * 128, graph_ms(lib))
+        gathers[rows].update(graph10_ms=graph10_ms(kern), library_graph10_ms=graph10_ms(lib))
     a, b = (on_card(rng.integers(0, 2, s).astype(np.float32)).to(torch.bfloat16)
             for s in ((128, 128), (128, 256)))
     wx, wi = u32((128, 128)), on_card(rng.integers(0, 128, (128, 256), dtype=np.int32))
@@ -1011,16 +1083,21 @@ def phase_probes(rng, card: str) -> dict:
         e = card_err([got.reshape(-1).view(torch.int32)], [ref.reshape(-1).view(torch.int32)])
         err = max(err, e)
         calls[name] = work_row(e, graph_ms(kern), graph_ms(plain), nb, fl, graph_ms(lib))
+        calls[name].update(graph10_ms=graph10_ms(kern), library_graph10_ms=graph10_ms(lib))
         nbytes, flops = nbytes + nb, flops + fl
     print("[lane_gather] " + "; ".join(
-        f"{r} rows: kernel == plain, kernel {g['ms']:.4f} ms, plain {g['plain_ms']:.4f},"
-        f" torch.gather {g['library_ms']:.4f}, bound {g['bound_ms']:.4f}"
+        f"{r} rows: kernel == plain, kernel {g['ms']:.4f} ms ({g['graph10_ms']:.4f} a call of"
+        f" {GRAPH_CALLS}), plain {g['plain_ms']:.4f}, torch.gather {g['library_ms']:.4f}"
+        f" ({g['library_graph10_ms']:.4f}), bound {g['bound_ms']:.4f}"
         for r, g in gathers.items())
-        + f" (median of {REPS} graph replays, CUDA events) [{card}]", flush=True)
+        + f" (median of {REPS} graph replays of one call and of {GRAPH_CALLS}, CUDA events)"
+          f" [{card}]", flush=True)
     print("[lowering probes] " + "; ".join(
-        f"{n}: kernel == plain, kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, library"
-        f" {r['library_ms']:.4f}, bound {r['bound_ms']:.6f}" for n, r in calls.items())
-        + f" (median of {REPS} graph replays, CUDA events) [{card}]", flush=True)
+        f"{n}: kernel == plain, kernel {r['ms']:.4f} ms ({r['graph10_ms']:.4f} a call of"
+        f" {GRAPH_CALLS}), plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}"
+        f" ({r['library_graph10_ms']:.4f}), bound {r['bound_ms']:.6f}" for n, r in calls.items())
+        + f" (median of {REPS} graph replays of one call and of {GRAPH_CALLS}, CUDA events)"
+          f" [{card}]", flush=True)
     return {"lane_gather": {**gathers[32768], "rows_8192": gathers[8192]},
             "lowering_probes": _sum_rows(calls, err, nbytes, flops)}
 
@@ -1058,10 +1135,8 @@ def phase_sort_tiles(rng, card: str) -> dict:
     row = kernel_row(err, cuda_ms(lambda: sort_cuda.sort_tiles(timed)),
                      cuda_ms(lambda: sort_cuda.sort_tiles_ref(timed)), 16 * SF1_ROWS,
                      library_ms("torch.sort of 4096-element rows", lambda: torch.sort(k32, dim=1)))
-    row["graph_ms"] = graph_ms(
-        lambda: [sort_cuda.sort_tiles(timed) for _ in range(GRAPH_CALLS)]) / GRAPH_CALLS
-    row["library_graph_ms"] = graph_ms(
-        lambda: [torch.sort(k32, dim=1) for _ in range(GRAPH_CALLS)]) / GRAPH_CALLS
+    row["graph_ms"] = graph10_ms(lambda: sort_cuda.sort_tiles(timed))
+    row["library_graph_ms"] = graph10_ms(lambda: torch.sort(k32, dim=1))
     print(f"[sort_tiles] n={SF1_ROWS} 1 payload: kernel {row['ms']:.4f} ms eager,"
           f" {row['graph_ms']:.4f} graph, plain {row['plain_ms']:.4f} ms, torch.sort of the key's"
           f" rows {row['library_ms']} ms eager, {row['library_graph_ms']:.4f} graph, bound"
@@ -1208,10 +1283,8 @@ def phase_fill_kernels(rng, card: str) -> dict:
     fill_plain = cuda_ms(lambda: scan_cuda.propagate_fill_ref(planes))
     last_ms = cuda_ms(lambda: scan_cuda.propagate_last(ta, planes[1:]))
     last_plain = cuda_ms(lambda: scan_cuda.propagate_last_ref(ta, planes[1:]))
-    fill_graph = graph_ms(
-        lambda: [scan_cuda.propagate_fill(planes) for _ in range(GRAPH_CALLS)]) / GRAPH_CALLS
-    last_graph = graph_ms(
-        lambda: [scan_cuda.propagate_last(ta, planes[1:]) for _ in range(GRAPH_CALLS)]) / GRAPH_CALLS
+    fill_graph = graph10_ms(lambda: scan_cuda.propagate_fill(planes))
+    last_graph = graph10_ms(lambda: scan_cuda.propagate_last(ta, planes[1:]))
     print(
         f"[fill] n={FILL_N} key + 1 payload: propagate_fill kernel {fill_ms:.4f} ms eager,"
         f" {fill_graph:.4f} graph, plain {fill_plain:.4f} ms; propagate_last kernel"
@@ -1316,10 +1389,10 @@ def phase_merge_kernels(rng, card: str) -> dict:
     torch.cuda.synchronize()
     key32 = timed[0].view(torch.int32)
     ms = cuda_ms(lambda: merge.bitonic_merge(timed))
-    graph = graph_ms(lambda: [merge.bitonic_merge(timed) for _ in range(GRAPH_CALLS)]) / GRAPH_CALLS
+    graph = graph10_ms(lambda: merge.bitonic_merge(timed))
     plain_ms = cuda_ms(lambda: bitonic_cuda.bitonic_merge_blocks_ref(timed, FILL_N // 128))
     sort_ms = cuda_ms(lambda: torch.sort(key32))
-    sort_graph = graph_ms(lambda: [torch.sort(key32) for _ in range(GRAPH_CALLS)]) / GRAPH_CALLS
+    sort_graph = graph10_ms(lambda: torch.sort(key32))
     blocks = [on_card(p) for p in _bitonic_planes(rng, FILL_N, 1 << 16, 16, 1)]
     blk_ms = cuda_ms(lambda: bitonic_cuda.bitonic_merge_blocks(blocks))
     print(
@@ -1610,12 +1683,9 @@ def phase_merge_probe_kernel(rng, card: str) -> dict:
     # probe, build keys and payload read once; has, key, payload written
     nbytes = 4 * PROBE_N + 2 * 4 * PROBE_N + (1 + 4 + 4) * PROBE_N
 
-    def calls(fn):  # GRAPH_CALLS calls a replay, each with its own outputs
-        return lambda: [fn() for _ in range(GRAPH_CALLS)]
-
     graph = interleaved({
-        "kernel": lambda: graph_ms(calls(lambda: merge_cuda.merge_probe(tl, tr, pays))) / GRAPH_CALLS,
-        "lib": lambda: graph_ms(calls(lambda: torch.searchsorted(sr, sl, right=True))) / GRAPH_CALLS})
+        "kernel": lambda: graph10_ms(lambda: merge_cuda.merge_probe(tl, tr, pays)),
+        "lib": lambda: graph10_ms(lambda: torch.searchsorted(sr, sl, right=True))})
     parts = kernel_replay.launch_breakdown(lambda: merge_cuda.merge_probe(tl, tr, pays))
     print(
         f"[merge_probe] {PROBE_N} x {PROBE_N} 1 payload: kernel {ms:.4f} ms eager,"
@@ -1787,8 +1857,7 @@ def phase_join(sf: int, card: str) -> dict:
     s_ms = cuda_ms(lambda: sort_cuda.sort_bitonic((idx, y)))
     sidx = sort_cuda.sort_bitonic((idx, y))[0]
     g_ms = cuda_ms(lambda: take_cuda.gather_sorted(x, sidx))
-    g_graph = graph_ms(lambda: [take_cuda.gather_sorted(x, sidx)
-                                for _ in range(GRAPH_CALLS)]) / GRAPH_CALLS
+    g_graph = graph10_ms(lambda: take_cuda.gather_sorted(x, sidx))
     total_graph = graph_ms(lambda: merge.join_shard_dense(fk, (y,), pk, (x,)))
     rows = len(out["fk"])
     print(

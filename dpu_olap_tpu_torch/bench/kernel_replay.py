@@ -50,7 +50,19 @@ Inputs are drawn on the card from seed 42:
     sort section) beside ``torch.sort`` of the key's 4096-element rows,
     with a per-launch breakdown;
   * sum: ``sum_cuda.sum_u64_pair`` at 16Mi (one sum round at SF=8) beside
-    ``x.sum(dtype=torch.int64)``, with a per-launch breakdown.
+    ``x.sum(dtype=torch.int64)``, with a per-launch breakdown;
+  * cops: ``block_ops_cuda.block_op(x, idx, "count_matmul", reps)`` on 128
+    (128, 128) int32 tiles (measure_filter's cops section) at reps 0, 1
+    and 16, so that the readings split a call into a fixed cost and a cost
+    a rep, beside the plain version's torch chain at reps 16 (a bf16
+    batched matmul of the 0/1 planes a rep), with the per-launch breakdown
+    at each reps; values in [-2^14, 2^14) with half the indices equal to
+    (v >> 7) & 127, so that the products are not all 0;
+  * lane_gather: ``probes_cuda.lane_gather`` at measure_r3's two gk shapes,
+    8192 and 32768 rows of 128 int32 gathered at 128 indices a row, and at
+    the wide lowering probe's 128 rows of 256 indices over 128 values,
+    beside ``torch.gather`` (int64 indices, clamped), each with a
+    per-launch breakdown.
 Each call is captured several times in one graph (CALLS, or BIG_CALLS from
 BIG_ROWS rows on), each with outputs of its own, so that no call finds the
 last one's outputs in L2; a reading is the median of REPS replays over the
@@ -66,11 +78,13 @@ It calls the wrappers only through ``sort_bitonic(planes)``,
 alternates' ``filter_compact(values, version)`` and
 ``filter_with_indices(values, version)``, ``filter_stage(values, stage)``,
 ``bitonic_merge(planes)``, ``bitonic_merge_blocks(planes, block_rows)``,
-``sort_tiles(planes)`` and ``sum_u64_pair(values)``, so the
+``sort_tiles(planes)``, ``sum_u64_pair(values)``, ``block_op(x, idx, op,
+reps)`` and ``lane_gather(x, idx)``, so the
 same file can time another checkout of the package: run it by its path
 with that checkout first on PYTHONPATH, and alternate the two checkouts on
 one card. ``--only`` takes a subset of the groups (sort, gather,
-merge_probe, partition, fill, filter, merge, tiles, sum). It prints one line a reading and,
+merge_probe, partition, fill, filter, merge, tiles, sum, cops,
+lane_gather). It prints one line a reading and,
 last, a JSON object of them; ``--out`` writes that object to a file too.
 It needs a CUDA device.
 """
@@ -88,12 +102,14 @@ import torch
 
 from dpu_olap_tpu_torch.ops import (
     bitonic_cuda,
+    block_ops_cuda,
     filter_alt_cuda,
     filter_cuda,
     filter_stages,
     merge,
     merge_cuda,
     partition_cuda,
+    probes_cuda,
     scan_cuda,
     sort_cuda,
     sum_cuda,
@@ -113,9 +129,13 @@ MERGE_N = 1 << 23  # the sorted-build join's merge length at TPC-H SF=1
 TPCH_ORDERS = 1_500_000  # chip_smoke.py TPCH_ORDERS
 TILES_N = 1 << 21  # measure_filter's sort section
 SUM_N = 1 << 24  # chip_smoke.py SUM_N
+COPS_TILES = 128  # measure_filter's cops section: 2Mi int32 in (128, 128) tiles
+COPS_REPS = (0, 1, 16)  # 16: the section's ops a call
+GATHER_SHAPES = ((8192, 128, 128), (32768, 128, 128), (128, 128, 256))  # (rows, W_v, W_i)
 EMPTY = 0xFFFFFFFF
 CALLS = 10
-GROUPS = ("sort", "gather", "merge_probe", "partition", "fill", "filter", "merge", "tiles", "sum")
+GROUPS = ("sort", "gather", "merge_probe", "partition", "fill", "filter", "merge", "tiles", "sum",
+          "cops", "lane_gather")
 BIG_ROWS = 1 << 27
 BIG_CALLS = 2
 REPS = 7
@@ -482,6 +502,44 @@ def sum_readings() -> tuple:
     return ms, launch_breakdown(lambda: sum_cuda.sum_u64_pair(values))
 
 
+def cops_readings() -> tuple:
+    """count_matmul on COPS_TILES tiles at each of COPS_REPS, checked
+    against block_op_ref, beside the plain version's torch chain at reps 16
+    (bf16 products); the per-launch breakdown at each reps."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + COPS_TILES)
+    shape = (COPS_TILES * 128, 128)
+    x = torch.randint(-2**14, 2**14, shape, dtype=torch.int32, device="cuda", generator=gen)
+    idx = torch.where(torch.rand(shape, generator=gen, device="cuda") < 0.5, (x >> 7) & 127,
+                      torch.randint(-2**31, 2**31, shape, dtype=torch.int32, device="cuda",
+                                    generator=gen))
+    calls = {f"count_matmul_r{r}": (lambda r=r: block_ops_cuda.block_op(x, idx, "count_matmul", r))
+             for r in COPS_REPS}
+    for r in COPS_REPS:
+        if not torch.equal(calls[f"count_matmul_r{r}"](),
+                           block_ops_cuda.block_op_ref(x, idx, "count_matmul", r)):
+            raise SystemExit(f"count_matmul at reps {r}: kernel != plain")
+    top = COPS_REPS[-1]
+    ms = _in_turns({**calls, f"torch_chain_r{top}": lambda: block_ops_cuda.block_op_ref(
+        x, idx, "count_matmul", top, matmul_dtype=torch.bfloat16)})
+    return ms, {name: launch_breakdown(call) for name, call in calls.items()}
+
+
+def lane_gather_readings(rows: int, wv: int, wi: int) -> tuple:
+    """lane_gather of (rows, wv) int32 values at (rows, wi) indices in
+    [0, wv) (three of them out of range), checked against lane_gather_ref,
+    beside torch.gather at the clamped int64 indices."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + rows + wi)
+    x = torch.randint(-2**31, 2**31, (rows, wv), dtype=torch.int32, device="cuda", generator=gen)
+    i = torch.randint(0, wv, (rows, wi), dtype=torch.int32, device="cuda", generator=gen)
+    i[0, :3] = torch.tensor([-1, wv, 2**31 - 1], dtype=torch.int32)
+    if not torch.equal(probes_cuda.lane_gather(x, i), probes_cuda.lane_gather_ref(x, i)):
+        raise SystemExit(f"lane_gather at ({rows}, {wv}) x {wi}: kernel != plain")
+    i64 = i.to(torch.int64).clamp(0, wv - 1)
+    ms = _in_turns({"lane_gather": lambda: probes_cuda.lane_gather(x, i),
+                    "torch_gather": lambda: torch.gather(x, 1, i64)})
+    return ms, launch_breakdown(lambda: probes_cuda.lane_gather(x, i))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--label", default="", help="a name for this run, kept in the JSON")
@@ -545,6 +603,19 @@ def main(argv=None) -> int:
         record(size, ms)
         out["breakdown"][f"{what}_{size}"] = parts
         _breakdown_line(args.label, f"{what} {size}", parts, card)
+    if "cops" in only:
+        size = f"{COPS_TILES}tiles"
+        ms, parts = cops_readings()
+        record(size, ms)
+        for what, p in parts.items():
+            out["breakdown"][f"{what}_{size}"] = p
+            _breakdown_line(args.label, f"{what} {size}", p, card)
+    for rows, wv, wi in GATHER_SHAPES if "lane_gather" in only else ():
+        size = f"{rows}x{wi}" + (f"over{wv}" if wi != wv else "")
+        ms, parts = lane_gather_readings(rows, wv, wi)
+        record(size, ms)
+        out["breakdown"][f"lane_gather_{size}"] = parts
+        _breakdown_line(args.label, f"lane_gather {size}", parts, card)
     line = json.dumps(out)
     if args.out:
         with open(args.out, "w") as f:

@@ -1,7 +1,6 @@
-// The counting product of 0/1 planes on the tensor cores, shared by
-// csrc/block_ops.cu (count_matmul) and csrc/probes.cu (the one-hot product):
-// one 16 x 16 tile of a^T . b with bf16 m16n16k16 wmma fragments and f32
-// accumulators.
+// The counting product of 0/1 planes on the tensor cores, for
+// csrc/probes.cu (the one-hot product): one 16 x 16 tile of a^T . b with
+// bf16 m16n16k16 wmma fragments and f32 accumulators.
 //
 // a is K x lda row-major, so a^T loads as a col_major matrix_a: element (m,
 // k) of a^T sits at a[k * lda + m]. b is K x ldb row-major. With 0/1
@@ -43,7 +42,5 @@ __device__ __forceinline__ void at_b_tile(const __nv_bfloat16* a, int lda,
   nvcuda::wmma::store_matrix_sync(out + (size_t)m0 * ldo + n0, fc, ldo,
                                   nvcuda::wmma::mem_row_major);
 }
-
-__device__ __forceinline__ __nv_bfloat16 bit(bool b) { return __float2bfloat16(b ? 1.0f : 0.0f); }
 
 }  // namespace onehot

@@ -3,8 +3,9 @@
 ``_c_op_kernel``, the ``cops`` probe).
 
 ``block_op(x, idx, op, reps)`` launches ``csrc/block_ops.cu`` for CUDA
-tensors and runs the plain version ``block_op_ref`` for CPU tensors; any
-other device raises. x and idx are int32 planes of shape
+tensors (count_matmul on the tensor cores, its own kernel; its x and idx
+must start 16-byte aligned) and runs the plain version ``block_op_ref`` for
+CPU tensors; any other device raises. x and idx are int32 planes of shape
 (nblk * ROWS[op], 128); each block of rows runs ``reps`` ops in turn, t =
 0 .. reps - 1, in int32 arithmetic that wraps modulo 2^32 (``>>`` is
 arithmetic):
@@ -114,6 +115,9 @@ def block_op(x: torch.Tensor, idx: torch.Tensor, op: str, reps: int) -> torch.Te
         return block_op_ref(x, idx, op, reps)
     if not (x.is_contiguous() and idx.is_contiguous()):
         raise ValueError("block op x and idx must be contiguous")
+    if op == "count_matmul" and (x.data_ptr() | idx.data_ptr()) % 16:
+        raise ValueError("block op count_matmul: x and idx must start 16-byte aligned"
+                         " (its kernel reads them with 16-byte loads)")
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
         rc = _kernels.library().dpu_block_op_i32(

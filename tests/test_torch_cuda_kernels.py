@@ -11,6 +11,10 @@ stages of the filter stage ablation (csrc/filter.cu; lookback on
 [:count]), the in-block primitive ops (csrc/block_ops.cu), the
 probe primitives (csrc/probes.cu), the sort's tile stage (csrc/sort.cu),
 the radix sort (csrc/radix_sort.cu) and the sorted gather (csrc/gather.cu),
+count_matmul on the tensor cores (csrc/block_ops.cu: reps 0, 1, 2, 16, 17
+on 1, 5, 128 and 264 tiles, products not all 0, a misaligned view
+refused), the lane gather (csrc/probes.cu: W_i = 128 and 256 at 1 to 32768
+rows, out-of-range indices, misaligned views),
 the block merge (csrc/sort.cu: every pass structure of merge_plan, ties,
 the top-bit edges, misaligned views, in == out, the sorted-build join's
 call) and the tile stage at its geometry's edges,
@@ -271,19 +275,92 @@ def test_block_op_matches_plain(cuda_device, op, reps):
     _same([got], [block_ops_cuda.block_op_ref(x, idx, op, reps)])
 
 
+def _count_matmul_inputs(nblk, seed):
+    """Tiles whose products are not all 0: v in [-2^14, 2^14) with the edge
+    values (negative v, where v >> 7 is negative), half the indices equal
+    to (v >> 7) & 127, the others any int32 (only idx & 127 counts); from 2
+    tiles on, the second is all 0, where every sum of the first rep is 128."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-2**14, 2**14, (nblk * 128, 128), dtype=np.int64).astype(np.int32)
+    x.flat[: len(EDGE_I32)] = EDGE_I32
+    x[-1, -len(EDGE_I32):] = EDGE_I32
+    idx = np.where(rng.random(x.shape) < 0.5, (x >> 7) & 127,
+                   rng.integers(-2**31, 2**31, x.shape, dtype=np.int64)).astype(np.int32)
+    idx.flat[: len(EDGE_I32)] = EDGE_I32
+    if nblk > 1:
+        x[128:256] = 0
+        idx[128:256] = 0
+    return x, idx
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows, wv, wi", [(8192, 128, 128), (32768, 128, 128), (128, 128, 256),
-                                          (1000, 96, 40), (3, 2048, 7)])
-def test_lane_gather_matches_plain(cuda_device, rows, wv, wi):
-    rng = np.random.default_rng(rows)
-    x = torch.from_numpy(rng.integers(0, 2**32, (rows, wv), dtype=np.uint32)).to(cuda_device)
-    i = rng.integers(0, wv, (rows, wi), dtype=np.int32)
-    i[0, :3] = [-1, wv, 2**31 - 1]  # out of range: 0 in both versions
-    i = torch.from_numpy(i).to(cuda_device)
+@pytest.mark.parametrize("nblk", [1, 5, 128, 264])  # 264: two waves on 132 SMs
+@pytest.mark.parametrize("reps", [0, 1, 2, 16, 17])
+def test_count_matmul_matches_plain(cuda_device, nblk, reps):
+    x, idx = (torch.from_numpy(a).to(cuda_device) for a in _count_matmul_inputs(nblk, nblk + reps))
+    before = block_ops_cuda.LAUNCHES["count_matmul"]
+    got = block_ops_cuda.block_op(x, idx, "count_matmul", reps)
+    assert block_ops_cuda.LAUNCHES["count_matmul"] == before + 1
+    _same([got], [block_ops_cuda.block_op_ref(x, idx, "count_matmul", reps)])
+
+
+@pytest.mark.cuda
+def test_count_matmul_refuses_a_misaligned_view(cuda_device):
+    flat = torch.zeros(128 * 128 + 1, dtype=torch.int32, device=cuda_device)
+    x = flat[1:].view(128, 128)  # contiguous, 4 bytes past a 16-byte boundary
+    before = block_ops_cuda.LAUNCHES["count_matmul"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        block_ops_cuda.block_op(x, x, "count_matmul", 1)
+    assert block_ops_cuda.LAUNCHES["count_matmul"] == before
+
+
+def _lane_gather_same(x, i):
     before = probes_cuda.LAUNCHES["lane_gather"]
     got = probes_cuda.lane_gather(x, i)
     assert probes_cuda.LAUNCHES["lane_gather"] == before + 1
     _same([got], [probes_cuda.lane_gather_ref(x, i)])
+
+
+def _lane_gather_inputs(rows, wv, wi, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 2**32, (rows, wv), dtype=np.uint32)
+    i = rng.integers(0, wv, (rows, wi), dtype=np.int32)
+    i[0, :3] = [-1, wv, 2**31 - 1]  # out of range: 0 in both versions
+    i[-1, -3:] = [wv, -1, -2**31]
+    return x, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows, wv, wi", [(8192, 128, 128), (32768, 128, 128), (128, 128, 256),
+                                          (1000, 96, 40), (3, 2048, 7)])
+def test_lane_gather_matches_plain(cuda_device, rows, wv, wi):
+    _lane_gather_same(*(torch.from_numpy(a).to(cuda_device)
+                        for a in _lane_gather_inputs(rows, wv, wi, rows)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 31, 32, 33, 8192, 32768])
+@pytest.mark.parametrize("wi", [128, 256])
+def test_lane_gather_row_edges(cuda_device, rows, wi):
+    """W_v = 128 and W_i = 128 or 256 (every shape gk and the wide lowering
+    probe launch) at row counts around a warp's 32 and at gk's shapes."""
+    _lane_gather_same(*(torch.from_numpy(a).to(cuda_device)
+                        for a in _lane_gather_inputs(rows, 128, wi, rows + wi)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["x", "idx"])
+def test_lane_gather_misaligned_view(cuda_device, which):
+    """A contiguous view that does not start 16-byte aligned: the kernel
+    reads 4-byte words, so it takes any 4-byte aligned view and gives the
+    plain version's values."""
+    x, i = (torch.from_numpy(a).to(cuda_device) for a in _lane_gather_inputs(33, 128, 128, 5))
+    t = x if which == "x" else i
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 and view.is_contiguous()
+    _lane_gather_same(*((view, i) if which == "x" else (x, view)))
 
 
 @pytest.mark.cuda

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from dpu_olap_tpu_torch.bench import device_time
 from dpu_olap_tpu_torch.bench import measure_filter as mf
 
 REPO = Path(__file__).resolve().parents[1]
@@ -38,11 +39,24 @@ EXPECTED = {
 
 @pytest.mark.parametrize("section", mf.SECTIONS)
 def test_section_candidates(results, section):
+    """The script's contract for every reading: a note with its rate, a
+    median inside its reps' spread, and a reading at or above its floor or
+    flagged ``suspect`` with that floor. On the CPU a chain step of a few
+    microseconds (e2e's chain at 20K) is a difference of wall times that
+    can come out at or below zero under load; device_time then reports its
+    1e-9 s clamp, which lies above such a spread and under the floor."""
     got = results[section]
     assert list(got) == EXPECTED[section]
-    assert all(e["ms"] > 0 and "GB/s" in e["note"] for e in got.values())
-    spreads = [e for name, e in got.items() if not name.startswith("v1_eager")]
-    assert all(e["spread_ms"][0] <= e["ms"] <= e["spread_ms"][1] for e in spreads)
+    clamp_ms = device_time._median([0.0]) * 1e3
+    for name, e in got.items():
+        assert e["ms"] > 0 and "GB/s" in e["note"]
+        if e.get("suspect"):
+            assert e["ms"] < e["floor_ms"]
+        else:
+            assert e["ms"] >= mf.FLOOR_MS
+        if not name.startswith("v1_eager"):
+            lo, hi = e["spread_ms"]
+            assert lo <= e["ms"] <= max(hi, clamp_ms)
 
 
 def test_run_prints_one_line_per_candidate(capsys):
