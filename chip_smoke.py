@@ -12,10 +12,13 @@ four also timed as graph replays, the partition with its per-launch
 breakdown; filter v1 and the forward fill in both modes, also timed as
 graph replays and checked on views at offsets 1-3, in two calls in a row
 and in CUDA-graph replays; sum, block merge, the filter alternates and
-stage ablation, the block ops (count_matmul also on 1 to 264 tiles at
-reps 0 to 17), the probe primitives (the lane gather also at 1 to 32768
-rows and on misaligned views) and the sort's tile stage; the block ops and
-probes timed as one call replayed and per call of ten in one graph), the
+stage ablation, the block ops (every op on 1 to 264 blocks at reps 0 to
+17 with indices over the int32 range, misaligned views refused;
+count_matmul also on 1 to 264 tiles whose products are not all 0), the
+probe primitives (the lane gather also at 1 to 32768 rows and on
+misaligned views) and the sort's tile stage; the block ops and probes
+timed as one call replayed and per call of ten in one graph, the gathers
+and the transpose also beside their on-chip floor, printed), the
 partition, sort and fill kernels also
 at the SF=64 main path's shapes, and times each beside its bound and the
 one PyTorch call that computes the same function, then drives each
@@ -919,36 +922,73 @@ def _count_matmul_inputs(rng, nblk: int):
     return on_card(x), on_card(idx)
 
 
+def _block_inputs(rng, rows: int, nblk: int):
+    """nblk blocks of int32 values over the whole range and indices over the
+    whole int32 range (negative values and the +-2^31 edges included; a
+    third of them near x >> 7, so that cprep's compare counts both ways)."""
+    shape = (nblk * rows, 128)
+    x = rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
+    x.flat[: len(EDGE_I32)] = EDGE_I32
+    idx = rng.integers(-2**31, 2**31, shape, dtype=np.int64)
+    near = (x.astype(np.int64) >> 7) + rng.integers(-2, 3, shape)
+    idx = np.where(rng.random(shape) < 1 / 3, near, idx).astype(np.int32)
+    idx.flat[: len(EDGE_I32)] = EDGE_I32[::-1]
+    idx[-1, -len(EDGE_I32):] = EDGE_I32
+    return on_card(x), on_card(idx)
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.split()[0]) * 1e6
+
+
 def phase_block_ops(rng, card: str) -> dict:
     """Every block op at its probe's block shape (OPS at 256 rows, COPS at
-    128), reps 2 and 16, bit for bit against its plain version on the card,
-    at 2Mi int32 values with the +-2^31 edges in them; count_matmul also at
-    reps 0, 1, 2, 16 and 17 on 1, 5, 128 and 264 tiles (two waves on 132
-    SMs) whose products are not all 0. Each op timed at reps 16 two ways:
-    one call replayed from a CUDA graph (an eager call's time is mostly the
-    host's), and per call from GRAPH_CALLS calls in one graph; beside its
-    bound (8 bytes an element for the ops that never read idx, 12 for the
-    others), its plain version (eager) and the same torch chain captured
-    the same two ways (torch.roll, torch.where, torch.gather, .transpose, a
-    bf16 batched matmul of the 0/1 planes)."""
+    128) bit for bit against its plain version on the card: on 1, 3, 64,
+    128 and 264 blocks (264: more blocks than SMs and a partial last wave) at
+    reps 0, 1, 2, 16 and 17 (17: the roll's shift cycles past 4), with
+    values and indices over the whole int32 range; count_matmul also on 1,
+    5, 128 and 264 tiles whose products are not all 0. Every op refuses a
+    view 4 bytes past 16-byte alignment (x, and idx where the op reads it)
+    without a launch. Each op timed at 2Mi values and reps 16 two ways: one
+    call replayed from a CUDA graph (an eager call's time is mostly the
+    host's), and per call from GRAPH_CALLS calls in one graph on the same
+    x and idx (L2-hot); beside its bound (8 bytes an element for the ops
+    that never read idx, 12 for the others), its plain version (eager) and
+    the same torch chain captured the same two ways (torch.roll, torch.where, torch.gather, .transpose, a
+    bf16 batched matmul of the 0/1 planes). The printed line also gives the
+    on-chip floor of the gathers and the transpose, worked out, not timed:
+    every value through shared memory once in and once out a rep, at 128 B
+    a clock an SM at the card's highest SM clock."""
     import torch
 
     from dpu_olap_tpu_torch.ops import block_ops_cuda as bo
 
-    xs = rng.integers(-2**31, 2**31, BLOCK_N, dtype=np.int64).astype(np.int32)
-    xs[: len(EDGE_I32)] = EDGE_I32
-    xs[-len(EDGE_I32):] = EDGE_I32
-    x = on_card(xs).view(-1, 128)
-    idx = on_card(rng.integers(0, 128, BLOCK_N, dtype=np.int32)).view(-1, 128)
     errs = dict.fromkeys(bo.OPS + bo.COPS, 0)
     for op in bo.OPS + bo.COPS:
-        for reps in (2, OP_REPS):
-            got = bo.block_op(x, idx, op, reps)
-            ref = bo.block_op_ref(x, idx, op, reps)
-            require(card_equal([got], [ref]), f"block op {op} != plain: reps {reps}")
-            errs[op] = max(errs[op], card_err([got.view(-1)], [ref.view(-1)]))
-        print(f"[block ops] {op}: kernel == plain at {BLOCK_N} values, blocks of"
-              f" {bo.ROWS[op]} rows, reps 2 and {OP_REPS}", flush=True)
+        for nblk in (1, 3, 64, 128, 264):
+            x, idx = _block_inputs(rng, bo.ROWS[op], nblk)
+            for reps in (0, 1, 2, OP_REPS, OP_REPS + 1):
+                got = bo.block_op(x, idx, op, reps)
+                ref = bo.block_op_ref(x, idx, op, reps)
+                require(card_equal([got], [ref]), f"block op {op} != plain: {nblk} blocks, reps {reps}")
+                errs[op] = max(errs[op], card_err([got.reshape(-1)], [ref.reshape(-1)]))
+        rows = bo.ROWS[op]
+        flat = torch.zeros(rows * 128 + 4, dtype=torch.int32, device="cuda")
+        view, good = flat[1: 1 + rows * 128].view(rows, 128), flat[4:].view(rows, 128)
+        before = bo.LAUNCHES[op]
+        for args in ((view, good), (good, view))[: 1 if op in bo.IDX_FREE else 2]:
+            try:
+                bo.block_op(*args, op, 1)
+            except ValueError:
+                continue
+            raise SmokeFailure(f"block op {op} took a view 4 bytes past 16-byte alignment")
+        require(bo.LAUNCHES[op] == before, f"block op {op}: a refused view launched")
+        print(f"[block ops] {op}: kernel == plain on 1, 3, 64, 128 and 264 blocks of"
+              f" {rows} rows, reps 0, 1, 2, {OP_REPS}, {OP_REPS + 1}, indices over the int32"
+              f" range; misaligned views refused", flush=True)
     for nblk in (1, 5, 128, 264):
         cx, ci = _count_matmul_inputs(rng, nblk)
         for reps in (0, 1, 2, OP_REPS, OP_REPS + 1):
@@ -956,10 +996,19 @@ def phase_block_ops(rng, card: str) -> dict:
             ref = bo.block_op_ref(cx, ci, "count_matmul", reps)
             require(card_equal([got], [ref]), f"count_matmul != plain: {nblk} tiles, reps {reps}")
             errs["count_matmul"] = max(errs["count_matmul"],
-                                       card_err([got.view(-1)], [ref.view(-1)]))
+                                       card_err([got.reshape(-1)], [ref.reshape(-1)]))
     print(f"[block ops] count_matmul: kernel == plain on 1, 5, 128 and 264 tiles, reps 0, 1, 2,"
           f" {OP_REPS}, {OP_REPS + 1}, products not all 0", flush=True)
     torch.cuda.synchronize()
+
+    xs = rng.integers(-2**31, 2**31, BLOCK_N, dtype=np.int64).astype(np.int32)
+    xs[: len(EDGE_I32)] = EDGE_I32
+    xs[-len(EDGE_I32):] = EDGE_I32
+    x = on_card(xs).view(-1, 128)
+    idx = on_card(rng.integers(0, 128, BLOCK_N, dtype=np.int32)).view(-1, 128)
+    smem_rate = torch.cuda.get_device_properties(0).multi_processor_count * 128 * sm_clock_hz()
+    onchip = {op: 2 * 4 * BLOCK_N * OP_REPS / smem_rate * 1e3
+              for op in ("lane_gather", "sublane_gather", "sq_gather", "transpose")}
     out = {}
     for entry, ops in (("block_ops", bo.OPS), ("block_cops", bo.COPS)):
         calls, nbytes = {}, {}
@@ -984,9 +1033,12 @@ def phase_block_ops(rng, card: str) -> dict:
               + "; ".join(f"{op} kernel {r['ms']:.4f} ms ({r['graph10_ms']:.4f} a call of"
                           f" {GRAPH_CALLS}), plain {r['plain_ms']:.4f}, torch chain in one graph"
                           f" {r['library_ms']:.4f} ({r['library_graph10_ms']:.4f}), bound"
-                          f" {r['bound_ms']:.4f} ({r['bound_by']})" for op, r in calls.items())
+                          f" {r['bound_ms']:.4f} ({r['bound_by']})"
+                          + (f", on-chip floor {onchip[op]:.4f}" if op in onchip else "")
+                          for op, r in calls.items())
               + f" (median of {REPS}; kernel and chain: graph replays of one call and of"
-                f" {GRAPH_CALLS}) [{card}]", flush=True)
+                f" {GRAPH_CALLS}; shared memory {smem_rate / 1e12:.2f} TB/s at the highest SM"
+                f" clock) [{card}]", flush=True)
     return out
 
 

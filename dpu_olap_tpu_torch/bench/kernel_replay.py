@@ -58,6 +58,17 @@ Inputs are drawn on the card from seed 42:
     batched matmul of the 0/1 planes a rep), with the per-launch breakdown
     at each reps; values in [-2^14, 2^14) with half the indices equal to
     (v >> 7) & 127, so that the products are not all 0;
+  * block_ops: ``block_ops_cuda.block_op(x, idx, op, reps)`` for the eight
+    ops other than count_matmul at BLOCK_N = 2Mi int32 values (64 (256,
+    128) blocks for the ops section's five, 128 (128, 128) tiles for the
+    cops section's three) at reps 0, 1 and 16, so that the readings split
+    each op into a fixed cost and a cost a rep, beside the plain version's
+    torch chain at reps 16, each kernel reading with its per-launch
+    breakdown; values over the whole int32 range and indices in [0, 128),
+    as the probes draw them. Each op at reps 16 is also read L2-cold
+    (``{op}_cold_r16``): the CALLS calls of the graph each take an x and idx
+    of their own, 160 MiB in all, so that between two reads of one input
+    the other calls move 216 MiB through the 50 MB L2;
   * lane_gather: ``probes_cuda.lane_gather`` at measure_r3's two gk shapes,
     8192 and 32768 rows of 128 int32 gathered at 128 indices a row, and at
     the wide lowering probe's 128 rows of 256 indices over 128 values,
@@ -84,7 +95,7 @@ same file can time another checkout of the package: run it by its path
 with that checkout first on PYTHONPATH, and alternate the two checkouts on
 one card. ``--only`` takes a subset of the groups (sort, gather,
 merge_probe, partition, fill, filter, merge, tiles, sum, cops,
-lane_gather). It prints one line a reading and,
+block_ops, lane_gather). It prints one line a reading and,
 last, a JSON object of them; ``--out`` writes that object to a file too.
 It needs a CUDA device.
 """
@@ -92,6 +103,7 @@ It needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import re
 import subprocess
@@ -131,16 +143,20 @@ TILES_N = 1 << 21  # measure_filter's sort section
 SUM_N = 1 << 24  # chip_smoke.py SUM_N
 COPS_TILES = 128  # measure_filter's cops section: 2Mi int32 in (128, 128) tiles
 COPS_REPS = (0, 1, 16)  # 16: the section's ops a call
+BLOCK_N = 1 << 21  # the ops and cops sections: 64 (256, 128) blocks, 128 (128, 128) tiles
+BLOCK_REPS = (0, 1, 16)
 GATHER_SHAPES = ((8192, 128, 128), (32768, 128, 128), (128, 128, 256))  # (rows, W_v, W_i)
 EMPTY = 0xFFFFFFFF
 CALLS = 10
+BLOCK_SETS = CALLS  # inputs of a cold block-op reading: one x and idx a call
 GROUPS = ("sort", "gather", "merge_probe", "partition", "fill", "filter", "merge", "tiles", "sum",
-          "cops", "lane_gather")
+          "cops", "block_ops", "lane_gather")
 BIG_ROWS = 1 << 27
 BIG_CALLS = 2
 REPS = 7
 ROUNDS = 3
 BREAKDOWN_CALLS = 5
+PROFILE_TRIES = 3
 
 
 def replay_ms(fn, calls: int = CALLS) -> float:
@@ -192,23 +208,29 @@ def launch_breakdown(fn, calls: int = BREAKDOWN_CALLS) -> dict:
     """Device ms of one eager call of fn by device event name (kernels,
     memsets and copies): ``calls`` calls under torch.profiler, each event's
     time summed and divided by the calls. A name launched c > 1 times a call
-    gets one entry per launch, "name [j/c]", in launch order."""
+    gets one entry per launch, "name [j/c]", in launch order. A profile
+    that saw no device event (the tracer now and then records none) is
+    taken again, up to PROFILE_TRIES times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     spans: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            spans.setdefault(e.name, []).append(
-                (e.time_range.start, (e.time_range.end - e.time_range.start) / 1e3))
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                spans.setdefault(e.name, []).append(
+                    (e.time_range.start, (e.time_range.end - e.time_range.start) / 1e3))
+        if spans:
+            break
     if not spans:
-        raise SystemExit("launch_breakdown: the profiler saw no device events")
+        raise SystemExit(f"launch_breakdown: the profiler saw no device events in"
+                         f" {PROFILE_TRIES} tries")
     per: dict = {}
     for name, ts in spans.items():
         ts.sort()
@@ -524,6 +546,39 @@ def cops_readings() -> tuple:
     return ms, {name: launch_breakdown(call) for name, call in calls.items()}
 
 
+def block_ops_readings() -> tuple:
+    """Each block op but count_matmul on BLOCK_N values at each of BLOCK_REPS,
+    checked against block_op_ref, beside its L2-cold reading at reps 16
+    (BLOCK_SETS inputs in turn) and the plain version's torch chain at reps
+    16; the per-launch breakdown of each op at each reps."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    sets = [(torch.randint(-2**31, 2**31, (BLOCK_N // 128, 128), dtype=torch.int32,
+                           device="cuda", generator=gen),
+             torch.randint(0, 128, (BLOCK_N // 128, 128), dtype=torch.int32, device="cuda",
+                           generator=gen)) for _ in range(BLOCK_SETS)]
+    x, idx = sets[0]
+    ops = [op for op in block_ops_cuda.OPS + block_ops_cuda.COPS if op != "count_matmul"]
+    top = BLOCK_REPS[-1]
+
+    def cold(op):  # each call on the next of the sets
+        turn = itertools.cycle(sets)
+        return lambda: block_ops_cuda.block_op(*next(turn), op, top)
+
+    ms, parts = {}, {}
+    for op in ops:
+        calls = {f"{op}_r{r}": (lambda op=op, r=r: block_ops_cuda.block_op(x, idx, op, r))
+                 for r in BLOCK_REPS}
+        for r in BLOCK_REPS:
+            if not torch.equal(calls[f"{op}_r{r}"](), block_ops_cuda.block_op_ref(x, idx, op, r)):
+                raise SystemExit(f"{op} at reps {r}: kernel != plain")
+        ms.update(_in_turns({**calls, f"{op}_cold_r{top}": cold(op),
+                             f"{op}_torch_chain_r{top}": (
+            lambda op=op: block_ops_cuda.block_op_ref(x, idx, op, top,
+                                                      matmul_dtype=torch.bfloat16))}))
+        parts.update({name: launch_breakdown(call) for name, call in calls.items()})
+    return ms, parts
+
+
 def lane_gather_readings(rows: int, wv: int, wi: int) -> tuple:
     """lane_gather of (rows, wv) int32 values at (rows, wi) indices in
     [0, wv) (three of them out of range), checked against lane_gather_ref,
@@ -606,6 +661,13 @@ def main(argv=None) -> int:
     if "cops" in only:
         size = f"{COPS_TILES}tiles"
         ms, parts = cops_readings()
+        record(size, ms)
+        for what, p in parts.items():
+            out["breakdown"][f"{what}_{size}"] = p
+            _breakdown_line(args.label, f"{what} {size}", p, card)
+    if "block_ops" in only:
+        size = f"{BLOCK_N >> 20}Mi"
+        ms, parts = block_ops_readings()
         record(size, ms)
         for what, p in parts.items():
             out["breakdown"][f"{what}_{size}"] = p

@@ -3,12 +3,12 @@
 ``_c_op_kernel``, the ``cops`` probe).
 
 ``block_op(x, idx, op, reps)`` launches ``csrc/block_ops.cu`` for CUDA
-tensors (count_matmul on the tensor cores, its own kernel; its x and idx
-must start 16-byte aligned) and runs the plain version ``block_op_ref`` for
-CPU tensors; any other device raises. x and idx are int32 planes of shape
-(nblk * ROWS[op], 128); each block of rows runs ``reps`` ops in turn, t =
-0 .. reps - 1, in int32 arithmetic that wraps modulo 2^32 (``>>`` is
-arithmetic):
+tensors and runs the plain version ``block_op_ref`` for CPU tensors; any
+other device raises. Every kernel reads with 16-byte loads, so x, and idx
+for an op that reads it, must start 16-byte aligned. x and idx are int32
+planes of shape (nblk * ROWS[op], 128); each block of rows runs ``reps``
+ops in turn, t = 0 .. reps - 1, in int32 arithmetic that wraps modulo 2^32
+(``>>`` is arithmetic):
 
   OPS (the ``ops`` probe, on (256, 128) blocks, as in the JAX script)
     lane_roll       roll by 1 + (t & 3) along the lanes (``torch.roll``'s
@@ -31,9 +31,16 @@ never read idx (the kernel does not load it). The plain version computes
 in int64 and wraps; its counting product is an exact float32 matmul of the
 0/1 planes (``matmul_dtype=torch.bfloat16`` is exact too: every sum is at
 most 128). ``LAUNCHES[op]`` counts each op's kernel launches.
+
+``block_op_plan(op, nblk)`` describes the launch that ``block_op`` makes
+(csrc/block_ops.cu's ``plan_of``, and count_matmul's own launch): the op's
+skeleton (csrc/block_ops.cu's note says what each does), its grid, threads
+a block and bytes of shared memory a block.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -46,6 +53,42 @@ LANES = 128
 ROWS = {**dict.fromkeys(OPS, 256), **dict.fromkeys(COPS, LANES)}  # an op's block rows
 IDX_FREE = ("lane_roll", "row_roll", "transpose")  # ops that never read idx
 LAUNCHES = dict.fromkeys(OPS + COPS, 0)  # kernel launches of each op
+
+
+class BlockOpPlan(NamedTuple):
+    skeleton: str
+    grid: int  # blocks
+    threads: int  # a block
+    smem: int  # bytes of dynamic shared memory a block
+
+
+# the kernels' geometry (csrc/block_ops.cu: ew, rw, col, strip, tile, cm)
+WHERE_VALUES = 256 * 8  # values a where block: 256 threads of 8
+ROW_ROWS = 8 * 2  # rows a row block: 8 warps of 2 rows
+STRIP_COLS = 32  # columns a column or strip block
+PITCH = LANES + 4  # words a row of the transpose's tile in shared memory
+
+
+def block_op_plan(op: str, nblk: int) -> BlockOpPlan:
+    """The launch of ``op`` on nblk blocks of ROWS[op] rows."""
+    if op not in CODES:
+        raise ValueError(f"block op must be one of {OPS + COPS}, got {op!r}")
+    values = nblk * ROWS[op] * LANES
+    strips = nblk * (LANES // STRIP_COLS)
+    if op == "where":
+        return BlockOpPlan("elementwise", values // WHERE_VALUES, 256, 0)
+    if op in ("lane_roll", "lane_gather", "sq_gather"):
+        smem = 0 if op == "lane_roll" else 8 * 2 * 2 * LANES * 4  # a warp's rows, twice
+        return BlockOpPlan("row", nblk * ROWS[op] // ROW_ROWS, 256, smem)
+    if op == "row_roll":  # the staged strip, then 8 warps' 4 edge rows, twice
+        return BlockOpPlan("column", strips, 256, (ROWS[op] + 2 * 8 * 4) * STRIP_COLS * 4)
+    if op == "cprep":  # the strips of x and idx at a pitch of 33 words
+        return BlockOpPlan("column", strips, 256, 2 * ROWS[op] * (STRIP_COLS + 1) * 4)
+    if op == "sublane_gather":
+        return BlockOpPlan("strip", strips, 256, 2 * ROWS[op] * STRIP_COLS * 4)
+    if op == "transpose":
+        return BlockOpPlan("tile", nblk, 1024, 2 * LANES * PITCH * 4)
+    return BlockOpPlan("tensor_core", nblk, 256, 4 * LANES * LANES * 2)  # count_matmul
 
 
 def _check(x: torch.Tensor, idx: torch.Tensor, op: str, reps: int) -> torch.device:
@@ -102,7 +145,7 @@ def block_op_ref(x: torch.Tensor, idx: torch.Tensor, op: str, reps: int,
     i = idx.reshape(shape).to(torch.int64)
     for t in range(reps):
         v = _step(v, i, op, t, matmul_dtype)
-    return v.to(torch.int32).reshape(x.shape)
+    return v.to(torch.int32).reshape(x.shape).contiguous()
 
 
 def block_op(x: torch.Tensor, idx: torch.Tensor, op: str, reps: int) -> torch.Tensor:
@@ -115,8 +158,10 @@ def block_op(x: torch.Tensor, idx: torch.Tensor, op: str, reps: int) -> torch.Te
         return block_op_ref(x, idx, op, reps)
     if not (x.is_contiguous() and idx.is_contiguous()):
         raise ValueError("block op x and idx must be contiguous")
-    if op == "count_matmul" and (x.data_ptr() | idx.data_ptr()) % 16:
-        raise ValueError("block op count_matmul: x and idx must start 16-byte aligned"
+    read = (x,) if op in IDX_FREE else (x, idx)
+    if any(t.data_ptr() % 16 for t in read):
+        names = "x" if op in IDX_FREE else "x and idx"
+        raise ValueError(f"block op {op}: {names} must start 16-byte aligned"
                          " (its kernel reads them with 16-byte loads)")
     out = torch.empty_like(x)
     with torch.cuda.device(dev):

@@ -8,7 +8,9 @@ unsorted and a misaligned probe), the filter alternates
 with indices at 8Mi and 64Mi, replayed from a graph, and refusing an
 output that is not 16-byte aligned) and the five
 stages of the filter stage ablation (csrc/filter.cu; lookback on
-[:count]), the in-block primitive ops (csrc/block_ops.cu), the
+[:count]), the in-block primitive ops (csrc/block_ops.cu: every op on 1,
+3, 64 and 264 blocks at reps 0, 1, 2, 16 and 17, indices over the whole
+int32 range, misaligned views refused), the
 probe primitives (csrc/probes.cu), the sort's tile stage (csrc/sort.cu),
 the radix sort (csrc/radix_sort.cu) and the sorted gather (csrc/gather.cu),
 count_matmul on the tensor cores (csrc/block_ops.cu: reps 0, 1, 2, 16, 17
@@ -254,25 +256,57 @@ EDGE_I32 = np.array([0, 1, -1, 2**31 - 1, -2**31, 2**31 - 2, -2**31 + 1, 127, 12
 
 def _block_inputs(rows, nblk, seed):
     """int32 values over the whole range (edge values first, so the wrapping
-    adds run) and lane indices in [0, 128)."""
+    adds run) and indices over the whole int32 range, negative values and
+    the +-2^31 edges included, a third of them near x >> 7 so that cprep's
+    compare counts both ways."""
     rng = np.random.default_rng(seed)
-    x = rng.integers(-2**31, 2**31, (nblk * rows, 128), dtype=np.int64).astype(np.int32)
+    shape = (nblk * rows, 128)
+    x = rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
     x.flat[: len(EDGE_I32)] = EDGE_I32
     x[-1, -len(EDGE_I32):] = EDGE_I32
-    idx = rng.integers(0, 128, x.shape, dtype=np.int32)
+    idx = rng.integers(-2**31, 2**31, shape, dtype=np.int64)
+    near = (x.astype(np.int64) >> 7) + rng.integers(-2, 3, shape)
+    idx = np.where(rng.random(shape) < 1 / 3, near, idx).astype(np.int32)
+    idx.flat[: len(EDGE_I32)] = EDGE_I32[::-1]
+    idx[-1, -len(EDGE_I32):] = EDGE_I32
     return x, idx
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", block_ops_cuda.OPS + block_ops_cuda.COPS)
-@pytest.mark.parametrize("reps", [0, 2, 16])
-def test_block_op_matches_plain(cuda_device, op, reps):
+@pytest.mark.parametrize("nblk", [1, 3, 64, 264])  # 264: more blocks than SMs, a partial wave
+@pytest.mark.parametrize("reps", [0, 1, 2, 16, 17])  # 17: the roll's shift cycles past 4
+def test_block_op_matches_plain(cuda_device, op, nblk, reps):
     rows = block_ops_cuda.ROWS[op]
-    x, idx = (torch.from_numpy(a).to(cuda_device) for a in _block_inputs(rows, 5, rows + reps))
+    x, idx = (torch.from_numpy(a).to(cuda_device)
+              for a in _block_inputs(rows, nblk, rows + 10 * nblk + reps))
     before = block_ops_cuda.LAUNCHES[op]
     got = block_ops_cuda.block_op(x, idx, op, reps)
     assert block_ops_cuda.LAUNCHES[op] == before + 1
     _same([got], [block_ops_cuda.block_op_ref(x, idx, op, reps)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", block_ops_cuda.OPS + block_ops_cuda.COPS)
+def test_block_op_refuses_misaligned_views(cuda_device, op):
+    """Every block-op kernel reads with 16-byte loads: x, and idx where the
+    op reads it, 4 bytes past a 16-byte boundary are refused before any
+    launch."""
+    rows = block_ops_cuda.ROWS[op]
+    flat = torch.zeros(rows * 128 + 4, dtype=torch.int32, device=cuda_device)
+    view = flat[1: 1 + rows * 128].view(rows, 128)
+    good = flat[4:].view(rows, 128)
+    before = block_ops_cuda.LAUNCHES[op]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        block_ops_cuda.block_op(view, good, op, 1)
+    if op in block_ops_cuda.IDX_FREE:
+        _same([block_ops_cuda.block_op(good, view, op, 1)],
+              [block_ops_cuda.block_op_ref(good, view, op, 1)])
+        assert block_ops_cuda.LAUNCHES[op] == before + 1
+    else:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            block_ops_cuda.block_op(good, view, op, 1)
+        assert block_ops_cuda.LAUNCHES[op] == before
 
 
 def _count_matmul_inputs(nblk, seed):
