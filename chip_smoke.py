@@ -15,10 +15,12 @@ and in CUDA-graph replays; sum, block merge, the filter alternates and
 stage ablation, the block ops (every op on 1 to 264 blocks at reps 0 to
 17 with indices over the int32 range, misaligned views refused;
 count_matmul also on 1 to 264 tiles whose products are not all 0), the
-probe primitives (the lane gather also at 1 to 32768 rows and on
-misaligned views) and the sort's tile stage; the block ops and probes
-timed as one call replayed and per call of ten in one graph, the gathers
-and the transpose also beside their on-chip floor, printed), the
+probe primitives (the lane gather also at 1 to 32768 rows by both its
+kernels and on misaligned views, the one-hot product at K 16 to 4096 and
+every tiling) and the sort's tile stage; the block ops and probes timed
+as one call replayed and per call of ten in one graph, the gathers and
+the transpose also beside their on-chip floor, printed, the lowering
+probes in turns beside the noop kernel's launch floor), the
 partition, sort and fill kernels also
 at the SF=64 main path's shapes, and times each beside its bound and the
 one PyTorch call that computes the same function, then drives each
@@ -331,6 +333,7 @@ def phase_join_entry_points(rng) -> None:
 
 
 GRAPH_CALLS = 10  # calls captured in one graph for a replay reading of a short kernel
+PROBE_ROUNDS = 9  # rounds in turns of the lowering probes' calls of 10, a few us each
 
 
 def interleaved(fns: dict, rounds: int = 3) -> dict:
@@ -856,10 +859,10 @@ def phase_probe_lowering(card: str) -> dict:
     probes_cuda.LAUNCHES.update(dict.fromkeys(probes_cuda.LAUNCHES, 0))
     res = probe_lowering.run()
     require(all(res.values()), f"probe_lowering: FAIL {[k for k, ok in res.items() if not ok]}")
-    require(all(probes_cuda.LAUNCHES.values()), f"probe_lowering: launches {probes_cuda.LAUNCHES}")
-    print(f"[probe_lowering] {len(res)} probes OK: launches {probes_cuda.LAUNCHES} [{card}]",
-          flush=True)
-    return {"lowering": sum(probes_cuda.LAUNCHES.values())}
+    launches = {k: probes_cuda.LAUNCHES[k] for k in probes_cuda.PRIMITIVES}
+    require(all(launches.values()), f"probe_lowering: launches {launches}")
+    print(f"[probe_lowering] {len(res)} probes OK: launches {launches} [{card}]", flush=True)
+    return {"lowering": sum(launches.values())}
 
 
 def graph_ms(fn) -> float:
@@ -1046,13 +1049,20 @@ def phase_probes(rng, card: str) -> dict:
     """The lane gather at measure_r3's shapes (8192 and 32768 rows of 128
     int32) and the lowering probes' primitives at theirs, each bit for bit
     against its plain version on the card (out-of-range gather indices and
-    rows too); the lane gather also at 1, 31, 32, 33, 8192 and 32768 rows
-    of 128 and 256 indices over 128 values and on views that do not start
-    16-byte aligned. Each is timed beside its bound, its plain version and
-    one torch call (torch.gather, .t().contiguous(), a bf16 torch.matmul,
-    index_select), each replayed from a CUDA graph, since an eager call of
-    these small kernels times the host's launch, not the card: one call
-    replayed, and per call from GRAPH_CALLS calls in one graph."""
+    rows too); the lane gather also at 1 to 32768 rows of 128 and 256
+    indices over 128 values (the warp-a-row kernel) and over 129 and 2048
+    (the staged kernel), either side of gather_plan's threshold, and on
+    views that do not start 16-byte aligned; the one-hot product also at K
+    of 16 to 4096 and M and N of 16 to 256. Each is timed beside its bound, its plain
+    version and one torch call (torch.gather, .t().contiguous(), a bf16
+    torch.matmul, index_select), each replayed from a CUDA graph, since an
+    eager call of these small kernels times the host's launch, not the
+    card: one call replayed, and per call from GRAPH_CALLS calls in one
+    graph. The lowering probes are also read against the launch floor, the
+    time of the noop kernel through the same path, taken the same two ways
+    in the same run: each gets its share of the larger of its bound and the
+    floor, a call of GRAPH_CALLS, and a reading under the floor is flagged,
+    never clamped."""
     import torch
 
     from dpu_olap_tpu_torch.ops import probes_cuda as pc
@@ -1060,11 +1070,11 @@ def phase_probes(rng, card: str) -> dict:
     def u32(shape):
         return on_card(rng.integers(0, 2**32, shape, dtype=np.uint32))
 
-    def gather_inputs(rows, wi):
-        x = on_card(rng.integers(0, 2**31, (rows, 128), dtype=np.int32))
-        i = rng.integers(0, 128, (rows, wi), dtype=np.int32)
-        i[0, :3] = [-1, 128, 2**31 - 1]
-        i[-1, -3:] = [128, -1, -2**31]
+    def gather_inputs(rows, wi, wv=128):
+        x = on_card(rng.integers(0, 2**31, (rows, wv), dtype=np.int32))
+        i = rng.integers(0, wv, (rows, wi), dtype=np.int32)
+        i[0, :3] = [-1, wv, 2**31 - 1]
+        i[-1, -3:] = [wv, -1, -2**31]
         return x, on_card(i)
 
     def misaligned(t):  # the same values in a contiguous view 4 bytes past 16
@@ -1073,18 +1083,33 @@ def phase_probes(rng, card: str) -> dict:
         return view
 
     gather_err = 0
-    for rows in (1, 31, 32, 33, 8192, 32768):
+    edge_rows = (1, 31, 32, 33, 128, 4223, 4224, 8192, 32768)
+    for rows in edge_rows:
         for wi in (128, 256):
-            x, i = gather_inputs(rows, wi)
-            for vx, vi, how in ((x, i, ""), (misaligned(x), i, ", x misaligned"),
-                                (x, misaligned(i), ", idx misaligned")):
-                got, ref = pc.lane_gather(vx, vi), pc.lane_gather_ref(vx, vi)
-                require(card_equal([got], [ref]),
-                        f"lane_gather != plain: {rows} rows of {wi} indices{how}")
-                gather_err = max(gather_err, card_err([got.view(-1)], [ref.view(-1)]))
-    print("[lane_gather] kernel == plain at 1, 31, 32, 33, 8192 and 32768 rows of 128 and 256"
-          " indices over 128 values, out-of-range indices, x or idx 4 bytes past 16-byte"
-          " alignment", flush=True)
+            for wv in (128, 129, 2048) if rows <= 4224 else (128,):
+                x, i = gather_inputs(rows, wi, wv)
+                kernel = pc.gather_plan(rows, wv, wi).kernel
+                for vx, vi, how in ((x, i, ""), (misaligned(x), i, ", x misaligned"),
+                                    (x, misaligned(i), ", idx misaligned")):
+                    got, ref = pc.lane_gather(vx, vi), pc.lane_gather_ref(vx, vi)
+                    require(card_equal([got], [ref]), f"lane_gather ({kernel}) != plain: {rows}"
+                            f" rows of {wi} indices over {wv} values{how}")
+                    gather_err = max(gather_err, card_err([got.view(-1)], [ref.view(-1)]))
+    print(f"[lane_gather] == plain at {', '.join(map(str, edge_rows))} rows of 128 and 256"
+          f" indices over 128 values (warp_rows), and up to 4224 rows over 129 and 2048 values"
+          f" (staged), out-of-range indices, x or idx 4 bytes past 16-byte alignment",
+          flush=True)
+    onehot_err = 0
+    for k in (16, 128, 144, 4096):
+        for m in (16, 48, 128, 256):
+            for n in (16, 48, 128, 256):
+                oa, ob = (on_card(rng.integers(0, 2, s).astype(np.float32)).to(torch.bfloat16)
+                          for s in ((k, m), (k, n)))
+                got, ref = pc.onehot_matmul(oa, ob), pc.onehot_matmul_ref(oa, ob)
+                require(card_equal([got], [ref]), f"onehot_matmul != plain: K {k}, M {m}, N {n}")
+                onehot_err = max(onehot_err, card_err([got.view(-1)], [ref.view(-1)]))
+    print("[lowering probes] onehot_matmul == plain at K 16, 128, 144, 4096 x M, N 16, 48, 128,"
+          " 256", flush=True)
     gathers = {}
     for rows in (8192, 32768):
         x, i = gather_inputs(rows, 128)
@@ -1127,15 +1152,29 @@ def phase_probes(rng, card: str) -> dict:
                   lambda r=r: dx.view(torch.int32).index_select(0, r.clamp(0, 511).long()),
                   8 * 128, 0) for name, r in rows.items()},
     }
-    calls, err, nbytes, flops = {}, 0, 0, 0
+    # every probe call, its torch call and the noop, read in turns: a call
+    # of these is a few microseconds, near the launch floor it is held to
+    timed = {("noop", "kernel"): pc.noop}
+    for name, (kern, _, lib, _, _) in probes.items():
+        timed.update({(name, "kernel"): kern, (name, "library"): lib})
+    one = interleaved({k: (lambda f=f: graph_ms(f)) for k, f in timed.items()})
+    ten = interleaved({k: (lambda f=f: graph10_ms(f)) for k, f in timed.items()},
+                      rounds=PROBE_ROUNDS)
+    floor = {"ms": one[("noop", "kernel")], "graph10_ms": ten[("noop", "kernel")]}
+    calls, err, nbytes, flops = {}, onehot_err, 0, 0
     for name, (kern, plain, lib, nb, fl) in probes.items():
         got, ref = kern(), plain()
         require(card_equal([got], [ref]), f"lowering probe {name}: kernel != plain")
         require(got.dtype == ref.dtype, f"lowering probe {name}: dtype {got.dtype} != {ref.dtype}")
         e = card_err([got.reshape(-1).view(torch.int32)], [ref.reshape(-1).view(torch.int32)])
+        if name.startswith("gather"):
+            e = max(e, gather_err)
         err = max(err, e)
-        calls[name] = work_row(e, graph_ms(kern), graph_ms(plain), nb, fl, graph_ms(lib))
-        calls[name].update(graph10_ms=graph10_ms(kern), library_graph10_ms=graph10_ms(lib))
+        calls[name] = work_row(e, one[(name, "kernel")], graph_ms(plain), nb, fl,
+                               one[(name, "library")])
+        calls[name].update(graph10_ms=ten[(name, "kernel")],
+                           library_graph10_ms=ten[(name, "library")])
+        calls[name].update(floor_row(calls[name], floor))
         nbytes, flops = nbytes + nb, flops + fl
     print("[lane_gather] " + "; ".join(
         f"{r} rows: kernel == plain, kernel {g['ms']:.4f} ms ({g['graph10_ms']:.4f} a call of"
@@ -1144,14 +1183,29 @@ def phase_probes(rng, card: str) -> dict:
         for r, g in gathers.items())
         + f" (median of {REPS} graph replays of one call and of {GRAPH_CALLS}, CUDA events)"
           f" [{card}]", flush=True)
-    print("[lowering probes] " + "; ".join(
+    print(f"[lowering probes] launch floor (noop kernel through the probes' path):"
+          f" {floor['ms']:.4f} ms one call replayed, {floor['graph10_ms']:.4f} a call of"
+          f" {GRAPH_CALLS}; " + "; ".join(
         f"{n}: kernel == plain, kernel {r['ms']:.4f} ms ({r['graph10_ms']:.4f} a call of"
         f" {GRAPH_CALLS}), plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}"
-        f" ({r['library_graph10_ms']:.4f}), bound {r['bound_ms']:.6f}" for n, r in calls.items())
-        + f" (median of {REPS} graph replays of one call and of {GRAPH_CALLS}, CUDA events)"
-          f" [{card}]", flush=True)
+        f" ({r['library_graph10_ms']:.4f}), bound {r['bound_ms']:.6f}, share of max(bound,"
+        f" floor) {r['floor_share']:.2f} a call of {GRAPH_CALLS}"
+        + (" UNDER THE FLOOR" if r["under_floor"] else "") for n, r in calls.items())
+        + f" (kernel, library and floor in turns: one call replayed, median of 3 rounds; a"
+          f" call of {GRAPH_CALLS} in one graph, median of {PROBE_ROUNDS} rounds; each reading"
+          f" the median of {REPS} replays, CUDA events) [{card}]", flush=True)
     return {"lane_gather": {**gathers[32768], "rows_8192": gathers[8192]},
             "lowering_probes": _sum_rows(calls, err, nbytes, flops)}
+
+
+def floor_row(row: dict, floor: dict) -> dict:
+    """A reading's launch floor (the noop's time, one call replayed and a
+    call of GRAPH_CALLS), and, from the call of GRAPH_CALLS (one call
+    replayed carries the replay's own fixed cost), its share of max(bound,
+    floor) and whether it lies under the floor (flagged, never clamped)."""
+    return {"launch_floor_ms": floor["ms"], "launch_floor_graph10_ms": floor["graph10_ms"],
+            "floor_share": max(row["bound_ms"], floor["graph10_ms"]) / row["graph10_ms"],
+            "under_floor": row["graph10_ms"] < floor["graph10_ms"]}
 
 
 def phase_sort_tiles(rng, card: str) -> dict:

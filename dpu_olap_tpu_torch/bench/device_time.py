@@ -26,6 +26,10 @@ from __future__ import annotations
 
 import time
 
+# the least seconds an op the estimator reports: on a loaded host T(2k) -
+# T(k) can come out at or below zero, and a reading stays positive
+CLAMP_S = 1e-9
+
 
 def _chain(make_step, x, k: int, consts: tuple):
     c = x
@@ -80,7 +84,7 @@ def _runner(make_step, x, k: int, consts: tuple, graph: bool):
 
 def _median(ds: list) -> float:
     ds = sorted(ds)
-    return max(ds[len(ds) // 2], 1e-9)
+    return max(ds[len(ds) // 2], CLAMP_S)
 
 
 def time_chained(make_step, x, k: int = 16, reps: int = 3, consts: tuple = (),

@@ -73,7 +73,15 @@ Inputs are drawn on the card from seed 42:
     8192 and 32768 rows of 128 int32 gathered at 128 indices a row, and at
     the wide lowering probe's 128 rows of 256 indices over 128 values,
     beside ``torch.gather`` (int64 indices, clamped), each with a
-    per-launch breakdown.
+    per-launch breakdown;
+  * probes: the lowering probes' seven calls at their shapes (the
+    transposes of (128, 128) u32 and i32 and (512, 128) u32, the wide
+    gather, the one-hot product (128, 128)^T @ (128, 256), dyn_row at rows
+    317 and -1 of (512, 128)) beside their torch calls
+    (``.t().contiguous()``, ``torch.gather``, a bf16 ``torch.matmul``,
+    ``index_select``) and ``probes_cuda.noop``, the launch floor of the
+    probes' path (a checkout without it reads none), in PROBE_ROUNDS
+    rounds, each call with its per-launch breakdown.
 Each call is captured several times in one graph (CALLS, or BIG_CALLS from
 BIG_ROWS rows on), each with outputs of its own, so that no call finds the
 last one's outputs in L2; a reading is the median of REPS replays over the
@@ -90,12 +98,14 @@ alternates' ``filter_compact(values, version)`` and
 ``filter_with_indices(values, version)``, ``filter_stage(values, stage)``,
 ``bitonic_merge(planes)``, ``bitonic_merge_blocks(planes, block_rows)``,
 ``sort_tiles(planes)``, ``sum_u64_pair(values)``, ``block_op(x, idx, op,
-reps)`` and ``lane_gather(x, idx)``, so the
+reps)``, ``lane_gather(x, idx)``, ``transpose(x)``, ``onehot_matmul(a,
+b)`` and ``dyn_row(x, row)`` (and ``noop`` only where the package has
+it), so the
 same file can time another checkout of the package: run it by its path
 with that checkout first on PYTHONPATH, and alternate the two checkouts on
 one card. ``--only`` takes a subset of the groups (sort, gather,
 merge_probe, partition, fill, filter, merge, tiles, sum, cops,
-block_ops, lane_gather). It prints one line a reading and,
+block_ops, lane_gather, probes). It prints one line a reading and,
 last, a JSON object of them; ``--out`` writes that object to a file too.
 It needs a CUDA device.
 """
@@ -150,11 +160,12 @@ EMPTY = 0xFFFFFFFF
 CALLS = 10
 BLOCK_SETS = CALLS  # inputs of a cold block-op reading: one x and idx a call
 GROUPS = ("sort", "gather", "merge_probe", "partition", "fill", "filter", "merge", "tiles", "sum",
-          "cops", "block_ops", "lane_gather")
+          "cops", "block_ops", "lane_gather", "probes")
 BIG_ROWS = 1 << 27
 BIG_CALLS = 2
 REPS = 7
 ROUNDS = 3
+PROBE_ROUNDS = 9  # the probes' calls of about 2-5 us: more rounds against their noise
 BREAKDOWN_CALLS = 5
 PROFILE_TRIES = 3
 
@@ -252,9 +263,9 @@ def _u32(n: int, gen: torch.Generator, high: int | None = None) -> torch.Tensor:
                          generator=gen).to(torch.uint32)
 
 
-def _in_turns(fns: dict, calls: int = CALLS) -> dict:
+def _in_turns(fns: dict, calls: int = CALLS, rounds: int = ROUNDS) -> dict:
     got = {k: [] for k in fns}
-    for r in range(ROUNDS):
+    for r in range(rounds):
         for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
             got[k].append(replay_ms(fns[k], calls))
     return {k: float(np.median(v)) for k, v in got.items()}
@@ -595,6 +606,47 @@ def lane_gather_readings(rows: int, wv: int, wi: int) -> tuple:
     return ms, launch_breakdown(lambda: probes_cuda.lane_gather(x, i))
 
 
+def probes_readings() -> tuple:
+    """The lowering probes' seven calls (PERF.md row 19), each checked
+    against its plain version, beside their torch calls and the noop, each
+    with its per-launch breakdown."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+
+    def u32(*shape):
+        return torch.randint(-2**31, 2**31, shape, dtype=torch.int32, device="cuda",
+                             generator=gen).view(torch.uint32)
+
+    t128, t128i, t512, wx, dx = u32(128, 128), u32(128, 128).view(torch.int32), u32(512, 128), \
+        u32(128, 128), u32(512, 128)
+    wi = torch.randint(0, 128, (128, 256), dtype=torch.int32, device="cuda", generator=gen)
+    wi64 = wi.to(torch.int64)
+    a, b = (torch.randint(0, 2, s, device="cuda", generator=gen).to(torch.bfloat16)
+            for s in ((128, 128), (128, 256)))
+    rows = {r: torch.tensor([r], dtype=torch.int32, device="cuda") for r in (317, -1)}
+    pc = probes_cuda
+    calls = {  # name: (kernel call, plain call, torch call)
+        **{f"transpose_{name}": (lambda t=t: pc.transpose(t), lambda t=t: pc.transpose_ref(t),
+                                 lambda t=t: t.t().contiguous())
+           for name, t in (("128x128_u32", t128), ("128x128_i32", t128i), ("512x128_u32", t512))},
+        "gather_wide": (lambda: pc.lane_gather(wx, wi), lambda: pc.lane_gather_ref(wx, wi),
+                        lambda: torch.gather(wx.view(torch.int32), 1, wi64)),
+        "onehot": (lambda: pc.onehot_matmul(a, b), lambda: pc.onehot_matmul_ref(a, b),
+                   lambda: torch.matmul(a.t(), b)),
+        **{f"dyn_row_{r}": (lambda t=t: pc.dyn_row(dx, t), lambda t=t: pc.dyn_row_ref(dx, t),
+                            lambda t=t: dx.view(torch.int32).index_select(0, t.clamp(0, 511).long()))
+           for r, t in rows.items()},
+    }
+    for name, (kern, plain, _) in calls.items():
+        if not _same([kern()], [plain()]):
+            raise SystemExit(f"lowering probe {name}: kernel != plain")
+    fns = {name: kern for name, (kern, _, _) in calls.items()}
+    fns.update({f"torch_{name}": lib for name, (_, _, lib) in calls.items()})
+    if hasattr(pc, "noop"):  # the launch floor
+        fns["noop"] = pc.noop
+    ms = _in_turns(fns, rounds=PROBE_ROUNDS)
+    return ms, {name: launch_breakdown(fn) for name, fn in fns.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--label", default="", help="a name for this run, kept in the JSON")
@@ -611,6 +663,7 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     out = {"label": args.label, "card": card, "package": sort_cuda.__file__,
            "calls": CALLS, "big_calls": BIG_CALLS, "reps": REPS, "rounds": ROUNDS,
+           "probe_rounds": PROBE_ROUNDS,
            "ms": {}, "breakdown": {}}
 
     def record(size: str, ms: dict) -> None:
@@ -672,6 +725,12 @@ def main(argv=None) -> int:
         for what, p in parts.items():
             out["breakdown"][f"{what}_{size}"] = p
             _breakdown_line(args.label, f"{what} {size}", p, card)
+    if "probes" in only:
+        ms, parts = probes_readings()
+        record("lowering", ms)
+        for what, p in parts.items():
+            out["breakdown"][f"{what}_lowering"] = p
+            _breakdown_line(args.label, f"{what} lowering", p, card)
     for rows, wv, wi in GATHER_SHAPES if "lane_gather" in only else ():
         size = f"{rows}x{wi}" + (f"over{wv}" if wi != wv else "")
         ms, parts = lane_gather_readings(rows, wv, wi)

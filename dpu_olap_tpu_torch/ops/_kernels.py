@@ -36,14 +36,16 @@ _SIGNATURES = {
     "dpu_sort_tiles_u32": [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.c_int, _LL, _LL, _P],
     # (x, idx, out, nblk, op, reps, stream)
     "dpu_block_op_i32": [_P, _P, _P, _LL, ctypes.c_int, _LL, _P],
-    # (x, idx, out, rows, w_values, w_idx, stream)
-    "dpu_lane_gather_u32": [_P, _P, _P, _LL, _LL, _LL, _P],
+    # (x, idx, out, rows, w_values, w_idx, kernel, grid, rows_per_block, stream)
+    "dpu_lane_gather_u32": [_P, _P, _P, _LL, _LL, _LL, ctypes.c_int, _LL, ctypes.c_int, _P],
     # (in, out, rows, cols, stream)
     "dpu_transpose_u32": [_P, _P, _LL, _LL, _P],
     # (a, b, out, k, m, n, stream)
     "dpu_onehot_matmul_bf16": [_P, _P, _P, _LL, _LL, _LL, _P],
     # (x, row, out, rows, w, stream)
     "dpu_dyn_row_u32": [_P, _P, _P, _LL, _LL, _P],
+    # (stream)
+    "dpu_noop": [_P],
     # (data, n, sidx, out, k, flag, stream)
     "dpu_gather_sorted_u32": [_P, _LL, _P, _P, _LL, _P, _P],
     # (x, n, threshold, fill, out, sel or NULL, work, count, stream)

@@ -14,22 +14,53 @@ primitives of the lowering probes ``measurements/_probe_v4_lowering.py``,
                          an int32 tensor on x's device that the kernel reads
                          there (the TPU probe keeps it in SMEM); a row
                          outside [0, rows) reads 0.
+  noop(device)           one launch of a kernel that does nothing, through
+                         the same ctypes path: the probes' launch floor.
 
 Each launches its kernel for CUDA tensors and runs its plain version
 (``*_ref``) for CPU tensors; any other device raises. 32-bit planes may be
 int32 or uint32, and the outputs keep their dtype. ``LAUNCHES[name]``
 counts each function's kernel launches.
+
+``gather_plan(rows, wv, wi)`` is the launch that ``lane_gather`` makes
+and the C entry follows: the kernel (a warp a row for rows of at most
+ROW_WORDS values, else rows staged a block), the grid and the rows a block.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from . import _kernels
 
-LAUNCHES = dict.fromkeys(("lane_gather", "transpose", "onehot_matmul", "dyn_row"), 0)
+PRIMITIVES = ("lane_gather", "transpose", "onehot_matmul", "dyn_row")  # the probes' functions
+LAUNCHES = dict.fromkeys((*PRIMITIVES, "noop"), 0)
 MAX_GATHER_WIDTH = 2048  # widest value or index row the gather takes (csrc/probes.cu)
 _WORDS = (torch.int32, torch.uint32)
+
+# the gathers' kernels, in the order of csrc/probes.cu's kernel codes
+GATHER_KERNELS = ("staged", "warp_rows")
+ROW_WARPS = 4  # rows a warp_rows block, one a warp
+ROW_WORDS = 128  # widest value row the warp_rows kernel takes
+
+
+class GatherPlan(NamedTuple):
+    kernel: str  # one of GATHER_KERNELS
+    grid: int  # blocks
+    rows_per_block: int
+
+
+def gather_plan(rows: int, wv: int, wi: int) -> GatherPlan:
+    """The launch of lane_gather on (rows, wv) values at (rows, wi) indices:
+    a warp a row up to ROW_WORDS values a row (no slower than the staged
+    kernel at any row count read, PERF.md §6), else as many rows staged a
+    block as fit MAX_GATHER_WIDTH values."""
+    if not (1 <= wv <= MAX_GATHER_WIDTH and 1 <= wi <= MAX_GATHER_WIDTH):
+        raise ValueError(f"lane_gather rows must be 1 to {MAX_GATHER_WIDTH} wide")
+    per = ROW_WARPS if wv <= ROW_WORDS else MAX_GATHER_WIDTH // wv
+    return GatherPlan("warp_rows" if wv <= ROW_WORDS else "staged", -(-rows // per), per)
 
 
 def _device(what: str, *ts: torch.Tensor) -> torch.device:
@@ -76,13 +107,16 @@ def lane_gather_ref(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def lane_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """o[r][j] = x[r][idx[r][j]]: a new plane of idx's shape, x's dtype."""
+    """o[r][j] = x[r][idx[r][j]]: a new plane of idx's shape, x's dtype, by
+    gather_plan's launch."""
     dev = _check_gather(x, idx)
     if dev.type == "cpu":
         return lane_gather_ref(x, idx)
+    plan = gather_plan(x.shape[0], x.shape[1], idx.shape[1])
     out = torch.empty(idx.shape, dtype=x.dtype, device=dev)
     _launch("lane_gather_u32", dev, x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[0],
-            x.shape[1], idx.shape[1])
+            x.shape[1], idx.shape[1], GATHER_KERNELS.index(plan.kernel), plan.grid,
+            plan.rows_per_block)
     LAUNCHES["lane_gather"] += 1
     return out
 
@@ -130,8 +164,8 @@ def onehot_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     dev = _check_onehot(a, b)
     if dev.type == "cpu":
         return onehot_matmul_ref(a, b)
-    if (a.data_ptr() | b.data_ptr()) % 32:
-        raise ValueError("onehot_matmul planes must start 32-byte aligned (wmma loads)")
+    if (a.data_ptr() | b.data_ptr()) % 16:
+        raise ValueError("onehot_matmul planes must start 16-byte aligned (16-byte cp.async)")
     out = torch.empty((a.shape[1], b.shape[1]), dtype=torch.float32, device=dev)
     _launch("onehot_matmul_bf16", dev, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0],
             a.shape[1], b.shape[1])
@@ -167,3 +201,16 @@ def dyn_row(x: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
             x.shape[1])
     LAUNCHES["dyn_row"] += 1
     return out
+
+
+def noop(device: torch.device | str = "cuda") -> None:
+    """One launch of a kernel that does nothing, on ``device``'s current
+    stream, through the probes' ctypes path: the least time a probe's
+    launch can take. Its plain version, for a CPU device, does nothing."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"noop runs on a cuda or cpu device, got {dev}")
+    _launch("noop", dev)
+    LAUNCHES["noop"] += 1

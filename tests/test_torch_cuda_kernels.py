@@ -16,7 +16,9 @@ the radix sort (csrc/radix_sort.cu) and the sorted gather (csrc/gather.cu),
 count_matmul on the tensor cores (csrc/block_ops.cu: reps 0, 1, 2, 16, 17
 on 1, 5, 128 and 264 tiles, products not all 0, a misaligned view
 refused), the lane gather (csrc/probes.cu: W_i = 128 and 256 at 1 to 32768
-rows, out-of-range indices, misaligned views),
+rows, either side of gather_plan's threshold, on each kernel, out-of-range
+indices, misaligned views), the one-hot product (K of 16 to 4096, M and N of
+16 to 256, misaligned planes refused) and the noop,
 the block merge (csrc/sort.cu: every pass structure of merge_plan, ties,
 the top-bit edges, misaligned views, in == out, the sorted-build join's
 call) and the tile stage at its geometry's edges,
@@ -372,23 +374,45 @@ def test_lane_gather_matches_plain(cuda_device, rows, wv, wi):
                         for a in _lane_gather_inputs(rows, wv, wi, rows)))
 
 
+_GATHER_EDGE_ROWS = [1, 31, 32, 33, 128, 4223, 4224, 8192, 32768]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [1, 31, 32, 33, 8192, 32768])
+@pytest.mark.parametrize("rows", _GATHER_EDGE_ROWS)
 @pytest.mark.parametrize("wi", [128, 256])
-def test_lane_gather_row_edges(cuda_device, rows, wi):
+@pytest.mark.parametrize("wv", [128, 129, 2048])
+def test_lane_gather_row_edges(cuda_device, rows, wi, wv):
     """W_v = 128 and W_i = 128 or 256 (every shape gk and the wide lowering
-    probe launch) at row counts around a warp's 32 and at gk's shapes."""
+    probe launch, on the warp-a-row kernel) at row counts around a warp's
+    32, around the staged kernel's two blocks an SM (4224 rows) and at gk's
+    shapes; the same on the staged kernel, at 15 rows and 1 row a block."""
     _lane_gather_same(*(torch.from_numpy(a).to(cuda_device)
-                        for a in _lane_gather_inputs(rows, 128, wi, rows + wi)))
+                        for a in _lane_gather_inputs(rows, wv, wi, rows + wi)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wv", [probes_cuda.ROW_WORDS, probes_cuda.ROW_WORDS + 1])
+@pytest.mark.parametrize("rows", [33, 4224])
+def test_lane_gather_plan_either_side_of_its_width(cuda_device, wv, rows):
+    """gather_plan takes the warp-a-row kernel up to 128 values a row and the
+    staged kernel past it."""
+    assert probes_cuda.gather_plan(rows, wv, 256).kernel == (
+        "warp_rows" if wv <= probes_cuda.ROW_WORDS else "staged")
+    _lane_gather_same(*(torch.from_numpy(a).to(cuda_device)
+                        for a in _lane_gather_inputs(rows, wv, 256, rows + wv)))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["x", "idx"])
-def test_lane_gather_misaligned_view(cuda_device, which):
-    """A contiguous view that does not start 16-byte aligned: the kernel
-    reads 4-byte words, so it takes any 4-byte aligned view and gives the
-    plain version's values."""
-    x, i = (torch.from_numpy(a).to(cuda_device) for a in _lane_gather_inputs(33, 128, 128, 5))
+@pytest.mark.parametrize("rows", [33, 128, 4223, 4224])
+@pytest.mark.parametrize("wi", [128, 256])
+@pytest.mark.parametrize("wv", [128, 129])
+def test_lane_gather_misaligned_view(cuda_device, which, rows, wi, wv):
+    """A contiguous view that does not start 16-byte aligned: the kernels
+    take 4-byte loads for it, so they take any 4-byte aligned view and give
+    the plain version's values."""
+    x, i = (torch.from_numpy(a).to(cuda_device)
+            for a in _lane_gather_inputs(rows, wv, wi, rows + 5))
     t = x if which == "x" else i
     flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
     view = flat[1:].view(t.shape)
@@ -408,13 +432,44 @@ def test_transpose_matches_plain(cuda_device, shape, dtype):
     _same([got], [probes_cuda.transpose_ref(x)])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("k, m, n", [(128, 128, 256), (16, 16, 16), (256, 64, 48)])
-def test_onehot_matmul_matches_plain(cuda_device, k, m, n):
+def _onehot_planes(k, m, n, device):
     rng = np.random.default_rng(k + m + n)
-    a, b = (torch.from_numpy(rng.integers(0, 2, s).astype(np.float32)).to(cuda_device)
+    return (torch.from_numpy(rng.integers(0, 2, s).astype(np.float32)).to(device)
             .to(torch.bfloat16) for s in ((k, m), (k, n)))
-    _same([probes_cuda.onehot_matmul(a, b)], [probes_cuda.onehot_matmul_ref(a, b)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, m, n", [(256, 64, 48)] + [
+    (k, m, n) for k in (16, 128, 144, 4096) for m in (16, 48, 128, 256) for n in (16, 48, 128, 256)])
+def test_onehot_matmul_matches_plain(cuda_device, k, m, n):
+    """Bit for bit at K of one k-chunk, one and a part (144) and 32 chunks,
+    and M and N of whole, ragged (48) and single tiles."""
+    a, b = _onehot_planes(k, m, n, cuda_device)
+    before = probes_cuda.LAUNCHES["onehot_matmul"]
+    got = probes_cuda.onehot_matmul(a, b)
+    assert probes_cuda.LAUNCHES["onehot_matmul"] == before + 1
+    _same([got], [probes_cuda.onehot_matmul_ref(a, b)])
+
+
+@pytest.mark.cuda
+def test_onehot_matmul_refuses_a_misaligned_plane(cuda_device):
+    flat = torch.zeros(16 * 16 + 8, dtype=torch.bfloat16, device=cuda_device)
+    view = flat[4: 4 + 256].view(16, 16)  # 8 bytes past a 16-byte boundary
+    good = flat[8: 8 + 256].view(16, 16)
+    assert view.data_ptr() % 16 == 8 and good.data_ptr() % 16 == 0
+    before = probes_cuda.LAUNCHES["onehot_matmul"]
+    for args in ((view, good), (good, view)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            probes_cuda.onehot_matmul(*args)
+    assert probes_cuda.LAUNCHES["onehot_matmul"] == before
+
+
+@pytest.mark.cuda
+def test_noop_launches(cuda_device):
+    before = probes_cuda.LAUNCHES["noop"]
+    probes_cuda.noop(cuda_device)
+    torch.cuda.synchronize()
+    assert probes_cuda.LAUNCHES["noop"] == before + 1
 
 
 @pytest.mark.cuda

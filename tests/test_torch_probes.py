@@ -201,3 +201,47 @@ def test_probe_lowering_main_fails_on_a_fail_line(monkeypatch, capsys):
     assert probe_lowering.main([]) == 1
     monkeypatch.setattr(probe_lowering, "run", lambda: {"a": True})
     assert probe_lowering.main([]) == 0
+
+
+# ---- the gather's launch plan, worked by hand ---------------------------
+
+GATHER_ROWS = [1, 31, 32, 33, 128, 4223, 4224, 8192, 32768]
+# W_v = 128: one warp a row, 4 rows a block; W_v = 129: 2048 // 129 = 15
+# rows staged a block
+WARP_GRID = {1: 1, 31: 8, 32: 8, 33: 9, 128: 32, 4223: 1056, 4224: 1056, 8192: 2048,
+             32768: 8192}
+STAGED_GRID = {1: 1, 31: 3, 32: 3, 33: 3, 128: 9, 4223: 282, 4224: 282, 8192: 547,
+               32768: 2185}
+
+
+@pytest.mark.parametrize("rows", GATHER_ROWS)
+@pytest.mark.parametrize("wi", [128, 256])
+def test_gather_plan_hand_worked(rows, wi):
+    assert tuple(pc.gather_plan(rows, 128, wi)) == ("warp_rows", WARP_GRID[rows], 4)
+    assert tuple(pc.gather_plan(rows, 129, wi)) == ("staged", STAGED_GRID[rows], 15)
+
+
+def test_gather_plan_at_the_widths_edges():
+    assert tuple(pc.gather_plan(5, 1, 1)) == ("warp_rows", 2, 4)
+    assert tuple(pc.gather_plan(3, 2048, 7)) == ("staged", 3, 1)  # 1 row a block
+    assert tuple(pc.gather_plan(100, 1024, 2048)) == ("staged", 50, 2)
+    assert tuple(pc.gather_plan(0, 128, 128)) == ("warp_rows", 0, 4)
+    for wv, wi in ((2049, 8), (0, 8), (128, 2049), (128, 0)):
+        with pytest.raises(ValueError, match="1 to 2048 wide"):
+            pc.gather_plan(100, wv, wi)
+
+
+@pytest.mark.parametrize("wv", [4, 129, 2048])
+def test_lane_gather_cpu_path_at_either_kernels_width(wv):
+    x = torch.arange(1, 2 * wv + 1, dtype=torch.int32).reshape(2, wv)
+    i = torch.tensor([[0, -1, wv, wv - 1], [2**31 - 1, 1 % wv, 2 % wv, 0]], dtype=torch.int32)
+    want = [[1, 0, 0, wv], [0, wv + 1 + 1 % wv, wv + 1 + 2 % wv, wv + 1]]
+    assert pc.lane_gather(x, i).tolist() == want
+
+
+def test_noop_on_the_cpu_does_nothing():
+    before = dict(pc.LAUNCHES)
+    assert pc.noop("cpu") is None
+    assert pc.LAUNCHES == before
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        pc.noop("meta")
