@@ -5,7 +5,13 @@ Run from the root of the repository on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from dpu_olap_tpu_torch/csrc, checks each kernel
+It builds the CUDA kernels from dpu_olap_tpu_torch/csrc and the host runtime
+from dpu_olap_tpu_torch/native/runtime.cpp (g++), holds the runtime against
+its plain versions (parallel_memcpy of 1 GiB against np.copyto,
+parallel_stack of BM_Filter SF=8's batches against np.stack, GB/s beside
+each; the host-staged Partitioner's slabs at SF=8 against the resident
+engine), runs filter v1 with ENABLE_TRACE=1 in a subprocess (a line a tile,
+the counts adding up to the filter's), checks each kernel
 against its plain PyTorch version on the card (the radix sort, bit for bit
 on every plane, the sorted gather, the radix partition and merge-probe, all
 four also timed as graph replays, the partition with its per-launch
@@ -62,7 +68,19 @@ and read just after:
     (phase_probes); no reading may lie under its floor;
   * the lowering-probe entry point
     (python -m dpu_olap_tpu_torch.bench.probe_lowering): every probe of the
-    TPU lowering scripts built on the card and equal to numpy.
+    TPU lowering scripts built on the card and equal to numpy;
+  * the query plan (dpu_olap_tpu_torch.plan), each chain with its kernels'
+    launches counted and a Counters JSON line: Aggregate(Filter(Source))
+    on BM_Filter SF=1 and SF=8 through the streaming tier (sum kernel;
+    Filter.execute never runs), SF=1 again under metrics.trace (its Chrome
+    trace names the scope and CUDA kernels), the materialized Filter at
+    SF=1 (filter kernel), on BM_JoinDpu SF=1 the fused filter join (sort +
+    fill) and an Aggregate over it (+ sum), the bare join (JoinGpu's dense
+    route: sort + gather) and the device-resident Filter -> HashJoin ->
+    Aggregate (filter, sort, merge, fill, sum; intermediates on the card),
+    Aggregate(TakeNode) on BM_Take SF=1 (sort + gather + sum, no restore
+    sort) and Repartition of the SF=8 probe table into 16 partitions
+    (partition kernel), against pyarrow or numpy.
 For each fallback it also splits the result's readback (copy, numpy mask,
 against masking on the card) and profiles one Run() (device busy time, idle
 share, the longest device events).
@@ -211,6 +229,7 @@ def max_err(got, ref) -> int:
 
 
 def phase_build() -> None:
+    from dpu_olap_tpu_torch import native
     from dpu_olap_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
@@ -222,6 +241,12 @@ def phase_build() -> None:
         f"ready in {time.perf_counter() - t0:.2f} s",
         flush=True,
     )
+    cached = native.library_path().exists()
+    t0 = time.perf_counter()
+    rt = native.build()
+    native.library()
+    print(f"[build] {rt.name}: g++ {'cached' if cached else '%.2f s' % (time.perf_counter() - t0)}",
+          flush=True)
 
 
 def phase_glue(rng) -> None:
@@ -2402,6 +2427,329 @@ def phase_hashtable(card: str) -> dict:
     return launches
 
 
+# ---- the host runtime and the query plan ----------------------------------
+
+NATIVE_COPY_BYTES = 1 << 30  # parallel_memcpy's reading: 1 GiB
+PLAN_PARTS = 16  # Repartition's partitions (BM_JoinDpu SF=8 probe table)
+TRACE_N = 1 << 20  # the ENABLE_TRACE subprocess's filter: 256 tiles
+
+
+def _host_gbs(nbytes: int, fn) -> float:
+    """GB/s of fn moving nbytes: the median of RUN_REPS runs, host clock."""
+    times = []
+    for _ in range(RUN_REPS):
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    return nbytes / float(np.median(times)) / 1e9
+
+
+def _part_rows(parts) -> list:
+    """Each partition's (fk, y) rows after a canonical sort."""
+    return [np.sort(packed_rows(p["fk"], p["y"])) for p in parts]
+
+
+def phase_native(card: str) -> None:
+    """The port's native runtime against its plain versions: parallel_memcpy
+    of 1 GiB against np.copyto, parallel_stack of BM_Filter SF=8's 1024
+    batches of 64Ki against np.stack (byte for byte, GB/s beside each), and
+    the host-staged Partitioner (slabs + executor) at SF=8 into 16
+    partitions against the resident engine's partitions, row sets equal."""
+    from dpu_olap_tpu_torch import native
+    from dpu_olap_tpu_torch.generator import make_filter_batches, make_join_tables
+    from dpu_olap_tpu_torch.parallel.mesh import DeviceSet
+    from dpu_olap_tpu_torch.parallel.partitioner import Partitioner, ResidentPartitioner
+
+    n = NATIVE_COPY_BYTES // 4
+    src = np.arange(n, dtype=np.uint32) * np.uint32(2654435761)
+    dst, ref = np.zeros_like(src), np.zeros_like(src)
+    fast = _host_gbs(src.nbytes, lambda: native.parallel_memcpy(dst, src))
+    plain = _host_gbs(src.nbytes, lambda: np.copyto(ref, src))
+    require(np.array_equal(dst.view(np.uint8), ref.view(np.uint8)),
+            "parallel_memcpy != np.copyto")
+    del src, dst, ref
+    rows = [b["a"] for b in make_filter_batches(SF8 * 128, 1 << 16, seed=SEED).batches]
+    nbytes = sum(r.nbytes for r in rows)
+    stack_fast = _host_gbs(nbytes, lambda: native.parallel_stack(rows))
+    stack_plain = _host_gbs(nbytes, lambda: np.stack(rows))
+    require(np.array_equal(native.parallel_stack(rows), np.stack(rows)),
+            "parallel_stack != np.stack")
+    print(f"[native] parallel_memcpy of {NATIVE_COPY_BYTES} B {fast:.3f} GB/s, np.copyto"
+          f" {plain:.3f} GB/s; parallel_stack of {len(rows)} x {rows[0].size} uint32"
+          f" {stack_fast:.3f} GB/s, np.stack {stack_plain:.3f} GB/s; byte for byte equal"
+          f" (median of {RUN_REPS}, host clock) [{card}]", flush=True)
+    ds = DeviceSet.allocate(1)
+    left, _ = make_join_tables(SF8, SF1_ROWS, SF1_ROWS, seed=SEED)
+    t = time.perf_counter()
+    staged = Partitioner(ds, PLAN_PARTS).partition_table(left, "fk", ["y"])
+    staged_s = time.perf_counter() - t
+    resident = ResidentPartitioner(ds, PLAN_PARTS).partition_table(left, "fk", ["y"]).to_host()
+    require(len(staged) == len(resident) == PLAN_PARTS, "Partitioner: partition count")
+    for q, (a, b) in enumerate(zip(_part_rows(staged), _part_rows(resident))):
+        require(np.array_equal(a, b), f"Partitioner partition {q} != ResidentPartitioner's")
+    print(f"[native] Partitioner at SF={SF8} ({left.num_rows} rows, {PLAN_PARTS} partitions)"
+          f" through slabs == ResidentPartitioner after a canonical sort; {staged_s * 1e3:.3f}"
+          f" ms [{card}]", flush=True)
+
+
+def _plan_kernels():
+    from dpu_olap_tpu_torch.ops import filter_cuda, sum_cuda
+
+    return {**_join_kernels(), "filter": filter_cuda, "sum": sum_cuda}
+
+
+def plan_chain(label: str, run, names, rows: int, check, card: str) -> dict:
+    """Run one plan chain with every kernel's launch count set to 0 just
+    before and read just after (each kernel of ``names`` must launch, no
+    other); check its result; time RUN_REPS fresh runs. Prints the chain's
+    Counters line (Run() and its Timers() phases) and returns the
+    launches."""
+    import torch
+
+    from dpu_olap_tpu_torch.metrics import Counters
+    from dpu_olap_tpu_torch.timer import Timers, timed
+
+    counters, absent = _split(_plan_kernels(), names)
+    torch.cuda.synchronize()
+    for mod in (*counters.values(), *absent.values()):
+        mod.LAUNCHES = 0
+    out = run()
+    torch.cuda.synchronize()
+    launches = {k: m.LAUNCHES for k, m in counters.items()}
+    stray = {k: m.LAUNCHES for k, m in absent.items() if m.LAUNCHES}
+    require(all(v > 0 for v in launches.values()),
+            f"{label}: the chain did not launch every kernel: {launches}")
+    require(not stray, f"{label}: the chain launched kernels of another path: {stray}")
+    timers = Timers()
+    with timed(timers, "check"):
+        truth = check(out)
+    secs = []
+    for r in range(RUN_REPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with timed(timers, "run", r):
+            run()
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    run_s = float(np.median(secs))
+    c = Counters(f"plan {label}").items_processed(rows, run_s).timers(timers, ["run", "check"])
+    for k, v in launches.items():
+        c.set(f"launches_{k}", v)
+    c.emit()
+    print(f"[plan {label}] launches {launches}; == {truth}; run {run_s * 1e3:.3f} ms ="
+          f" {rows / run_s:.1f} rows/s (median of {RUN_REPS}) [{card}]", flush=True)
+    return launches
+
+
+def _filtered(left):
+    """BM_JoinDpu's left side filtered by y < 2^30 (one host batch)."""
+    from dpu_olap_tpu_torch.columnar import Batch, Table
+
+    lc = left.concat()
+    keep = lc["y"] < np.uint32(1 << 30)
+    return Table([Batch.from_numpy({"fk": lc["fk"][keep], "y": lc["y"][keep]})])
+
+
+def phase_plan(card: str) -> dict:
+    """The query plan's chains at the reference's published shapes, each
+    against pyarrow or numpy (rows after a canonical sort), with its
+    kernels' launches counted around one execution."""
+    import tempfile
+
+    import torch
+
+    from dpu_olap_tpu_torch import metrics
+    from dpu_olap_tpu_torch import plan as P
+    from dpu_olap_tpu_torch.generator import (
+        make_filter_batches, make_join_tables, make_take_batches,
+    )
+    from dpu_olap_tpu_torch.operators import aggr_op, join_op
+    from dpu_olap_tpu_torch.operators.filter_op import FilterNative
+    from dpu_olap_tpu_torch.operators.join_op import JoinNative
+    from dpu_olap_tpu_torch.ops.hashing import bucket_shift, wang_hash_np
+    from dpu_olap_tpu_torch.parallel.mesh import DeviceSet
+
+    ds = DeviceSet.allocate(1)
+    total: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def u64_sum(a) -> int:
+        return int(np.asarray(a).astype(np.uint64).sum())
+
+    # Source -> Filter -> Aggregate: the streaming tier (Filter.execute
+    # never runs) at SF=1 and SF=8; SF=1 again under metrics.trace
+    orig_execute = P.Filter.execute
+
+    def no_materialize(self, ds_):
+        raise SmokeFailure("Filter.execute ran: the streaming tier did not")
+
+    for sf in (1, SF8):
+        table = make_filter_batches(sf * 128, 1 << 16, seed=SEED)
+        want = sum(u64_sum(a[a < np.uint32(1 << 30)]) for a in (b["a"] for b in table))
+        P.Filter.execute = no_materialize
+        try:
+            add(plan_chain(f"Aggregate(Filter(Source)) SF={sf}",
+                           lambda t=table: P.Aggregate(P.Filter(P.Source(t), "a"), "a").scalar(ds),
+                           ("sum",), table.num_rows,
+                           lambda got, w=want: require(got == w, f"{got} != numpy {w}") or "numpy",
+                           card))
+            if sf == 1:
+                scope = "plan_aggregate_filter_sf1"
+                with tempfile.TemporaryDirectory() as tmp:
+                    with metrics.trace(scope, trace_dir=tmp) as path:
+                        got = P.Aggregate(P.Filter(P.Source(table), "a"), "a").scalar(ds)
+                    events = json.loads(open(path).read())["traceEvents"]
+                require(got == want, "traced chain: wrong sum")
+                names = {e.get("name") for e in events}
+                kernels = [e for e in events if str(e.get("cat", "")).lower() == "kernel"]
+                require(scope in names, f"the Chrome trace does not name the scope {scope}")
+                require(bool(kernels), "the Chrome trace holds no CUDA kernel")
+                print(f"[plan trace] {scope}: Chrome trace of {len(events)} events names the"
+                      f" scope and {len(kernels)} CUDA kernels (e.g."
+                      f" {kernels[0]['name'][:60]}) [{card}]", flush=True)
+        finally:
+            P.Filter.execute = orig_execute
+
+    # the materialized Filter at SF=1, batch by batch against pyarrow
+    table = make_filter_batches(128, 1 << 16, seed=SEED)
+    nat = FilterNative(table).Prepare().Run()
+
+    def check_filter(out):
+        require(out.is_device and len(out) == len(nat), "Filter: not one device batch a batch")
+        for i, (b, e) in enumerate(zip(out, nat)):
+            require(np.array_equal(host(b["a"]), e), f"Filter: batch {i} != pyarrow")
+        return "pyarrow"
+
+    add(plan_chain("Filter(Source) SF=1", lambda: P.Filter(P.Source(table), "a").execute(ds),
+                   ("filter",), table.num_rows, check_filter, card))
+
+    # the joins on BM_JoinDpu SF=1
+    left, right = make_join_tables(1, SF1_ROWS, SF1_ROWS, seed=SEED)
+    cols = ("fk", "y", "x")
+    truth_f = JoinNative(_filtered(left), right).Prepare().Run()
+    truth_f_rows = canon([truth_f[c].to_numpy() for c in cols])
+    truth_f_sum = u64_sum(truth_f["x"].to_numpy())
+    truth = JoinNative(left, right).Prepare().Run()
+
+    def rows_equal(t, want_rows, what):
+        t = t.to_host().concat()
+        require(list(t.names) == list(cols), f"{what}: columns {t.names}")
+        require(np.array_equal(canon([t[c] for c in cols]), want_rows), f"{what} != pyarrow")
+        return "pyarrow"
+
+    add(plan_chain("HashJoin(Filter, Source) SF=1 fused",
+                   lambda: P.HashJoin(P.Filter(P.Source(left), "y"), P.Source(right)).execute(ds),
+                   ("sort", "fill"), left.num_rows,
+                   lambda t: rows_equal(t, truth_f_rows, "fused join"), card))
+    add(plan_chain("Aggregate(HashJoin(Filter, Source)) SF=1",
+                   lambda: P.Aggregate(P.HashJoin(P.Filter(P.Source(left), "y"), P.Source(right)),
+                                       "x").scalar(ds),
+                   ("sort", "fill", "sum"), left.num_rows,
+                   lambda got: require(got == truth_f_sum, f"{got} != {truth_f_sum}") or "pyarrow",
+                   card))
+    add(plan_chain("HashJoin(Source, Source) SF=1 dense",
+                   lambda: P.HashJoin(P.Source(left), P.Source(right)).execute(ds),
+                   ("sort", "gather"), left.num_rows,
+                   lambda t: rows_equal(t, canon([truth[c].to_numpy() for c in cols]), "bare join"),
+                   card))
+
+    # the device-resident chain: a materialized Filter, the join on its
+    # device columns, the sum in place; no JoinGpu, no SumGpu
+    class Boom:
+        def __init__(self, *a, **k):
+            raise SmokeFailure("a materializing operator ran in the device chain")
+
+    def device_chain():
+        fnode = P.Filter(P.Source(left), "y")
+        ftab = fnode._run(ds)
+        jnode = P.HashJoin(fnode, P.Source(right))
+        jtab = jnode._run(ds)
+        return P.Aggregate(jnode, "x").scalar(ds), ftab, jtab
+
+    def check_chain(out):
+        got, ftab, jtab = out
+        for what, t in (("Filter", ftab), ("HashJoin", jtab)):
+            require(t.is_device and all(c.device.type == "cuda" for b in t for c in b.columns.values()),
+                    f"device chain: the {what} output is not on the card")
+        require(got == truth_f_sum, f"device chain: {got} != {truth_f_sum}")
+        return rows_equal(jtab, truth_f_rows, "device chain join")
+
+    saved = join_op.JoinGpu, aggr_op.SumGpu
+    join_op.JoinGpu = aggr_op.SumGpu = Boom
+    try:
+        add(plan_chain("Filter -> HashJoin -> Aggregate SF=1 device-resident", device_chain,
+                       ("filter", "sort", "merge", "fill", "sum"), left.num_rows, check_chain,
+                       card))
+    finally:
+        join_op.JoinGpu, aggr_op.SumGpu = saved
+
+    # Take -> Sum, the order-free tier, on BM_Take SF=1
+    data, idx = make_take_batches(1, 1 << 22, 1 << 19, seed=SEED)
+    want = sum(u64_sum(d["a"][q["i"]]) for d, q in zip(data, idx))
+    add(plan_chain("Aggregate(TakeNode) SF=1",
+                   lambda: P.Aggregate(P.TakeNode(P.Source(data), P.Source(idx)), "a").scalar(ds),
+                   ("sort", "gather", "sum"), idx.num_rows,
+                   lambda got: require(got == want, f"{got} != numpy {want}") or "numpy", card))
+
+    # Repartition of the BM_JoinDpu SF=8 probe table into 16 partitions
+    left8, _ = make_join_tables(SF8, SF1_ROWS, SF1_ROWS, seed=SEED)
+    lc = left8.concat()
+    bucket = wang_hash_np(lc["fk"]) >> np.uint32(bucket_shift(PLAN_PARTS))
+    oracle = _part_rows([{c: lc[c][bucket == q] for c in ("fk", "y")} for q in range(PLAN_PARTS)])
+
+    def check_parts(out):
+        require(len(out) == PLAN_PARTS, f"Repartition: {len(out)} partitions")
+        for q, got in enumerate(_part_rows(out)):
+            require(np.array_equal(got, oracle[q]), f"Repartition: partition {q} != the numpy oracle")
+        return "numpy"
+
+    add(plan_chain(f"Repartition SF={SF8} P={PLAN_PARTS}",
+                   lambda: P.Repartition(P.Source(left8), "fk", PLAN_PARTS).execute(ds),
+                   ("partition",), left8.num_rows, check_parts, card))
+    torch.cuda.synchronize()
+    return total
+
+
+def phase_trace_hook(card: str) -> None:
+    """ENABLE_TRACE=1 in a subprocess: filter v1 on 1Mi values prints one
+    line a tile; the tiles are numbered 0..255 once each, their offsets are
+    the running sums of their counts, their counts add up to the filter's,
+    and the lines equal the plain version's."""
+    import os
+
+    code = (
+        "import ctypes, json, torch\n"
+        "from dpu_olap_tpu_torch.ops import filter as f, filter_cuda\n"
+        "g = torch.Generator(device='cuda').manual_seed(%d)\n"
+        "x = torch.randint(-2**31, 2**31, (%d,), dtype=torch.int32, device='cuda',"
+        " generator=g).view(torch.uint32)\n"
+        "_, c = f.filter_compact(x)\n"
+        "torch.cuda.synchronize()\n"
+        "ctypes.CDLL(None).fflush(None)\n"
+        "print('count', int(c))\n"
+        "print('expect', json.dumps(filter_cuda.trace_lines(x.cpu())))\n"
+    ) % (SEED, TRACE_N)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=600, env={**os.environ, "ENABLE_TRACE": "1"})
+    require(res.returncode == 0, f"ENABLE_TRACE subprocess failed: {res.stderr[-2000:]}")
+    lines = [x for x in res.stdout.splitlines() if x.startswith("filter block")]
+    count = int(next(x for x in res.stdout.splitlines() if x.startswith("count ")).split()[1])
+    expect = json.loads(next(x for x in res.stdout.splitlines() if x.startswith("expect "))[7:])
+    rows = sorted((int(w[2]), int(w[4]), int(w[6])) for w in (x.split() for x in lines))
+    tiles = -(-TRACE_N // 4096)
+    require([t for t, _, _ in rows] == list(range(tiles)),
+            f"ENABLE_TRACE: {len(lines)} lines do not number the {tiles} tiles once each")
+    require(sum(k for _, _, k in rows) == count, "ENABLE_TRACE: the kept counts do not add up")
+    require([o for _, o, _ in rows] == [sum(k for _, _, k in rows[:t]) for t in range(tiles)],
+            "ENABLE_TRACE: an offset is not the count of the tiles before it")
+    require(sorted(lines) == sorted(expect), "ENABLE_TRACE: lines != the plain version's")
+    print(f"[trace hook] ENABLE_TRACE=1: {len(lines)} 'filter block' lines for {tiles} tiles,"
+          f" kept summing to the count {count}, == the plain version's [{card}]", flush=True)
+
+
 def main() -> dict:
     import torch
 
@@ -2416,6 +2764,8 @@ def main() -> dict:
     phase_build()
     rng = np.random.default_rng(SEED)
     phase_glue(rng)
+    phase_native(card)
+    phase_trace_hook(card)
     phase_join_entry_points(rng)
     measured = phase_sort_gather(rng, card)
     measured["filter_compact"] = phase_filter_kernel(rng, card)
@@ -2453,6 +2803,7 @@ def main() -> dict:
         phase_join_shuffle_sf64, phase_join_shuffle_sf8, phase_join_partitioned_sf8,
         phase_partition_sf8, phase_hashtable,
     )]
+    paths.append(lambda: phase_plan(card))  # the query plan's chains
     for path in paths:
         for name, n in path().items():
             launches[name] += n

@@ -12,6 +12,11 @@ reference this port is tested against; this package never imports jax.
   - ``csrc/``      the CUDA sources, built with nvcc at first use.
   - ``parallel/``  DeviceSet over a torch device (``dpu_olap_tpu/parallel``).
   - ``operators/`` the operators (``dpu_olap_tpu/operators``).
+  - ``native/``    the host runtime (its own copy of the JAX package's
+                   ``runtime.cpp``, built with g++ at first use): threaded
+                   staging copies, partition slabs, timers, the executor.
+  - ``plan``       the query plan: Source, Filter, Project, HashJoin,
+                   Aggregate, TakeNode, Repartition (``dpu_olap_tpu/plan.py``).
   - ``bench/``     chained device timing and the filter-kernel measurement
                    (``dpu_olap_tpu/bench``, ``scripts/measure_filter.py``).
   - ``columnar``, ``generator``, ``config``, ``timer``, ``metrics``: the

@@ -165,7 +165,10 @@ BIG_ROWS = 1 << 27
 BIG_CALLS = 2
 REPS = 7
 ROUNDS = 3
-PROBE_ROUNDS = 9  # the probes' calls of about 2-5 us: more rounds against their noise
+# the probes' calls of about 2-5 us: more rounds against their noise; 31,
+# since the transposes and their torch call differ by less than the noop's
+# own spread between turns
+PROBE_ROUNDS = 31
 BREAKDOWN_CALLS = 5
 PROFILE_TRIES = 3
 

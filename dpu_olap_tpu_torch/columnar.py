@@ -11,7 +11,7 @@ sees. Only fixed-width primitive types are supported, as in the reference
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, List, Mapping
+from typing import Dict, Iterable, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -52,6 +52,37 @@ class Batch:
 
     def __getitem__(self, name: str):
         return self.columns[name]
+
+    def select(self, names: Sequence[str]) -> "Batch":
+        return Batch({n: self.columns[n] for n in names})
+
+    def add_column(self, name: str, col, index: int | None = None) -> "Batch":
+        """Insert a column (reference generator::AddColumn inserts at index 0,
+        host/generator/generator.cc:32-44); at the end by default."""
+        items = list(self.columns.items())
+        if index is None:
+            index = len(items)
+        items.insert(index, (name, col))
+        return Batch(dict(items))
+
+    def take(self, indices) -> "Batch":
+        """Rows at ``indices`` through ops/take.take (indices read unsigned
+        and clipped to the last row). A host column gives a host column, a
+        tensor a tensor on its device."""
+        from .ops.take import take
+
+        idx = indices if isinstance(indices, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(indices))
+        out = {}
+        for n, c in self.columns.items():
+            if isinstance(c, torch.Tensor):
+                out[n] = take(c, idx.to(c.device))
+            else:
+                out[n] = take(torch.from_numpy(c), idx.cpu()).numpy()
+        return Batch(out)
+
+    def slice(self, start: int, length: int) -> "Batch":
+        return Batch({n: c[start : start + length] for n, c in self.columns.items()})
 
     # ---- host interop ------------------------------------------------------
 

@@ -1,7 +1,8 @@
 """Runtime configuration (counterpart of ``dpu_olap_tpu/config.py``).
 
 The same env tiers as the JAX package: NR_DEVICES (or NR_DPUS), SF and
-MAX_THREADS, plus the feature flags the port reads. The JAX package's
+MAX_THREADS, plus the feature flags the port reads (ENABLE_PERF, ENABLE_LOG,
+ENABLE_TRACE). The JAX package's
 ``shuffle_counts_inband`` (the multi-device exchange) and ``join_timers``
 arrive with the multi-device work (ROADMAP §1, "Multi-device").
 """
@@ -48,7 +49,10 @@ def max_threads() -> int:
 class Flags:
     """Feature flags (reference shared/umq/cflags.h).
 
-    enable_log -> verbose operator logging (ENABLE_LOG)
+    enable_perf     -> device profiling in metrics.trace (ENABLE_PERF)
+    enable_log      -> verbose operator logging (ENABLE_LOG)
+    enable_trace    -> filter v1's per-tile progress print (ENABLE_TRACE,
+                       reference trace(), shared/umq/log.h:13-17)
     shuffle_slack   -> padding factor for the ragged all-to-all partition
                        exchange (reference sizes partitions with 1.5-2x slack,
                        host/join/join_dpu.cc:97-100)
@@ -57,11 +61,17 @@ class Flags:
     USE_RADIX_PARTITIONING=1, cflags.h:28-30): no caller asks for modulo.
     """
 
+    enable_perf: bool = True
     enable_log: bool = False
+    enable_trace: bool = False
     shuffle_slack: float = 2.0
     # Round streaming (the reference's batch-round outer loop,
     # filter_dpu.cc:127-156): max rows resident per dispatched round.
     stream_round_rows: int = 64 << 20
 
 
-FLAGS = Flags(enable_log=_env_int("ENABLE_LOG", 0) != 0)
+FLAGS = Flags(
+    enable_perf=_env_int("ENABLE_PERF", 1) != 0,
+    enable_log=_env_int("ENABLE_LOG", 0) != 0,
+    enable_trace=_env_int("ENABLE_TRACE", 0) != 0,
+)

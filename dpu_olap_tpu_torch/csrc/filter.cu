@@ -42,8 +42,16 @@
 // What bounds it on the H100: device-memory traffic. The input is read
 // once and every output lane written once, by the sweep or by the tail: 8n
 // bytes, 12n with indices.
+//
+// ENABLE_TRACE (dpu_filter_trace_u32): the same sweep with a device printf
+// of "filter block <tile> offset <out offset> kept <count>" a tile, once its
+// look-back has its offset: the counterpart of the TPU kernel's
+// pl.debug_print (filter_pallas.py:238-241), the reference's device trace()
+// (shared/umq/log.h:13-17). It is a template parameter of the sweep, so the
+// untraced kernel is compiled without it.
 
 #include <cstdint>
+#include <cstdio>
 #include <cuda_runtime.h>
 
 #include "lookback.cuh"
@@ -122,8 +130,8 @@ __device__ __forceinline__ void zero_run(uint32_t* __restrict__ dst, int count) 
 // ticket and the grid, and end where the stage ends: copy stores the loaded
 // tile back in place, count stores it back too (before its ballots, so that
 // the tile is not held across the barrier), prefix writes the tile's
-// compaction at the tile's own base.
-template <bool IDX, int STAGE>
+// compaction at the tile's own base. TRACE adds the per-tile printf.
+template <bool IDX, int STAGE, bool TRACE = false>
 __global__ void __launch_bounds__(THREADS, SWEEP_BLOCKS_PER_SM)
 sweep_kernel(const uint32_t* __restrict__ x, long long n, uint32_t thr, bool vec,
              long long ntiles, uint32_t* __restrict__ out, uint32_t* __restrict__ sel,
@@ -236,6 +244,7 @@ sweep_kernel(const uint32_t* __restrict__ x, long long n, uint32_t thr, bool vec
       s_before = before;
       if (tile_offs) tile_offs[tile] = before;
       if (tile == ntiles - 1) *count = before + total;
+      if constexpr (TRACE) printf("filter block %lld offset %u kept %u\n", tile, before, total);
     }
   }
   __syncthreads();
@@ -245,8 +254,8 @@ sweep_kernel(const uint32_t* __restrict__ x, long long n, uint32_t thr, bool vec
 }
 
 // One memset of the work words, then the sweep up to STAGE (STAGE_FULL:
-// the whole sweep); n > 0.
-template <int STAGE>
+// the whole sweep; TRACE: with the per-tile printf); n > 0.
+template <int STAGE, bool TRACE = false>
 cudaError_t run_sweep(const uint32_t* x, long long n, uint32_t thr, bool vec, uint32_t* out,
                       uint32_t* sel, unsigned long long* work, uint32_t* count,
                       uint32_t* tile_offs, cudaStream_t s) {
@@ -255,21 +264,22 @@ cudaError_t run_sweep(const uint32_t* x, long long n, uint32_t thr, bool vec, ui
   if (err != cudaSuccess) return err;
   unsigned* ticket = reinterpret_cast<unsigned*>(work + ntiles);
   if (STAGE == STAGE_FULL && sel)
-    sweep_kernel<true, STAGE_FULL><<<(unsigned)ntiles, THREADS, 0, s>>>(
+    sweep_kernel<true, STAGE_FULL, TRACE><<<(unsigned)ntiles, THREADS, 0, s>>>(
         x, n, thr, vec, ntiles, out, sel, count, tile_offs, ticket, work);
   else
-    sweep_kernel<false, STAGE><<<(unsigned)ntiles, THREADS, 0, s>>>(
+    sweep_kernel<false, STAGE, TRACE><<<(unsigned)ntiles, THREADS, 0, s>>>(
         x, n, thr, vec, ntiles, out, sel, count, tile_offs, ticket, work);
   return cudaGetLastError();
 }
 
+template <bool TRACE = false>
 cudaError_t run_filter(const uint32_t* x, long long n, uint32_t thr, uint32_t fill,
                        uint32_t* out, uint32_t* sel, unsigned long long* work, uint32_t* count,
                        uint32_t* tile_offs, cudaStream_t s) {
   if (n == 0) return cudaMemsetAsync(count, 0, sizeof(uint32_t), s);
   const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const cudaError_t err = run_sweep<STAGE_FULL>(x, n, thr, vec, out, sel, work, count,
-                                                tile_offs, s);
+  const cudaError_t err = run_sweep<STAGE_FULL, TRACE>(x, n, thr, vec, out, sel, work, count,
+                                                       tile_offs, s);
   if (err != cudaSuccess) return err;
   return launch_tail<THREADS>(count, n, fill, out, sel, s);
 }
@@ -291,6 +301,33 @@ extern "C" int dpu_filter_u32(const void* x, long long n, unsigned thr,
                          static_cast<uint32_t*>(out), static_cast<uint32_t*>(sel),
                          static_cast<unsigned long long*>(work), static_cast<uint32_t*>(count),
                          nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// Bytes of the device printf FIFO a traced tile may take: one record of the
+// format's address and three arguments, with room to spare.
+constexpr size_t TRACE_BYTES_PER_TILE = 256;
+
+// dpu_filter_u32 with the ENABLE_TRACE printf a tile (see the note at the
+// top). Grows the device's printf FIFO first, where it is smaller than the
+// tiles need; CUDA refuses that once a kernel that prints has run, and the
+// error is returned.
+extern "C" int dpu_filter_trace_u32(const void* x, long long n, unsigned thr,
+                                    unsigned fill, void* out, void* sel,
+                                    void* work, void* count, void* stream) {
+  if (n < 0 || n > 0xFFFFFFFFLL) return (int)cudaErrorInvalidValue;
+  size_t fifo = 0;
+  cudaError_t err = cudaDeviceGetLimit(&fifo, cudaLimitPrintfFifoSize);
+  if (err != cudaSuccess) return (int)err;
+  const size_t need = (size_t)tiles_of(n) * TRACE_BYTES_PER_TILE;
+  if (need > fifo) {
+    err = cudaDeviceSetLimit(cudaLimitPrintfFifoSize, need);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)run_filter<true>(static_cast<const uint32_t*>(x), n, thr, fill,
+                               static_cast<uint32_t*>(out), static_cast<uint32_t*>(sel),
+                               static_cast<unsigned long long*>(work),
+                               static_cast<uint32_t*>(count), nullptr,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // ---- the stage ablation ----------------------------------------------------

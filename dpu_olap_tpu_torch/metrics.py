@@ -1,9 +1,25 @@
-"""Operator logging (counterpart of ``dpu_olap_tpu/metrics.py``: the
-``log`` and ``device_log`` the join operator uses)."""
+"""Observability: operator logging, device profiling scopes and benchmark
+counters (counterpart of ``dpu_olap_tpu/metrics.py``).
+
+Reference (SURVEY §5.1, §5.5):
+  * device cycle counters (perfcounter_config + nb_cycles readback,
+    dpu/filter/main.c:38-49, host/dpuext/perf.cc) -> torch.profiler scopes
+    (``trace`` below): the profiler reports each kernel's device time
+    inside the named region instead of a raw cycle count;
+  * Google Benchmark counters (bytes/items processed, per-phase ms
+    normalized by rank count, join_benchmark.cc:48-60) -> ``Counters``,
+    emitted as JSON lines (scripts/parse_results.py -> CSV);
+  * ENABLE_LOG printf logging (shared/umq/log.h) -> ``log``/``device_log``
+    gated on config.FLAGS.
+"""
 
 from __future__ import annotations
 
+import contextlib
+import json
+import os
 import sys
+from typing import Dict
 
 import numpy as np
 
@@ -32,3 +48,71 @@ def device_log(tag: str, per_device_values, names=None) -> None:
         else:
             body = " ".join(str(v) for v in row)
         print(f"[dev {dev}] {tag}: {body}", file=sys.stderr, flush=True)
+
+
+@contextlib.contextmanager
+def trace(name: str, trace_dir: str | None = None):
+    """Device profiling scope (the perfcounter analog; the JAX package's
+    jax.profiler.trace + TraceAnnotation). The region is always annotated
+    with ``torch.profiler.record_function(name)``, so that a profiler
+    running around it attributes its device work to ``name``. With
+    ``trace_dir`` set and FLAGS.enable_perf, it also profiles the region on
+    the CPU and, where there is one, the CUDA device, and writes a Chrome
+    trace ``<name>.<pid>.json`` into ``trace_dir``; the path is then
+    yielded (None otherwise)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    if not (trace_dir and FLAGS.enable_perf):
+        with record_function(name):
+            yield None
+        return
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, f"{name}.{os.getpid()}.json")
+    with profile(activities=acts) as prof:
+        with record_function(name):
+            yield path
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+
+
+class Counters:
+    """Benchmark counter registry -> one JSON object (Google Benchmark
+    counter emission analog)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.values: Dict[str, float] = {}
+
+    def set(self, key: str, value: float) -> "Counters":
+        self.values[key] = float(value)
+        return self
+
+    def rate(self, key: str, items: int, seconds: float) -> "Counters":
+        self.values[key] = items / seconds
+        return self
+
+    def items_processed(self, n: int, seconds: float, bytes_per_item: int = 4):
+        self.values["items_per_s"] = n / seconds
+        self.values["bytes_per_s"] = n * bytes_per_item / seconds
+        self.values["real_ms"] = seconds * 1e3
+        return self
+
+    def timers(self, timers, names, rank_normalize: bool = True) -> "Counters":
+        """Fold phase timers in, normalized by rank count like the reference
+        (join_benchmark.cc:48-60)."""
+        for n in names:
+            ms = timers.sum_ms(n)
+            ranks = max(1, timers.rank_count(n)) if rank_normalize else 1
+            self.values[f"{n}_ms"] = ms / ranks
+        return self
+
+    def to_json(self) -> str:
+        return json.dumps({"name": self.name, **self.values})
+
+    def emit(self, file=None) -> None:
+        print(self.to_json(), file=file or sys.stdout, flush=True)

@@ -1,7 +1,8 @@
 """Filter operators (counterpart of ``dpu_olap_tpu/operators/filter_op.py``).
 
 FilterGpu — the counterpart of FilterTpu, the reference's FilterDpu
-(host/filter/filter_dpu.cc): rounds of batches are stacked on the host,
+(host/filter/filter_dpu.cc): rounds of batches are stacked on the host
+(native.parallel_stack, the threaded copy of the port's runtime),
 copied to the device, compacted by one launch of the filter kernel over the
 round's concatenation, and read back with per-batch counts that locate each
 batch's chunk; host assembly slices the chunks.
@@ -16,6 +17,7 @@ from typing import List
 
 import numpy as np
 
+from .. import native
 from ..columnar import Table, to_numpy
 from ..metrics import device_log
 from ..ops.filter import FILTER_THRESHOLD, default_predicate, filter_compact
@@ -47,8 +49,11 @@ class FilterGpu:
         rpr = self.rpr
 
         def stage(r):
+            # host staging: the native threaded stack of the round's batches
+            # (a background thread, overlapped with the previous round's
+            # device work)
             rows = [to_numpy(self.table[r * rpr + i][self.column]) for i in range(rpr)]
-            return np.stack(rows)
+            return native.parallel_stack(rows)
 
         def dispatch(r, staged):
             x = self.ds.scatter(staged)  # (rpr, n) uint32

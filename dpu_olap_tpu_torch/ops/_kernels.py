@@ -50,6 +50,8 @@ _SIGNATURES = {
     "dpu_gather_sorted_u32": [_P, _LL, _P, _P, _LL, _P, _P],
     # (x, n, threshold, fill, out, sel or NULL, work, count, stream)
     "dpu_filter_u32": [_P, _LL, ctypes.c_uint, ctypes.c_uint, _P, _P, _P, _P, _P],
+    # the same, with the ENABLE_TRACE printf a tile
+    "dpu_filter_trace_u32": [_P, _LL, ctypes.c_uint, ctypes.c_uint, _P, _P, _P, _P, _P],
     # (x, n, threshold, fill, out, sel or NULL, work, count, stream): the
     # filter alternates v2, v3 and v4 (work: filter_plan's tile words + ticket)
     "dpu_filter2_u32": [_P, _LL, ctypes.c_uint, ctypes.c_uint, _P, _P, _P, _P, _P],

@@ -9,7 +9,8 @@ slices late, as the reference host reads ``output_buffer_length`` per DPU
 (host/filter/filter_dpu.cc:50-101).
 
 The threshold predicate goes to ``ops/filter_cuda.py``: the hand-written
-kernel for a CUDA tensor, its plain version for a CPU tensor. Any other
+kernel for a CUDA tensor, its plain version for a CPU tensor; with
+FLAGS.enable_trace (ENABLE_TRACE=1) the kernel prints a line a tile. Any other
 predicate takes the plain scatter compaction on any device: the scan of the
 mask gives each kept element its slot, and one scatter places it
 (``filter_cuda.compact_scatter``).
@@ -22,6 +23,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..config import FLAGS
 from . import filter_cuda
 
 # The reference benchmark predicate: item < 2^30 (filter.c:25).
@@ -53,7 +55,9 @@ def filter_compact(
     """
     _check(values)
     if predicate is default_predicate:
-        return filter_cuda.filter_compact(values, fill)
+        # ENABLE_TRACE=1: v1 with its per-tile print (only v1 carries the
+        # hook, as in the JAX package)
+        return filter_cuda.filter_compact(values, fill, trace=FLAGS.enable_trace)
     return filter_cuda.compact_scatter(values, predicate(values), fill)
 
 
@@ -64,5 +68,5 @@ def filter_with_indices(values: torch.Tensor, predicate: Callable = default_pred
     tail n."""
     _check(values)
     if predicate is default_predicate:
-        return filter_cuda.filter_with_indices(values)
+        return filter_cuda.filter_with_indices(values, trace=FLAGS.enable_trace)
     return filter_cuda.compact_scatter(values, predicate(values), 0, with_indices=True)

@@ -16,7 +16,11 @@ any length below 2^32, so nothing is padded. A call is one memset, the
 one-sweep compaction (a decoupled look-back, ``csrc/filter.cu``) and the
 tail pass; its work memory, allocated by the wrapper for each call, is
 ``filter_plan``'s: one 64-bit status word a tile of TILE values and the
-ticket.
+ticket. With ``trace`` (FLAGS.enable_trace, set by ENABLE_TRACE=1) the
+kernel is the sweep that prints ``filter block <tile> offset <out offset>
+kept <count>`` a tile (``dpu_filter_trace_u32``; the TPU kernel's
+pl.debug_print, filter_pallas.py:238-241), and the plain version prints the
+same lines (``trace_ref``).
 
 ``compact_scatter`` is the plain algorithm behind both plain versions (an
 inclusive scan of the mask gives each kept value its slot, then one scatter)
@@ -28,6 +32,7 @@ runtime argument.
 
 from __future__ import annotations
 
+import sys
 from typing import NamedTuple
 
 import torch
@@ -119,6 +124,27 @@ def filter_with_indices_ref(values: torch.Tensor):
     return compact_scatter(values, below_threshold(values), 0, with_indices=True)
 
 
+def trace_lines(values: torch.Tensor) -> list:
+    """The traced kernel's lines for ``values``, in tile order: each tile of
+    TILE values with the count of values kept before it and in it."""
+    kept = below_threshold(values).to(torch.int64)
+    pad = (-kept.shape[0]) % TILE
+    kept = torch.cat([kept, kept.new_zeros(pad)]).reshape(-1, TILE).sum(1).tolist()
+    lines, off = [], 0
+    for t, k in enumerate(kept):
+        lines.append(f"filter block {t} offset {off} kept {k}")
+        off += k
+    return lines
+
+
+def trace_ref(values: torch.Tensor) -> None:
+    """The plain version of the traced kernel's printf: its lines on
+    standard output."""
+    for line in trace_lines(values):
+        print(line)
+    sys.stdout.flush()
+
+
 def run_entry(entry: str, values: torch.Tensor, threshold: int, fill: int,
               with_indices: bool, scratch: torch.Tensor, what: str):
     """Launch one of the filter kernels' C entry points (all take x, n,
@@ -157,28 +183,34 @@ def filter_plan(n: int) -> FilterPlan:
     return FilterPlan(tiles, tiles + 1)
 
 
-def _launch(values: torch.Tensor, fill: int, with_indices: bool):
+def _launch(values: torch.Tensor, fill: int, with_indices: bool, trace: bool):
     global LAUNCHES
     work = torch.empty(filter_plan(values.shape[0]).work_words, dtype=torch.int64,
                        device=values.device)
-    res = run_entry("dpu_filter_u32", values, THRESHOLD, fill, with_indices, work, "filter_compact")
+    entry = "dpu_filter_trace_u32" if trace else "dpu_filter_u32"
+    res = run_entry(entry, values, THRESHOLD, fill, with_indices, work, "filter_compact")
     LAUNCHES += 1
     return res
 
 
-def filter_compact(values: torch.Tensor, fill: int = 0):
+def filter_compact(values: torch.Tensor, fill: int = 0, trace: bool = False):
     """(padded_values, count) of the stable compaction of ``values < 2^30``.
     CUDA tensors go to the kernel (on the current stream, without
-    synchronising), CPU tensors to ``filter_compact_ref``."""
+    synchronising), CPU tensors to ``filter_compact_ref``; ``trace`` prints
+    a line a tile (see the module note)."""
     if on_cpu(values, "filter_compact"):
+        if trace:
+            trace_ref(values)
         return filter_compact_ref(values, fill)
-    return _launch(values, fill, with_indices=False)
+    return _launch(values, fill, with_indices=False, trace=trace)
 
 
-def filter_with_indices(values: torch.Tensor):
+def filter_with_indices(values: torch.Tensor, trace: bool = False):
     """(padded_values, padded_indices, count): filter_compact with fill 0,
     plus the kept rows' numbers (tail n). CUDA tensors go to the kernel, CPU
     tensors to ``filter_with_indices_ref``."""
     if on_cpu(values, "filter_with_indices"):
+        if trace:
+            trace_ref(values)
         return filter_with_indices_ref(values)
-    return _launch(values, 0, with_indices=True)
+    return _launch(values, 0, with_indices=True, trace=trace)

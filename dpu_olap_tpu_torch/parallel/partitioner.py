@@ -7,11 +7,11 @@ fragments into them (LoadPartitions :350-375).
 
   * ``Partitioner``: the host-staged engine. Each round uploads one batch,
     lays its fragments into padded cells on the device
-    (shuffle.local_fragments, the partition kernel) and appends each cell's
-    rows to its host partition. The JAX package assembles the partitions
-    with its native runtime when that is built; the port has no native
-    runtime yet (ROADMAP §1, "The host runtime") and takes the JAX
-    package's pure-Python branch (partitioner.py:89-90, 141-148).
+    (shuffle.local_fragments, the partition kernel), and the host reserves
+    each cell's rows in its partition's ``native.PartitionSlab`` and copies
+    them there through an ``native.OrderedExecutor`` (one queue a
+    partition, at most 8), as the JAX engine does (partitioner.py:85-90,
+    127-160).
   * ``ResidentPartitioner``: the device-resident engine. One shuffle into
     nr_partitions partitions; they stay on the device as
     ``DevicePartitions`` (cells + counts, the layout the shuffle join
@@ -29,6 +29,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from .. import native
 from ..columnar import Table, to_numpy
 from ..config import FLAGS
 from ..timer import timed
@@ -55,9 +56,14 @@ class Partitioner:
     ) -> List[Dict[str, np.ndarray]]:
         """Returns one dict of host uint32 columns per global partition."""
         p = self.nr_partitions
-        cell = default_cell_size(table[0].num_rows, p, FLAGS.shuffle_slack)
+        slack = FLAGS.shuffle_slack
+        cell = default_cell_size(table[0].num_rows, p, slack)
         names = [key_col, *payload_cols]
-        parts: List[List[List[np.ndarray]]] = [[[] for _ in names] for _ in range(p)]
+        # a round puts at most a cell in each partition (more raises below),
+        # so a slab of a cell a round holds any key skew
+        cap = len(table) * cell
+        slabs = [native.PartitionSlab([np.uint32] * len(names), cap) for _ in range(p)]
+        executor = native.OrderedExecutor(min(8, p))
 
         def stage(r):
             return [_u32(table[r][c]) for c in names]
@@ -77,14 +83,15 @@ class Partitioner:
             for part in range(p):
                 c = int(counts_h[part])
                 if c:
-                    for dst, col in zip(parts[part], cols):
-                        dst.append(col[part, :c])
+                    start = slabs[part].reserve(c)
+                    for ci, col in enumerate(cols):
+                        executor.submit_partition_write(
+                            part, slabs[part], ci, col[part, :c], start)
 
         stream_rounds(len(table), stage, dispatch, collect, timers=self.timers)
-        empty = np.empty(0, np.uint32)
+        executor.sync()
         return [
-            {nm: np.concatenate(chunks) if chunks else empty for nm, chunks in zip(names, cols)}
-            for cols in parts
+            {nm: np.array(slab.column(i)) for i, nm in enumerate(names)} for slab in slabs
         ]
 
 

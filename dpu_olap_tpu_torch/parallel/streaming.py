@@ -7,14 +7,15 @@ stream through fixed device buffers, with per-rank async callback chains
 overlapping copy-in / exec / copy-out (dpuext.hpp:859-899).
 
 Here:
-  * host staging (np.stack of the round's batches) runs on a background
-    thread one round ahead of the device;
+  * host staging (the operators' native.parallel_stack of the round's
+    batches) runs on a background thread one round ahead of the device;
   * device dispatch is asynchronous (a CUDA launch returns before the card
     finishes), so successive rounds queue back-to-back on the stream;
   * results are collected in order on one worker thread, and at most
-    ``max_inflight`` dispatched rounds may be outstanding before the
-    dispatcher blocks. A collect ends in a host copy (``.cpu()``), which
-    waits for its round's device work, so the bound holds device memory to
+    ``max_inflight`` dispatched rounds (2 by default; the reference bounds
+    its per-rank job queues) may be outstanding before the dispatcher
+    blocks. A collect ends in a host copy (``.cpu()``), which waits for its
+    round's device work, so the bound holds device memory to
     ``max_inflight`` rounds of buffers.
 
 The collect worker is a thread of its own: CUDA work it queues must name its
@@ -30,15 +31,13 @@ from typing import Callable, List
 from ..config import FLAGS
 from ..timer import timed
 
-MAX_INFLIGHT = 2  # dispatched rounds outstanding before the dispatcher blocks
-
 
 def stream_rounds(
     n_rounds: int,
     stage: Callable[[int], object],
     dispatch: Callable[[int, object], object],
     collect: Callable[[int, object], object],
-    max_inflight: int = MAX_INFLIGHT,
+    max_inflight: int = 2,
     timers=None,
 ) -> List[object]:
     """Run ``n_rounds`` of stage -> dispatch -> collect with staging
@@ -50,7 +49,6 @@ def stream_rounds(
     collect(r, handle)  materialize the round's result on the host (worker
                         thread; blocks on the device)
     """
-
     def timed_stage(r):
         with timed(timers, "stage", r):
             return stage(r)

@@ -1,9 +1,9 @@
 """Named per-rank phase timers (counterpart of ``dpu_olap_tpu/timer.py``).
 
 Nanosecond start/stop per rank id, summed across ranks (reference
-host/timer/timer.{h,cc}). The JAX package can back these with its native
-C++ registry; the port uses the pure-Python registry until that runtime is
-bound here.
+host/timer/timer.{h,cc}). ``Timers()`` returns the native C++ registry
+(``native.NativeTimers``, the port's runtime.cpp), as the JAX package's does;
+``_PyTimers`` is the plain version the tests hold it against.
 """
 
 from __future__ import annotations
@@ -38,8 +38,11 @@ class _PyTimers:
 
 
 def Timers():
-    """Create a timer registry."""
-    return _PyTimers()
+    """Create a timer registry (the native one; raises if the runtime does
+    not build)."""
+    from . import native
+
+    return native.NativeTimers()
 
 
 class timed:

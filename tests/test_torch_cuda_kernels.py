@@ -25,7 +25,9 @@ call) and the tile stage at its geometry's edges,
 the forward fill in both modes (csrc/scan.cu) and filter v1
 (csrc/filter.cu) at their one-sweep edges (lengths around a tile and not a
 multiple of 4, misaligned views, dead stretches over many tiles, one kept
-value in the last tile), and the graph-captured chain timing, a captured
+value in the last tile; v1's ENABLE_TRACE sweep against the untraced one
+and its printf lines against the plain version's), and the graph-captured
+chain timing, a captured
 sort and gather, a captured merge-probe and partition, a captured fill
 and filter and a captured block merge and tile stage. A CUDA
 kernel has no CPU mode, so
@@ -422,7 +424,8 @@ def test_lane_gather_misaligned_view(cuda_device, which, rows, wi, wv):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(128, 128), (512, 128), (1, 1), (33, 1000), (4096, 31)])
+@pytest.mark.parametrize("shape", [(128, 128), (512, 128), (1, 1), (33, 1000), (4096, 31),
+                                   (4, 4), (12, 8), (4096, 32)])
 @pytest.mark.parametrize("dtype", [torch.int32, torch.uint32])
 def test_transpose_matches_plain(cuda_device, shape, dtype):
     x = torch.from_numpy(np.random.default_rng(1).integers(0, 2**32, shape, dtype=np.uint32))
@@ -430,6 +433,17 @@ def test_transpose_matches_plain(cuda_device, shape, dtype):
     got = probes_cuda.transpose(x)
     assert got.dtype == dtype
     _same([got], [probes_cuda.transpose_ref(x)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(128, 128), (8, 12)])
+def test_transpose_on_a_misaligned_view(cuda_device, shape):
+    # a view 4 bytes past 16-byte alignment
+    n = shape[0] * shape[1]
+    flat = torch.from_numpy(np.random.default_rng(2).integers(0, 2**32, n + 1, dtype=np.uint32))
+    x = flat.to(cuda_device)[1:].view(shape)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    _same([probes_cuda.transpose(x)], [probes_cuda.transpose_ref(x)])
 
 
 def _onehot_planes(k, m, n, device):
@@ -678,6 +692,25 @@ def test_filter_kernel_matches_plain(cuda_device, n, kind, offset):
     keep = v < filter_cuda.THRESHOLD
     assert int(got[1]) == keep.sum()
     assert np.array_equal(got_i[1].cpu().numpy()[: keep.sum()], np.flatnonzero(keep))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, FILTER_TILE + 1, 3 * FILTER_TILE + 17])
+@pytest.mark.parametrize("with_indices", [False, True])
+def test_filter_trace_kernel_matches_untraced(cuda_device, capfd, n, with_indices):
+    """The ENABLE_TRACE sweep (dpu_filter_trace_u32): the same outputs as
+    the untraced kernel, and a printf line a tile equal to the plain
+    version's lines (as a set: tiles print in the order they finish)."""
+    v = _filter_values("random", n, np.random.default_rng(n + 7))
+    x = torch.from_numpy(v).to(cuda_device)
+    call = filter_cuda.filter_with_indices if with_indices else filter_cuda.filter_compact
+    capfd.readouterr()
+    got = call(x, trace=True)
+    torch.cuda.synchronize()
+    ctypes.CDLL(None).fflush(None)
+    lines = [x for x in capfd.readouterr().out.splitlines() if x.startswith("filter block")]
+    _same(got, call(x))
+    assert sorted(lines) == sorted(filter_cuda.trace_lines(x.cpu()))
 
 
 @pytest.mark.cuda

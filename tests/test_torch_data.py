@@ -179,6 +179,7 @@ def test_port_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "import dpu_olap_tpu_torch.operators.join_op\n"
+        "import dpu_olap_tpu_torch.native, dpu_olap_tpu_torch.plan\n"
         "bad = [m for m in sys.modules if m == 'dpu_olap_tpu' or m.startswith('dpu_olap_tpu.')]\n"
         "assert not bad, bad\n"
         "need = ['operators.join_op', 'operators.filter_op', 'operators.aggr_op',\n"
@@ -189,7 +190,7 @@ def test_port_imports_no_jax():
         "        'parallel.dist_join', 'parallel.partitioner', 'operators.partition_op',\n"
         "        'bench.device_time', 'bench.measure_filter', 'ops.filter_alt_cuda',\n"
         "        'ops.filter_stages', 'ops.block_ops_cuda', 'ops.probes_cuda',\n"
-        "        'bench.measure_r3', 'bench.probe_lowering']\n"
+        "        'bench.measure_r3', 'bench.probe_lowering', 'native', 'plan']\n"
         "missing = [m for m in need if 'dpu_olap_tpu_torch.' + m not in mods]\n"
         "assert not missing, missing\n"
         "print(len(mods))\n"

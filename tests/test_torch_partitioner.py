@@ -15,7 +15,7 @@ from dpu_olap_tpu.operators import PartitionTpu
 from dpu_olap_tpu.parallel.mesh import DeviceSet as JaxDeviceSet
 from dpu_olap_tpu.parallel.partitioner import Partitioner as JaxPartitioner
 from dpu_olap_tpu.parallel.partitioner import ResidentPartitioner as JaxResidentPartitioner
-from dpu_olap_tpu_torch.columnar import Table
+from dpu_olap_tpu_torch.columnar import Batch, Table
 from dpu_olap_tpu_torch.operators import PartitionGpu
 from dpu_olap_tpu_torch.ops import partition_cuda
 from dpu_olap_tpu_torch.ops.hashing import bucket_shift, wang_hash_np
@@ -90,6 +90,23 @@ def test_partitioner_carries_payloads_and_raises_on_overflow():
         Partitioner(CPU_SET, 8).partition_table(same_key, "fk")
     with pytest.raises(OverflowError, match="shuffle_slack"):
         ResidentPartitioner(CPU_SET, 8).partition_table(same_key, "fk")
+
+
+@pytest.mark.parametrize("p, hot_share", [(16, 1.0), (16, 0.5), (4, 1.0)])
+def test_partitioner_takes_a_hot_key_over_many_small_batches(p, hot_share):
+    # 100 batches of 64 rows: each round fits its 128-row cell, while the hot
+    # key's partition collects far more rows than the table's slack share
+    rng = np.random.default_rng(11)
+    n_hot = int(64 * hot_share)
+    batches = []
+    for _ in range(100):
+        k = rng.integers(0, 2**32, 64, dtype=np.uint32)
+        k[:n_hot] = 0xDEADBEEF
+        batches.append(Batch({"k": k, "v": ~k}))
+    table = Table(batches)
+    parts = Partitioner(CPU_SET, p).partition_table(table, "k", ["v"])
+    _same_parts(parts, _oracle(table, "k", p), ["k", "v"])
+    assert max(len(part["k"]) for part in parts) >= 100 * n_hot
 
 
 def test_device_partitions_rows_and_host_layout():

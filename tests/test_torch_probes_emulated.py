@@ -10,8 +10,8 @@ block at a time. The one-hot product (inline PTX for the tensor cores) is
 left out (PROBES_WITHOUT_ONEHOT). This checks both gathers at gather_plan's
 launches (the warp-a-row kernel up to 128 values a row, the block-staged
 kernel from 129 to 2048, on aligned and misaligned views, with out-of-range
-indices), the transpose and the dyn row bit for bit before any build for
-the card. It says nothing about speed.
+indices), the transpose (on aligned and misaligned planes) and the dyn row
+bit for bit before any build for the card. It says nothing about speed.
 """
 
 import ctypes
@@ -176,12 +176,21 @@ def test_gather_refuses_a_launch_its_kernel_does_not_take(lib):
     assert lib.dpu_lane_gather_u32(*args, warp, 10, 8, None) == 1
 
 
-@pytest.mark.parametrize("shape", [(128, 128), (512, 128), (1, 1), (33, 70), (40, 31)])
-def test_transpose_matches_plain(lib, shape):
-    x = np.random.default_rng(shape[0]).integers(0, 2**32, shape, dtype=np.uint32)
-    out = np.full(shape[::-1], 0x5A5A5A5A, np.uint32)
+@pytest.mark.parametrize("shape, offset", [  # offset in words: 1 puts both planes off 16 bytes
+    ((128, 128), 0), ((512, 128), 0), ((1, 1), 0), ((33, 70), 0), ((40, 31), 0),
+    ((4, 4), 0), ((8, 12), 0), ((132, 4), 0), ((12, 8), 0),
+    ((128, 128), 1), ((4, 4), 1), ((8, 12), 1),
+])
+def test_transpose_matches_plain(lib, shape, offset):
+    n = shape[0] * shape[1]
+    buf = np.random.default_rng(shape[0]).integers(0, 2**32, n + 4, dtype=np.uint32)
+    obuf = np.full(n + 4, 0x5A5A5A5A, np.uint32)
+    assert buf.ctypes.data % 16 == 0 and obuf.ctypes.data % 16 == 0
+    x = buf[offset:offset + n].reshape(shape)
+    out = obuf[offset:offset + n].reshape(shape[::-1])
     assert lib.dpu_transpose_u32(x.ctypes.data, out.ctypes.data, *shape, None) == 0
-    np.testing.assert_array_equal(out, pc.transpose_ref(torch.from_numpy(x)).numpy())
+    np.testing.assert_array_equal(out, pc.transpose_ref(torch.from_numpy(x.copy())).numpy())
+    assert (obuf[:offset] == 0x5A5A5A5A).all() and (obuf[offset + n:] == 0x5A5A5A5A).all()
 
 
 @pytest.mark.parametrize("row", [0, 317, 511, -1, 512, -2**31])
