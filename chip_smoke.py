@@ -80,7 +80,15 @@ and read just after:
     Aggregate (filter, sort, merge, fill, sum; intermediates on the card),
     Aggregate(TakeNode) on BM_Take SF=1 (sort + gather + sum, no restore
     sort) and Repartition of the SF=8 probe table into 16 partitions
-    (partition kernel), against pyarrow or numpy.
+    (partition kernel), against pyarrow or numpy;
+  * the operator suite (python -m dpu_olap_tpu_torch.bench.run_benchmarks)
+    at SF=1, every entry of the JAX suite, a group at a time, each group
+    with the kernels it must launch counted; the join row with
+    ACTIVATE_JOIN_TIMERS's flag on the shuffle route (its phase_ms), and
+    the SF=64 path's shuffle join at SF=8 with the same timers (partition,
+    sort and fill kernels); verify_parity with REFERENCE_SHAPES=1 at SF=1,
+    bench_streaming --op filter --sf 1 2 and devicecount, each required to
+    return 0.
 For each fallback it also splits the result's readback (copy, numpy mask,
 against masking on the card) and profiles one Run() (device busy time, idle
 share, the longest device events).
@@ -2713,6 +2721,142 @@ def phase_plan(card: str) -> dict:
     return total
 
 
+# ---- the operator suite and the entry points beside it --------------------
+
+# run_benchmarks' entries a group at a time, each group with the kernels it
+# must launch (the cuckoo table, the row gather and the memcpy rows run
+# none of them)
+SUITE_GROUPS = (
+    ("^filter_(tpu|native)$", ("filter",)),
+    ("^sum_(tpu|native)", ("sum",)),
+    ("^take_(tpu|native)", ("sort", "gather")),
+    ("^hashtable_", ("sort", "merge_probe")),
+    ("^partition_", ("partition",)),
+    ("^plan_", ("filter", "sum", "sort", "merge", "fill", "gather")),
+    ("^(filter|sum|take|take_rowgather|join)_kernel", ("filter", "sum", "sort", "gather", "merge",
+                                                        "fill")),
+    ("^parallel_memcpy_", ()),
+    ("^join_(tpu|native)", ("sort", "gather")),
+)
+PHASE_KEYS = ["fragments-ms", "exchange-ms", "local-join-ms"]
+
+
+def _quiet(fn, *args):
+    """fn(*args) with its standard output captured: (result, lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*args)
+    return res, buf.getvalue().splitlines()
+
+
+def phase_suite(card: str) -> dict:
+    """The port's operator suite (python -m dpu_olap_tpu_torch.bench.
+    run_benchmarks) at SF=1, a group of entries at a time with every
+    kernel's launch count set to 0 just before and read just after (each
+    group must launch the kernels named for it in SUITE_GROUPS), one
+    ``[suite]`` line a row; the join row once more with FLAGS.join_timers on
+    the shuffle route (impl="sort"), which must carry the three phase_ms
+    keys, and the shuffle join of the SF=64 path (cosort, two resident
+    rounds) at SF=8 with the same timers; then verify_parity with
+    REFERENCE_SHAPES=1 at SF=1, bench_streaming --op filter --sf 1 2 and
+    devicecount, each run in this process and required to return 0."""
+    import os
+    import tempfile
+    from unittest import mock
+
+    import torch
+
+    from dpu_olap_tpu_torch.bench import bench_streaming, devicecount, verify_parity
+    from dpu_olap_tpu_torch.bench import run_benchmarks as rb
+    from dpu_olap_tpu_torch.config import FLAGS
+    from dpu_olap_tpu_torch.generator import make_join_tables
+    from dpu_olap_tpu_torch.operators.join_op import JoinGpu
+    from dpu_olap_tpu_torch.parallel.mesh import DeviceSet
+
+    kernels = _plan_kernels()
+    total = dict.fromkeys(kernels, 0)
+    names = []
+
+    def group(pattern, need, **kw):
+        torch.cuda.synchronize()
+        for mod in kernels.values():
+            mod.LAUNCHES = 0
+        rows, _ = _quiet(rb.run, pattern, 1, 16, "chip_smoke", kw.get("join_impl", "cosort"))
+        torch.cuda.synchronize()
+        launches = {k: m.LAUNCHES for k, m in kernels.items()}
+        require(rows, f"suite {pattern}: no row")
+        require(all(launches[k] > 0 for k in need),
+                f"suite {pattern}: the entries did not launch {need}: {launches}")
+        for r in rows:
+            require(r["backend"] == "cuda" and r["items_per_s"] > 0 and "spread_pct" in r
+                    and (r["name"] not in rb.STEPS or r["glue_ms"] > 0),
+                    f"suite {r['name']}: row {r}")
+            print(f"[suite] {json.dumps(r)} [{card}]", flush=True)
+        print(f"[suite] {pattern}: launches {launches} [{card}]", flush=True)
+        for k, v in launches.items():
+            total[k] += v
+        return rows
+
+    for pattern, need in SUITE_GROUPS:
+        names += [r["name"] for r in group(pattern, need)]
+    missing = [n for n in rb.ENTRIES if n not in names]
+    require(not missing, f"suite: no row for {missing}")
+    require(len(names) == len(set(names)), f"suite: a row twice in {names}")
+
+    FLAGS.join_timers = True
+    try:
+        # impl="sort" at SF=1 takes the shuffle join in one round: one
+        # partition (no partition kernel below P = 2) and the sort probe
+        (row,) = group("^join_tpu$", (), join_impl="sort")
+        require(all(k in row for k in PHASE_KEYS), f"suite join_tpu timers: {row}")
+        # the SF=64 path's shuffle join (cosort, two resident rounds) at SF=8
+        left, right = make_join_tables(SF8, SF1_ROWS, SF1_ROWS, seed=SEED)
+        op = JoinGpu(DeviceSet.allocate(1), left, right).Prepare()
+        for mod in kernels.values():
+            mod.LAUNCHES = 0
+        op._run_ici(rounds=2)
+        torch.cuda.synchronize()
+        launches = {k: m.LAUNCHES for k, m in kernels.items()}
+        require(list(getattr(op, "phase_ms", {})) == PHASE_KEYS,
+                f"join SF={SF8} _run_ici(rounds=2) timers: {getattr(op, 'phase_ms', None)}")
+        require(all(launches[k] > 0 for k in ("partition", "sort", "fill")),
+                f"join SF={SF8} timers: launches {launches}")
+        for k, v in launches.items():
+            total[k] += v
+        print(f"[suite] join SF={SF8} _run_ici(rounds=2) phase_ms {op.phase_ms}; join-total"
+              f" {op.Timers().sum_ms('join-total')} ms; launches {launches} [{card}]", flush=True)
+    finally:
+        FLAGS.join_timers = False
+
+    with mock.patch.dict(os.environ, SF="1", REFERENCE_SHAPES="1"):
+        rc, lines = _quiet(verify_parity.main, [])
+    for ln in lines:
+        print(f"[suite] verify_parity: {ln}", flush=True)
+    require(rc == 0 and "ALL PARITY CHECKS PASS" in lines,
+            f"verify_parity REFERENCE_SHAPES=1 SF=1: rc {rc}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "streaming.json")
+        rc, lines = _quiet(bench_streaming.main, ["--op", "filter", "--sf", "1", "2", "--out", out])
+        require(rc == 0, f"bench_streaming: rc {rc}")
+        with open(out) as f:
+            recs = json.load(f)
+    require([r["sf"] for r in recs] == [1, 2] and all(r["backend"] == "cuda" for r in recs),
+            f"bench_streaming: records {recs}")
+    for ln in lines:
+        print(f"[suite] bench_streaming: {ln} [{card}]", flush=True)
+
+    rc, lines = _quiet(devicecount.main, [])
+    require(rc == 0 and lines and lines[0].endswith("devices allocated (cuda)"),
+            f"devicecount: rc {rc}, {lines}")
+    for ln in lines:
+        print(f"[suite] devicecount: {ln}", flush=True)
+    return {k: v for k, v in total.items() if v}
+
+
 def phase_trace_hook(card: str) -> None:
     """ENABLE_TRACE=1 in a subprocess: filter v1 on 1Mi values prints one
     line a tile; the tiles are numbered 0..255 once each, their offsets are
@@ -2804,6 +2948,7 @@ def main() -> dict:
         phase_partition_sf8, phase_hashtable,
     )]
     paths.append(lambda: phase_plan(card))  # the query plan's chains
+    paths.append(lambda: phase_suite(card))  # the operator suite and its entry points
     for path in paths:
         for name, n in path().items():
             launches[name] += n

@@ -15,8 +15,13 @@ run): Aggregate(Filter(Source)) at SF=1 and SF=8, the materialized Filter, the
 fused filter join and an Aggregate over it, the bare join (JoinGpu's dense
 route) and the device-resident Filter -> HashJoin -> Aggregate on
 BM_JoinDpu SF=1, Aggregate(TakeNode) on BM_Take SF=1, and Repartition of
-the BM_JoinDpu SF=8 probe table into 16 partitions. Results are not checked
-here (chip_smoke.py does); the card's name and power limit go with them.
+the BM_JoinDpu SF=8 probe table into 16 partitions. And JoinGpu's
+shuffle join at BM_JoinDpu SF=1 (``impl="sort"``: one round, one
+partition, the plain radix partition), with the median Timers() ms of its
+phases (``host-prep``, ``h2d``, ``join-total``, ``gather-result``).
+Results are not checked here (chip_smoke.py does); the card's name and
+power limit go with them. ``--only operators plan join`` takes a subset;
+``--reps`` sets the timed runs a reading.
 
 To compare two checkouts in one call, run the script by its path with each
 checkout on PYTHONPATH in turns (a checkout without the plan times only the
@@ -39,6 +44,8 @@ SEED = 42
 SFS = (1, 8)
 REPS = 3  # timed runs a reading (median)
 PHASES = ("stage", "dispatch", "collect")
+JOIN_PHASES = ("host-prep", "h2d", "join-total", "gather-result")
+SECTIONS = ("operators", "plan", "join")
 
 
 def _sync_ms(fn) -> float:
@@ -49,7 +56,23 @@ def _sync_ms(fn) -> float:
     return (time.perf_counter() - t) * 1e3
 
 
-def operator_readings(ds, sf: int) -> dict:
+def _readings(ops: dict, phases, reps: int) -> dict:
+    """{label: {"run_ms", "<phase>_ms"...}}: for each maker of an operator,
+    one warm-up run (kernel build, allocator), then the medians of ``reps``
+    runs, each on a fresh operator."""
+    out = {}
+    for label, make in ops.items():
+        make().Prepare().Run()
+        runs = []
+        for _ in range(reps):
+            op = make().Prepare()
+            runs.append((_sync_ms(op.Run), {p: op.Timers().sum_ms(p) for p in phases}))
+        out[label] = {"run_ms": float(np.median([r for r, _ in runs])),
+                      **{f"{p}_ms": float(np.median([ph[p] for _, ph in runs])) for p in phases}}
+    return out
+
+
+def operator_readings(ds, sf: int, reps: int = REPS) -> dict:
     """{label: {"run_ms", "<phase>_ms"...}} of FilterGpu, SumGpu and TakeGpu."""
     from dpu_olap_tpu_torch.generator import make_filter_batches, make_take_batches
     from dpu_olap_tpu_torch.operators.aggr_op import SumGpu
@@ -66,19 +89,20 @@ def operator_readings(ds, sf: int) -> dict:
                                         SumGpu(ds, t)),
         f"take SF={sf}": lambda: TakeGpu(ds, data, idx),
     }
-    out = {}
-    for label, make in ops.items():
-        make().Prepare().Run()  # warm-up: kernel build, allocator
-        runs = []
-        for _ in range(REPS):
-            op = make().Prepare()
-            runs.append((_sync_ms(op.Run), {p: op.Timers().sum_ms(p) for p in PHASES}))
-        out[label] = {"run_ms": float(np.median([r for r, _ in runs])),
-                      **{f"{p}_ms": float(np.median([ph[p] for _, ph in runs])) for p in PHASES}}
-    return out
+    return _readings(ops, PHASES, reps)
 
 
-def plan_readings(ds) -> dict:
+def join_readings(ds, reps: int = REPS) -> dict:
+    """{label: {"run_ms", "<phase>_ms"...}} of the shuffle join at SF=1."""
+    from dpu_olap_tpu_torch.generator import make_join_tables
+    from dpu_olap_tpu_torch.operators.join_op import JoinGpu
+
+    left, right = make_join_tables(1, 1 << 21, 1 << 21, seed=SEED)
+    ops = {"join SF=1 impl=sort": lambda: JoinGpu(ds, left, right, impl="sort")}
+    return _readings(ops, JOIN_PHASES, reps)
+
+
+def plan_readings(ds, reps: int = REPS) -> dict:
     """{label: {"run_ms"}} of the plan chains (see the module note)."""
     from dpu_olap_tpu_torch import plan as P
     from dpu_olap_tpu_torch.generator import (
@@ -114,7 +138,7 @@ def plan_readings(ds) -> dict:
     out = {}
     for label, run in chains.items():
         run()  # warm-up
-        out[label] = {"run_ms": float(np.median([_sync_ms(run) for _ in range(REPS)]))}
+        out[label] = {"run_ms": float(np.median([_sync_ms(run) for _ in range(reps)]))}
     return out
 
 
@@ -122,6 +146,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--label", default="", help="a name for this run, kept in the JSON")
     ap.add_argument("--out", help="also write the JSON object to this file")
+    ap.add_argument("--only", nargs="+", choices=SECTIONS, default=SECTIONS,
+                    help="the sections to run (default: all)")
+    ap.add_argument("--reps", type=int, default=REPS, help="timed runs a reading (median)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("staging needs a CUDA device", file=sys.stderr)
@@ -134,17 +161,20 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     ds = DeviceSet.allocate(1)
     ms = {}
-    for sf in SFS:
-        ms.update(operator_readings(ds, sf))
-    if importlib.util.find_spec("dpu_olap_tpu_torch.plan") is not None:
-        ms.update(plan_readings(ds))
+    if "operators" in args.only:
+        for sf in SFS:
+            ms.update(operator_readings(ds, sf, args.reps))
+    if "plan" in args.only and importlib.util.find_spec("dpu_olap_tpu_torch.plan") is not None:
+        ms.update(plan_readings(ds, args.reps))
+    if "join" in args.only:
+        ms.update(join_readings(ds, args.reps))
     import dpu_olap_tpu_torch
 
     out = {"label": args.label, "card": card, "package": dpu_olap_tpu_torch.__file__,
-           "reps": REPS, "ms": ms}
+           "reps": args.reps, "ms": ms}
     for label, r in ms.items():
         body = ", ".join(f"{k} {v:.3f}" for k, v in r.items())
-        print(f"[{args.label}] {label}: {body} (median of {REPS}) [{card}]", flush=True)
+        print(f"[{args.label}] {label}: {body} (median of {args.reps}) [{card}]", flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)

@@ -2,9 +2,9 @@
 
 The same env tiers as the JAX package: NR_DEVICES (or NR_DPUS), SF and
 MAX_THREADS, plus the feature flags the port reads (ENABLE_PERF, ENABLE_LOG,
-ENABLE_TRACE). The JAX package's
-``shuffle_counts_inband`` (the multi-device exchange) and ``join_timers``
-arrive with the multi-device work (ROADMAP §1, "Multi-device").
+ENABLE_TRACE, ACTIVATE_JOIN_TIMERS). The JAX package's
+``shuffle_counts_inband`` (the multi-device exchange) arrives with the
+multi-device work (ROADMAP §1, "Multi-device").
 """
 
 from __future__ import annotations
@@ -53,6 +53,11 @@ class Flags:
     enable_log      -> verbose operator logging (ENABLE_LOG)
     enable_trace    -> filter v1's per-tile progress print (ENABLE_TRACE,
                        reference trace(), shared/umq/log.h:13-17)
+    join_timers     -> per-phase attribution of the shuffle join
+                       (ACTIVATE_JOIN_TIMERS, the reference's compile flag,
+                       host/join/join_dpu.cc:27-49): JoinGpu._run_ici times
+                       chained prefixes afterwards (dist_join_phase_ms),
+                       extra device work, so off by default
     shuffle_slack   -> padding factor for the ragged all-to-all partition
                        exchange (reference sizes partitions with 1.5-2x slack,
                        host/join/join_dpu.cc:97-100)
@@ -68,10 +73,12 @@ class Flags:
     # Round streaming (the reference's batch-round outer loop,
     # filter_dpu.cc:127-156): max rows resident per dispatched round.
     stream_round_rows: int = 64 << 20
+    join_timers: bool = False
 
 
 FLAGS = Flags(
     enable_perf=_env_int("ENABLE_PERF", 1) != 0,
     enable_log=_env_int("ENABLE_LOG", 0) != 0,
     enable_trace=_env_int("ENABLE_TRACE", 0) != 0,
+    join_timers=_env_int("ACTIVATE_JOIN_TIMERS", 0) != 0,
 )

@@ -14,7 +14,8 @@ routes as JoinTpu does (join_op.py:402-423):
     ``impl`` or a larger table up to MAX_RESIDENT_ROWS: both sides
     radix-partitioned (partition kernel) into ``rounds`` resident partition
     pairs, joined one round after another — the reference JoinDpu's Phase A
-    and Phase B on one device;
+    and Phase B on one device; with FLAGS.join_timers it also sets
+    ``phase_ms`` (parallel/dist_join.dist_join_phase_ms);
   * the host-staged partitioned join (``_run_partitioned``) beyond that:
     the Partitioner splits both tables into one hash partition per batch on
     the host, and each partition pair is joined on the device.
@@ -259,7 +260,20 @@ class JoinGpu:
             m = DeviceSet.gather(matched)
         device_log("join matched rows", [int(m.sum())])
         with timed(self.timers, "gather-result"):
-            return self._gather_result(m, fk, lcols, rcols)
+            out = self._gather_result(m, fk, lcols, rcols)
+        if FLAGS.join_timers:
+            # per-phase attribution (ACTIVATE_JOIN_TIMERS, join_dpu.cc:27-49):
+            # chained prefix probes, extra device work, so opt-in as the
+            # reference's diagnostics build; only this route sets phase_ms
+            from ..parallel.dist_join import dist_join_phase_ms
+
+            self.phase_ms = dist_join_phase_ms(
+                self.ds, lf[self.fk], rt[self.pk], len(self.left_cols), len(self.right_cols),
+                cell_left=cell_l, cell_right=cell_r, impl=self.impl, keys31=self.keys31,
+                rounds=rounds,
+            )
+            log(f"join phases: {self.phase_ms}")
+        return out
 
     # ---- host-staged partitioned path ------------------------------------
 

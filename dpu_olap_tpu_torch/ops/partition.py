@@ -8,7 +8,7 @@ key-grouped reordering:
   bucket     = radix_bucket(key)                   (hashing.py)
   order      = stable argsort(bucket)              -> selection indices
   partitions = key[order]                          -> partition-contiguous
-  histogram  = bincount(bucket)                    -> counts, offsets
+  histogram  = searchsorted(sorted bucket, 0..P)   -> counts, offsets
 
 The stable argsort is ``torch.sort(stable=True)``: the counterpart of XLA's
 ``jnp.argsort`` in the JAX package, not of a Pallas kernel. The partition
@@ -55,9 +55,15 @@ def _take(col: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def radix_partition(keys: torch.Tensor, nr_partitions: int) -> PartitionResult:
     bucket = radix_bucket(keys, nr_partitions).to(torch.int64)
-    counts = torch.bincount(bucket, minlength=nr_partitions)
-    offsets = torch.cumsum(counts, 0) - counts
-    order = torch.sort(bucket, stable=True).indices
+    ordered, order = torch.sort(bucket, stable=True)
+    # the histogram from the sorted bucket: where each bucket starts. Not
+    # bincount, which reads its bucket range back to the host on a CUDA
+    # tensor (a CUDA graph cannot capture that), and no atomics, which all
+    # contend on one counter at P = 1
+    starts = torch.searchsorted(
+        ordered, torch.arange(nr_partitions + 1, dtype=torch.int64, device=keys.device))
+    offsets = starts[:-1]
+    counts = starts.diff()
     return PartitionResult(
         keys=_take(keys, order),
         selection_indices=order.to(torch.uint32),

@@ -18,6 +18,9 @@ one device raises in the exchange (shuffle_partitions) until it is ported
 Output: padded rows (the local join's layout, round after round) + a
 matched mask; the host compacts them (operators/join_op.py), as the
 reference reassembles batches on the host (join_dpu.cc:371-399).
+
+``dist_join_phase_ms`` attributes the join's device time to its phases
+(fragments, exchange, local join) for FLAGS.join_timers.
 """
 
 from __future__ import annotations
@@ -77,6 +80,13 @@ def join_shuffled(left: ShuffleResult, right: ShuffleResult, impl: str = "cosort
     )
 
 
+def _on_device(ds: DeviceSet, a):
+    """A host numpy array or a tensor, on ds's device."""
+    if isinstance(a, np.ndarray):
+        return ds.scatter(a)
+    return a.to(ds.device)
+
+
 def dist_join(
     ds: DeviceSet,
     left_fk,
@@ -97,18 +107,113 @@ def dist_join(
     package's per-device program (``dist_join_spmd``) returns with the
     multi-device exchange (ROADMAP §1, "Multi-device")."""
     n_dev = ds.nr_devices
-
-    def on_device(a):
-        if isinstance(a, np.ndarray):
-            return ds.scatter(a)
-        return a.to(ds.device)
-
-    left_fk, right_pk = on_device(left_fk), on_device(right_pk)
-    left_payloads = tuple(on_device(p) for p in left_payloads)
-    right_payloads = tuple(on_device(p) for p in right_payloads)
+    left_fk, right_pk = _on_device(ds, left_fk), _on_device(ds, right_pk)
+    left_payloads = tuple(_on_device(ds, p) for p in left_payloads)
+    right_payloads = tuple(_on_device(ds, p) for p in right_payloads)
     slack = FLAGS.shuffle_slack
     cell_left = cell_left or default_cell_size(left_fk.shape[0] // n_dev, n_dev * rounds, slack)
     cell_right = cell_right or default_cell_size(right_pk.shape[0] // n_dev, n_dev * rounds, slack)
     right = shuffle_partitions(right_pk, right_payloads, n_dev, cell_right, rounds=rounds)
     left = shuffle_partitions(left_fk, left_payloads, n_dev, cell_left, rounds=rounds)
     return join_shuffled(left, right, impl=impl, keys31=keys31)
+
+
+def dist_join_phase_ms(
+    ds: DeviceSet,
+    left_fk,
+    right_pk,
+    n_left_payloads: int,
+    n_right_payloads: int,
+    cell_left: int,
+    cell_right: int,
+    impl: str = "cosort",
+    keys31: bool = False,
+    rounds: int = 1,
+    k: int = 4,
+) -> dict:
+    """Per-phase attribution for the shuffle join (JAX dist_join.py:182-292),
+    the reference's ACTIVATE_JOIN_TIMERS build (host/join/join_dpu.cc:27-49),
+    which splits partition / exchange / build+probe+take. Chained pipeline
+    PREFIXES are timed (bench/device_time.time_chained) and the deltas
+    attributed:
+
+      fragments  = local radix partition into cells (both sides)
+      exchange   = + shuffle_partitions (the identity on one device, timed
+                   all the same: its fragments are the exchange's input)
+      local-join = + join_shuffled
+
+    Each prefix is one CUDA graph of k and of 2k chained steps. Payload
+    planes are derived on the device from the key (same shapes and traffic
+    as the real columns), the right side is tied to the carry, and each
+    step's checksum, overflow flags included, folds into bit 0 of the next
+    step's keys, so every step depends on the one before and the keys stay
+    in their range (keys31 holds). The cuckoo probe reads its build's
+    convergence back on the host, so its chains run eagerly (still CUDA
+    events). Opt-in, as the reference flag: each prefix runs k + 2k steps
+    in each of three reps, after a warm-up. Returns ms per phase."""
+    from ..bench.device_time import time_chained
+    from .shuffle import local_fragments
+
+    n_dev = ds.nr_devices
+
+    # uint32 columns move through the bitwise glue as int32 bit patterns:
+    # torch has no uint32 bitwise kernels on the card
+    def i32(x):
+        return x.view(torch.int32)
+
+    def planes(key, n):
+        return tuple((i32(key) ^ (i + 1)).view(torch.uint32) for i in range(n))
+
+    def s64(*xs):
+        return sum(x.to(torch.int64).sum() for x in xs)
+
+    def low(xs, mask):
+        return s64(*(i32(x) & mask for x in xs))
+
+    def sides(lf, rk):
+        # tie the (otherwise loop-invariant) right side to the carry
+        return lf, (i32(rk) ^ (i32(lf[:1]) & 1)).view(torch.uint32)
+
+    def fold(lf, chk):
+        return (i32(lf) ^ (chk & 1).to(torch.int32)).view(torch.uint32)
+
+    def frag_body(lf, rk):
+        lf, rk = sides(lf, rk)
+        ck_l, cp_l, cnt_l, ovf_l = local_fragments(
+            lf, planes(lf, n_left_payloads), n_dev * rounds, cell_left)
+        ck_r, cp_r, cnt_r, ovf_r = local_fragments(
+            rk, planes(rk, n_right_payloads), n_dev * rounds, cell_right)
+        chk = (low([ck_l], 1) + low([ck_r], 3) + s64(cnt_l, cnt_r, ovf_l, ovf_r)
+               + low([*cp_l, *cp_r], 7))
+        return fold(lf, chk)
+
+    def shuffled(lf, rk):
+        lf, rk = sides(lf, rk)
+        right = shuffle_partitions(rk, planes(rk, n_right_payloads), n_dev, cell_right,
+                                   rounds=rounds)
+        left = shuffle_partitions(lf, planes(lf, n_left_payloads), n_dev, cell_left,
+                                  rounds=rounds)
+        return left, right
+
+    def shuf_body(lf, rk):
+        left, right = shuffled(lf, rk)
+        chk = (low([left.keys], 1) + low([right.keys], 3)
+               + s64(left.counts, right.counts, left.overflow, right.overflow)
+               + low([*left.payloads, *right.payloads], 7))
+        return fold(lf, chk)
+
+    def join_body(lf, rk):
+        left, right = shuffled(lf, rk)
+        fk, lcols, rcols, matched, overflow = join_shuffled(left, right, impl=impl, keys31=keys31)
+        chk = low([fk], 1) + s64(matched, overflow) + low([*lcols, *rcols], 3)
+        return fold(lf, chk)
+
+    lf, rk = _on_device(ds, left_fk), _on_device(ds, right_pk)
+    phases = {}
+    prev = 0.0
+    for name, body in (("fragments", frag_body), ("exchange", shuf_body),
+                       ("local-join", join_body)):
+        sec = time_chained(body, lf, k=k, consts=(rk,), graph=impl != "cuckoo")
+        phases[f"{name}-ms"] = sec * 1e3 - prev
+        prev = sec * 1e3
+    return phases
