@@ -88,7 +88,17 @@ and read just after:
     the SF=64 path's shuffle join at SF=8 with the same timers (partition,
     sort and fill kernels); verify_parity with REFERENCE_SHAPES=1 at SF=1,
     bench_streaming --op filter --sf 1 2 and devicecount, each required to
-    return 0.
+    return 0;
+  * several devices (``[multidevice]``): the paths above over DeviceSets
+    of 2 and 4 shards of the card (one controller): JoinGpu at SF=8 beside
+    the one-device shuffle join in turns, in 2 rounds, with impl="sort" and
+    partitioned, against the dense truth; dist_join_2d on a 2 x 2 mesh
+    against the flat join; the exchange with the counts in the cells and
+    apart; PartitionGpu, FilterGpu, SumGpu and TakeGpu at SF=8; a plan's
+    HashJoin; dryrun_multichip(4) and the weak-scaling curve
+    (bench/multichip.py); over the real cards where there are 2 or more.
+    Each line gives the exchange's copies and bytes; the partition, sort,
+    fill, filter, sum and gather kernels must each launch in the phase.
 For each fallback it also splits the result's readback (copy, numpy mask,
 against masking on the card) and profiles one Run() (device busy time, idle
 share, the longest device events).
@@ -2857,6 +2867,287 @@ def phase_suite(card: str) -> dict:
     return {k: v for k, v in total.items() if v}
 
 
+# ---- several devices: one controller over shards --------------------------
+
+MD_KERNELS = ("partition", "sort", "fill", "filter", "sum", "gather")
+MD_ROWS_PER_DEV = 1 << 20  # the weak-scaling curve's rows a shard (bench_multichip.py's)
+
+
+def sync_cards() -> None:
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _packed_on_card(fk, y):
+    """The (fk, y) rows as sorted int64 on the card: a row multiset that two
+    results compare by torch.equal."""
+    import torch
+
+    return torch.sort(on_card(packed_rows(fk, y).view(np.int64))).values
+
+
+def phase_multidevice(card: str) -> dict:
+    """The port over several devices (parallel/mesh, shuffle, dist_join,
+    multihost, partitioner and the operators on a DeviceSet of shards, one
+    controller), each path driven once with its launches and the exchange's
+    copies and bytes read around it: JoinGpu on BM_JoinDpu SF=8 (16Mi rows
+    a side) over 4 shards of the card (_run_ici, with the phase timers),
+    beside the same tables' one-device _run_ici in turns; over 2 shards with
+    rounds=2 and with impl="sort"; _run_partitioned forced over 4; each
+    against the dense truth; dist_join_2d on a 2 x 2 mesh in 1 and 2 rounds
+    against the flat join's shards; the exchange with the counts in the
+    cells and apart; PartitionGpu's two engines at SF=8, P = 16 over 4
+    shards against numpy; FilterGpu, SumGpu and TakeGpu at SF=8 over 4
+    shards against pyarrow; HashJoin over 4 shards at SF=1 against pyarrow;
+    dryrun_multichip(4); the weak-scaling curve at d = 1, 2, 4. The
+    partition, sort, fill, filter, sum and gather kernels' launch counts are
+    set to 0 before the phase and must all be above 0 after it. Where the
+    machine has 2 or more cards the join and the dry run also run over
+    them. DeviceSet.allocate(4) must raise on a machine of fewer cards:
+    the phase builds its sets of one card's shards by constructing them."""
+    import torch
+
+    from dpu_olap_tpu_torch import plan as P
+    from dpu_olap_tpu_torch.bench import multichip
+    from dpu_olap_tpu_torch.config import FLAGS
+    from dpu_olap_tpu_torch.generator import (
+        make_filter_batches, make_join_tables, make_take_batches,
+    )
+    from dpu_olap_tpu_torch.operators import PartitionGpu
+    from dpu_olap_tpu_torch.operators.aggr_op import SumGpu, SumNative
+    from dpu_olap_tpu_torch.operators.filter_op import FilterGpu, FilterNative
+    from dpu_olap_tpu_torch.operators.join_op import JoinGpu, JoinNative
+    from dpu_olap_tpu_torch.operators.take_op import TakeGpu, TakeNative
+    from dpu_olap_tpu_torch.ops.hashing import bucket_shift, wang_hash_np
+    from dpu_olap_tpu_torch.parallel import shuffle
+    from dpu_olap_tpu_torch.parallel.dist_join import dist_join
+    from dpu_olap_tpu_torch.parallel.mesh import DeviceSet
+    from dpu_olap_tpu_torch.parallel.multihost import dist_join_2d, make_mesh_2d
+
+    kernels = {k: m for k, m in _plan_kernels().items() if k in MD_KERNELS}
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        try:
+            DeviceSet.allocate(4)
+        except ValueError as e:
+            print(f"[multidevice] DeviceSet.allocate(4) on {cards} card(s) raises: {e}",
+                  flush=True)
+        else:
+            raise SmokeFailure(f"DeviceSet.allocate(4) did not raise on {cards} card(s)")
+    cuda0 = torch.device("cuda", 0)
+    ds1, ds2, ds4 = (DeviceSet([cuda0] * d) for d in (1, 2, 4))
+    t_phase = time.perf_counter()
+    sync_cards()
+    for mod in kernels.values():
+        mod.LAUNCHES = 0
+
+    def drive(label, make_op, run=lambda o: o.Run(), phases=JOIN_PHASES, check=None):
+        """One run of a prepared operator: its kernels' launches, the
+        exchange's copies and bytes, its Run() and phase times; check(out)
+        names the truth it held."""
+        op = make_op().Prepare()
+        before = {k: m.LAUNCHES for k, m in kernels.items()}
+        copies, nbytes = shuffle.COPIES, shuffle.BYTES
+        sync_cards()
+        t = time.perf_counter()
+        out = run(op)
+        sync_cards()
+        ms = (time.perf_counter() - t) * 1e3
+        launches = {k: m.LAUNCHES - before[k] for k, m in kernels.items() if m.LAUNCHES > before[k]}
+        ph = {name: round(op.Timers().sum_ms(name), 3) for name in phases}
+        extra = f"; phase_ms {op.phase_ms}" if getattr(op, "phase_ms", None) else ""
+        truth = check(out) if check else "-"
+        copies = shuffle.COPIES - copies
+        print(f"[multidevice {label}] == {truth}; Run() {ms:.3f} ms; phases ms {ph}{extra};"
+              f" exchange {copies} copies, {shuffle.BYTES - nbytes} B;"
+              f" launches {launches} [{card}]", flush=True)
+        return out, op, copies
+
+    # ---- JoinGpu at SF=8 over shards of the card -------------------------
+    left, right = make_join_tables(SF8, SF1_ROWS, SF1_ROWS, seed=SEED)
+    lc, rc = left.concat(), right.concat()
+    truth_rows = _packed_on_card(lc["fk"], lc["y"])
+    pk0 = int(rc["pk"][0])
+
+    def dense(label):
+        def check(out):
+            require(len(out["fk"]) == lc.num_rows, f"{label}: {len(out['fk'])} rows")
+            require(np.array_equal(out["x"], rc["x"][out["fk"].astype(np.int64) - pk0]),
+                    f"{label}: x != right_x[fk - pk0]")
+            require(torch.equal(_packed_on_card(out["fk"], out["y"]), truth_rows),
+                    f"{label}: (fk, y) rows differ from the input")
+            return "the dense truth"
+        return check
+
+    # one device (_run_ici) and 4 shards (Run(), which routes there) in turns
+    # (d1, d4, d4, d1); the first 4-shard run also takes the phase timers
+    totals = {1: [], 4: []}
+    for i, d in enumerate((1, 4, 4, 1)):
+        label = f"join SF={SF8} d={d} {'_run_ici' if d == 1 else 'Run()'}"
+        FLAGS.join_timers = i == 1
+        try:
+            _, op, copies = drive(label, lambda d=d: JoinGpu(ds1 if d == 1 else ds4, left, right),
+                                  run=(lambda o: o._run_ici()) if d == 1 else (lambda o: o.Run()),
+                                  check=dense(label))
+        finally:
+            FLAGS.join_timers = False
+        require(op._ici_rounds() == 1 and (d == 1 or copies > 0),
+                f"{label}: not the shuffle join in one round")
+        totals[d].append(op.Timers().sum_ms("join-total"))
+    print(f"[multidevice join SF={SF8}] join-total ms, one device {totals[1]} against 4 shards"
+          f" of one card {totals[4]} (in turns d1 d4 d4 d1) [{card}]", flush=True)
+    drive(f"join SF={SF8} d=2 _run_ici(rounds=2)", lambda: JoinGpu(ds2, left, right),
+          run=lambda o: o._run_ici(rounds=2), check=dense("d=2 rounds=2"))
+    drive(f"join SF={SF8} d=2 impl=sort", lambda: JoinGpu(ds2, left, right, impl="sort"),
+          check=dense("d=2 impl=sort"))
+
+    def partitioned():
+        op = JoinGpu(ds4, left, right)
+        op.MAX_RESIDENT_ROWS = 1 << 10  # everything "too big"
+        return op
+
+    drive(f"join SF={SF8} d=4 partitioned", partitioned, phases=PART_PHASES,
+          check=dense("d=4 partitioned"))
+
+    # ---- the 2-D mesh against the flat join, and the in-band counts --------
+    cols = [lc["fk"], lc["y"], rc["pk"], rc["x"]]
+    mesh = make_mesh_2d(2, 2, ds=ds4)
+    for rounds in (1, 2):
+        c0, b0 = shuffle.COPIES, shuffle.BYTES
+        sync_cards()
+        t = time.perf_counter()
+        two = dist_join_2d(mesh, cols[0], (cols[1],), cols[2], (cols[3],), rounds=rounds)
+        sync_cards()
+        ms = (time.perf_counter() - t) * 1e3
+        c2, b2 = shuffle.COPIES - c0, shuffle.BYTES - b0
+        flat = dist_join(ds4, cols[0], (cols[1],), cols[2], (cols[3],), rounds=rounds)
+        require(not DeviceSet.gather(two[4]).any(), f"2-D rounds={rounds}: overflow")
+        for name, a, b in (("fk", two[0], flat[0]), ("y", two[1][0], flat[1][0]),
+                           ("x", two[2][0], flat[2][0]), ("matched", two[3], flat[3])):
+            require(card_equal(a, b), f"2-D rounds={rounds}: {name} != the flat join's")
+        m = DeviceSet.gather(two[3])
+        require(int(m.sum()) == lc.num_rows, f"2-D rounds={rounds}: {int(m.sum())} rows")
+        print(f"[multidevice dist_join_2d 2x2 rounds={rounds}] == the flat join's shards, bit for"
+              f" bit; {ms:.3f} ms with the split; exchange {c2} copies, {b2} B [{card}]",
+              flush=True)
+    cell = shuffle.default_cell_size(lc.num_rows // 4, 4, FLAGS.shuffle_slack)
+    res = {}
+    for inband in (False, True):
+        keys, pay = ds4.split(cols[0]), (ds4.split(cols[1]),)
+        sync_cards()
+        ms = cuda_ms(lambda: shuffle.shuffle_partitions(keys, pay, 4, cell, counts_inband=inband))
+        c0, b0 = shuffle.COPIES, shuffle.BYTES
+        res[inband] = shuffle.shuffle_partitions(keys, pay, 4, cell, counts_inband=inband)
+        print(f"[multidevice shuffle counts_inband={inband}] 4 shards of {lc.num_rows // 4} rows,"
+              f" cell {cell}: {ms:.4f} ms a shuffle (device, median of {REPS}); exchange"
+              f" {shuffle.COPIES - c0} copies, {shuffle.BYTES - b0} B [{card}]", flush=True)
+    for a, b in zip(res[False], res[True]):
+        require(card_equal([a.keys, a.payloads[0], a.counts], [b.keys, b.payloads[0], b.counts])
+                and bool(a.overflow) == bool(b.overflow),
+                "the in-band counts' ShuffleResult differs")
+
+    # ---- PartitionGpu, FilterGpu, SumGpu, TakeGpu over 4 shards ------------
+    p = 16
+    b = wang_hash_np(lc["fk"]) >> np.uint32(bucket_shift(p))
+    order = np.argsort(b, kind="stable")
+    ends = np.cumsum(np.bincount(b, minlength=p))
+    oracle = [{c: lc[c][order[e - n:e]] for c in ("fk", "y")}
+              for n, e in zip(np.bincount(b, minlength=p), ends)]
+
+    def parts_check(parts):
+        parts = parts.to_host() if hasattr(parts, "to_host") else parts
+        require(len(parts) == p and all(
+            np.array_equal(g[c], w[c]) for g, w in zip(parts, oracle) for c in ("fk", "y")),
+            "partitions != the numpy oracle")
+        return "the numpy oracle"
+
+    for resident in (True, False):
+        drive(f"partition SF={SF8} P={p} d=4 {'resident' if resident else 'host-staged'}",
+              lambda r=resident: PartitionGpu(ds4, left, "fk", p, resident=r),
+              phases=("partition-resident",) if resident else ("stage", "dispatch", "collect"),
+              check=parts_check)
+
+    table = make_filter_batches(SF8 * 128, 1 << 16, seed=SEED)
+
+    def chunks_equal(nat):
+        def check(out):
+            require(len(out) == len(nat) and all(np.array_equal(g, e) for g, e in zip(out, nat)),
+                    "chunks != pyarrow")
+            return "pyarrow"
+        return check
+
+    stream = ("stage", "dispatch", "collect")
+    drive(f"filter SF={SF8} d=4", lambda: FilterGpu(ds4, table), phases=stream,
+          check=chunks_equal(FilterNative(table).Prepare().Run()))
+    sums = make_filter_batches(SF8, 1 << 21, seed=SEED)
+    want = SumNative(sums).Prepare().Run()
+    drive(f"sum SF={SF8} d=4", lambda: SumGpu(ds4, sums), phases=stream,
+          check=lambda got: require(got == want, f"sum {got} != {want}") or "pyarrow")
+    data, idx = make_take_batches(SF8, 1 << 22, 1 << 19, seed=SEED)
+    drive(f"take SF={SF8} d=4", lambda: TakeGpu(ds4, data, idx), phases=stream,
+          check=chunks_equal(TakeNative(data, idx).Prepare().Run()))
+
+    # ---- a plan, the dry run, the weak-scaling curve -----------------------
+    l1, r1 = make_join_tables(1, SF1_ROWS, SF1_ROWS, seed=SEED)
+    nat = JoinNative(l1, r1).Prepare().Run()
+
+    class PlanOp:  # a plan execution as drive() takes it
+        def __init__(self):
+            from dpu_olap_tpu_torch.timer import Timers
+
+            self.timers = Timers()
+
+        def Prepare(self):
+            return self
+
+        def Run(self):
+            return P.HashJoin(P.Source(l1), P.Source(r1)).execute(ds4)[0].to_numpy()
+
+        def Timers(self):
+            return self.timers
+
+    def plan_check(out):
+        check_rows("plan HashJoin d=4", out, *(nat[c].to_numpy() for c in ("fk", "y", "x")))
+        return "pyarrow"
+
+    drive("plan HashJoin SF=1 d=4", PlanOp, phases=(), check=plan_check)
+
+    sync_cards()
+    t = time.perf_counter()
+    _, lines = _quiet(multichip.dryrun_multichip, 4)
+    for ln in lines:
+        print(f"[multidevice dryrun] {ln}", flush=True)
+    require(sum(" ok" in ln for ln in lines) == 7, f"dryrun_multichip(4): {lines}")
+    print(f"[multidevice dryrun] dryrun_multichip(4) on {cards} card(s):"
+          f" {time.perf_counter() - t:.1f} s [{card}]", flush=True)
+
+    curve, _ = _quiet(multichip.bench, 4, MD_ROWS_PER_DEV, True)
+    print(f"[multidevice weak scaling] {json.dumps(curve)} [{card}]", flush=True)
+    print(f"[multidevice weak scaling] the {curve['devices']} shards share"
+          f" {curve['physical_devices']} card(s): the curve measures the overhead of the split"
+          f" and the exchange, not a speed-up [{card}]", flush=True)
+
+    if cards >= 2:  # real devices: 2 or 4, which divide the tables' rows and batches
+        dsr = DeviceSet.allocate(4 if cards >= 4 else 2)
+        drive(f"join SF={SF8} over {dsr.nr_devices} cards", lambda: JoinGpu(dsr, left, right),
+              check=dense(f"{dsr.nr_devices} cards"))
+        _, lines = _quiet(multichip.dryrun_multichip, 4)
+        for ln in lines:
+            print(f"[multidevice dryrun cards] {ln}", flush=True)
+    else:
+        print("[multidevice] one card: no run over several physical devices", flush=True)
+
+    sync_cards()
+    launches = {k: m.LAUNCHES for k, m in kernels.items()}
+    require(all(launches[k] > 0 for k in MD_KERNELS),
+            f"[multidevice]: a kernel did not launch: {launches}")
+    print(f"[multidevice] launches {launches}; phase {time.perf_counter() - t_phase:.1f} s"
+          f" [{card}]", flush=True)
+    return launches
+
+
 def phase_trace_hook(card: str) -> None:
     """ENABLE_TRACE=1 in a subprocess: filter v1 on 1Mi values prints one
     line a tile; the tiles are numbered 0..255 once each, their offsets are
@@ -2949,6 +3240,7 @@ def main() -> dict:
     )]
     paths.append(lambda: phase_plan(card))  # the query plan's chains
     paths.append(lambda: phase_suite(card))  # the operator suite and its entry points
+    paths.append(lambda: phase_multidevice(card))  # several devices, one controller
     for path in paths:
         for name, n in path().items():
             launches[name] += n

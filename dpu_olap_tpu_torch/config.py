@@ -2,9 +2,8 @@
 
 The same env tiers as the JAX package: NR_DEVICES (or NR_DPUS), SF and
 MAX_THREADS, plus the feature flags the port reads (ENABLE_PERF, ENABLE_LOG,
-ENABLE_TRACE, ACTIVATE_JOIN_TIMERS). The JAX package's
-``shuffle_counts_inband`` (the multi-device exchange) arrives with the
-multi-device work (ROADMAP §1, "Multi-device").
+ENABLE_TRACE, ACTIVATE_JOIN_TIMERS) and ``shuffle_counts_inband``, the form
+of the several-device exchange (parallel/shuffle.py).
 """
 
 from __future__ import annotations
@@ -61,6 +60,11 @@ class Flags:
     shuffle_slack   -> padding factor for the ragged all-to-all partition
                        exchange (reference sizes partitions with 1.5-2x slack,
                        host/join/join_dpu.cc:97-100)
+    shuffle_counts_inband -> the exchange across several devices moves the
+                       fragment counts in a 128-lane tail column of the
+                       stacked cells (one copy a source and destination)
+                       instead of a second, tiny exchange of their own; off
+                       by default, as in the JAX package (config.py:94)
 
     The bucket mapping is always the radix top-bits one (the reference's
     USE_RADIX_PARTITIONING=1, cflags.h:28-30): no caller asks for modulo.
@@ -74,6 +78,7 @@ class Flags:
     # filter_dpu.cc:127-156): max rows resident per dispatched round.
     stream_round_rows: int = 64 << 20
     join_timers: bool = False
+    shuffle_counts_inband: bool = False
 
 
 FLAGS = Flags(

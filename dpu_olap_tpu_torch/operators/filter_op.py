@@ -1,11 +1,13 @@
 """Filter operators (counterpart of ``dpu_olap_tpu/operators/filter_op.py``).
 
 FilterGpu — the counterpart of FilterTpu, the reference's FilterDpu
-(host/filter/filter_dpu.cc): rounds of batches are stacked on the host
-(native.parallel_stack, the threaded copy of the port's runtime),
-copied to the device, compacted by one launch of the filter kernel over the
-round's concatenation, and read back with per-batch counts that locate each
-batch's chunk; host assembly slices the chunks.
+(host/filter/filter_dpu.cc): rounds of d * rpr batches (d devices, rpr
+batches a device) are stacked on the host (native.parallel_stack, the
+threaded copy of the port's runtime), rpr copied to each device, compacted
+there by one launch of the filter kernel over the device's concatenation,
+and read back with per-batch counts that locate each batch's chunk (the
+round's counts in one readback, then its kept values in one); host assembly
+slices the chunks in batch order.
 
 FilterNative — pyarrow compute, the differential oracle
 (host/filter/filter_native.cc).
@@ -46,34 +48,39 @@ class FilterGpu:
         return self
 
     def Run(self) -> List[np.ndarray]:
-        rpr = self.rpr
+        d, rpr = self.ds.nr_devices, self.rpr
+        per_round = d * rpr
 
         def stage(r):
             # host staging: the native threaded stack of the round's batches
             # (a background thread, overlapped with the previous round's
             # device work)
-            rows = [to_numpy(self.table[r * rpr + i][self.column]) for i in range(rpr)]
+            rows = [to_numpy(self.table[r * per_round + i][self.column])
+                    for i in range(per_round)]
             return native.parallel_stack(rows)
 
         def dispatch(r, staged):
-            x = self.ds.scatter(staged)  # (rpr, n) uint32
-            # The stable compaction of the concatenation is the concatenation
-            # of the per-batch compactions, so one kernel pass serves all
-            # batches; per-batch counts of the same predicate locate each
-            # chunk.
-            counts = default_predicate(x).sum(dim=1)
-            padded, _total = filter_compact(x.reshape(-1))
-            return padded, counts
+            out = []
+            for x in self.ds.split(staged):  # (rpr, n) uint32 a device
+                # The stable compaction of the concatenation is the
+                # concatenation of the per-batch compactions, so one kernel
+                # pass serves a device's batches; per-batch counts of the
+                # same predicate locate each chunk.
+                counts = default_predicate(x).sum(dim=1)
+                padded, _total = filter_compact(x.reshape(-1))
+                out.append((padded, counts))
+            return out
 
         def collect(r, handle):
             # worker thread: only copies from the round's tensors, which
-            # name their device; only the kept prefix is read back
-            padded, counts = handle
-            counts_h = counts.cpu().numpy()
-            flat_h = padded[: int(counts_h.sum())].cpu().numpy()
-            device_log(f"filter round {r} result counts", counts_h[None, :])
-            ends = np.cumsum(counts_h)
-            return [flat_h[e - c : e] for c, e in zip(counts_h, ends)]
+            # name their devices; only the kept prefixes are read back
+            padded, counts = zip(*handle)
+            counts_h = DeviceSet.gather(counts).reshape(d, rpr)
+            kept = counts_h.sum(axis=1)
+            flat_h = DeviceSet.gather(tuple(p[: int(k)] for p, k in zip(padded, kept)))
+            device_log(f"filter round {r} result counts", counts_h)
+            ends = np.cumsum(counts_h.reshape(-1))
+            return [flat_h[e - c : e] for c, e in zip(counts_h.reshape(-1), ends)]
 
         round_chunks = stream_rounds(
             self.n_rounds, stage, dispatch, collect, timers=self.timers

@@ -19,8 +19,11 @@ routes as JoinTpu does (join_op.py:402-423):
   * the host-staged partitioned join (``_run_partitioned``) beyond that:
     the Partitioner splits both tables into one hash partition per batch on
     the host, and each partition pair is joined on the device.
-The shuffle join's exchange across several devices is in ROADMAP §1,
-"Multi-device": more than one device raises NotImplementedError.
+Over a DeviceSet of several devices the join never takes ``_run_single``:
+the shuffle join splits both sides over the devices and exchanges their
+fragments (parallel/dist_join.dist_join_spmd), and the partitioned join
+joins rounds of d partition pairs, one pair a device; each round's flags
+and masks come back in one readback.
 
 JoinNative — pyarrow hash join (host/join/join_native.cc:31-40 oracle).
 """
@@ -30,6 +33,7 @@ from __future__ import annotations
 from typing import Dict, List
 
 import numpy as np
+import torch
 
 from ..columnar import Batch, Table, to_numpy
 from ..config import FLAGS
@@ -227,6 +231,8 @@ class JoinGpu:
         from ..parallel.shuffle import default_cell_size
 
         n_dev = self.ds.nr_devices
+        # one device: whole columns; several: one shard a device
+        place = self.ds.scatter if n_dev == 1 else self.ds.split
         if rounds is None:
             rounds = self._ici_rounds()
         with timed(self.timers, "host-prep"):
@@ -236,10 +242,10 @@ class JoinGpu:
         cell_l = default_cell_size(self.left.num_rows // n_dev, n_dev * rounds, slack)
         cell_r = default_cell_size(self.right.num_rows // n_dev, n_dev * rounds, slack)
         log(f"join shuffle impl={self.impl} rounds={rounds}: {self.left.num_rows} x "
-            f"{self.right.num_rows} rows, cells {cell_l} / {cell_r}")
+            f"{self.right.num_rows} rows over {n_dev} devices, cells {cell_l} / {cell_r}")
         with timed(self.timers, "h2d"):
-            lf = {c: self.ds.scatter(a) for c, a in lf.items()}
-            rt = {c: self.ds.scatter(a) for c, a in rt.items()}
+            lf = {c: place(a) for c, a in lf.items()}
+            rt = {c: place(a) for c, a in rt.items()}
         with timed(self.timers, "join-total"):
             # Skew handling: on fragment overflow, double the cell capacity
             # and retry (the reference instead throws, partition.cc:19-26)
@@ -251,14 +257,16 @@ class JoinGpu:
                     impl=self.impl, cell_left=cell_l, cell_right=cell_r,
                     keys31=self.keys31, rounds=rounds,
                 )
-                if not bool(overflow.any()):
+                # every device's flag in one readback
+                ovf = DeviceSet.gather(overflow)
+                if not ovf.any():
                     break
-                device_log(f"join shuffle overflow (attempt {attempt})", overflow.cpu().numpy())
+                device_log(f"join shuffle overflow (attempt {attempt})", ovf)
                 cell_l, cell_r = cell_l * 2, cell_r * 2
             else:
                 raise OverflowError("shuffle cell overflow after retries")
             m = DeviceSet.gather(matched)
-        device_log("join matched rows", [int(m.sum())])
+        device_log("join matched rows", m.reshape(n_dev, -1).sum(1))
         with timed(self.timers, "gather-result"):
             out = self._gather_result(m, fk, lcols, rcols)
         if FLAGS.join_timers:
@@ -281,48 +289,51 @@ class JoinGpu:
         from ..ops.join import join_shard, join_shard_fused
         from ..parallel.partitioner import Partitioner
 
-        if self.ds.nr_devices != 1:
-            raise NotImplementedError(
-                "the host-staged partitioned join on several devices is not ported yet "
-                "(ROADMAP §1, \"Multi-device\")"
-            )
+        d = self.ds.nr_devices
         nparts = len(self.left)  # one partition per input batch pair
         with timed(self.timers, "partition"):
             parter = Partitioner(self.ds, nparts, timers=self.timers)
             left_parts = parter.partition_table(self.left, self.fk, self.left_cols)
             right_parts = parter.partition_table(self.right, self.pk, self.right_cols)
 
-        def padded(cols, key, m):
+        def padded(cols, key, m, dev):
             """Partition columns padded to m rows (EMPTY keys, 0 payloads)
-            on the device, with the valid mask."""
+            on dev, with the valid mask."""
             n = len(cols[key])
             out = {}
             for c, a in cols.items():
                 buf = np.full(m, EMPTY if c == key else 0, dtype=np.uint32)
                 buf[:n] = a
-                out[c] = self.ds.scatter(buf)
-            return out, self.ds.scatter(np.arange(m) < n)
+                out[c] = torch.from_numpy(buf).to(dev)
+            return out, torch.from_numpy(np.arange(m) < n).to(dev)
 
+        def lane_max(parts, key):
+            return max(128, -(-max(len(x[key]) for x in parts) // 128) * 128)
+
+        # rounds of d partition pairs, one pair a device, each round padded
+        # to its lane-aligned maxima as the JAX package pads them
         chunks: List[Dict[str, np.ndarray]] = []
-        for r, (lp, rp) in enumerate(zip(left_parts, right_parts)):
-            # lane-aligned round maxima, as the JAX package pads them
-            ml = max(128, -(-len(lp[self.fk]) // 128) * 128)
-            mr = max(128, -(-len(rp[self.pk]) // 128) * 128)
+        for r, r0 in enumerate(range(0, nparts, d)):
+            lp, rp = left_parts[r0:r0 + d], right_parts[r0:r0 + d]
+            ml, mr = lane_max(lp, self.fk), lane_max(rp, self.pk)
             with timed(self.timers, "build-probe-take", r):
-                lcols, lvalid = padded(lp, self.fk, ml)
-                rcols, rvalid = padded(rp, self.pk, mr)
-                args = (
-                    lcols[self.fk], tuple(lcols[c] for c in self.left_cols),
-                    rcols[self.pk], tuple(rcols[c] for c in self.right_cols),
-                )
-                kw = dict(left_valid=lvalid, right_valid=rvalid)
-                if self.impl == "cosort":
-                    res = join_shard_fused(*args, keys31=self.keys31, **kw)
-                else:
-                    res = join_shard(*args, impl=self.impl, **kw)
+                res = []
+                for lpart, rpart, dev in zip(lp, rp, self.ds.devices):
+                    lcols, lvalid = padded(lpart, self.fk, ml, dev)
+                    rcols, rvalid = padded(rpart, self.pk, mr, dev)
+                    args = (
+                        lcols[self.fk], tuple(lcols[c] for c in self.left_cols),
+                        rcols[self.pk], tuple(rcols[c] for c in self.right_cols),
+                    )
+                    kw = dict(left_valid=lvalid, right_valid=rvalid)
+                    if self.impl == "cosort":
+                        res.append(join_shard_fused(*args, keys31=self.keys31, **kw))
+                    else:
+                        res.append(join_shard(*args, impl=self.impl, **kw))
             with timed(self.timers, "gather-result", r):
-                fk, lres, rres, matched = res
-                chunks.append(self._gather_result(DeviceSet.gather(matched), fk, lres, rres))
+                fk, lres, rres, matched = zip(*res)
+                chunks.append(self._gather_result(DeviceSet.gather(matched), fk,
+                                                  tuple(zip(*lres)), tuple(zip(*rres))))
         names = [self.fk, *self.left_cols, *self.right_cols]
         return {n: np.concatenate([c[n] for c in chunks]) for n in names}
 

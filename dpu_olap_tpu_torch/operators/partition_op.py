@@ -8,10 +8,11 @@ global hash partitions, carrying its other columns, with one of two engines
   * resident (the default when P is a multiple of the device count and the
     table fits the device): one shuffle; the partitions stay on the device
     as DevicePartitions (cells + counts) until ``to_host()``;
-  * host-staged (Partitioner): batch by batch through the device, the
-    partitions assembled on the host.
-Both launch the partition kernel (csrc/partition.cu) for P a power of two
-in [2, 16].
+  * host-staged (Partitioner): a batch a device at a time through the
+    devices, the partitions assembled on the host.
+Over d devices the resident engine partitions each device's share into P
+partitions and exchanges them, P / d to a device. Both launch the partition
+kernel (csrc/partition.cu) for P a power of two in [2, 16], once a shard.
 """
 
 from __future__ import annotations

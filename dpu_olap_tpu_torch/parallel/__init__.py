@@ -1,5 +1,5 @@
 """Device runtime (counterpart of ``dpu_olap_tpu/parallel``): DeviceSet over
-one torch device in ``mesh``, the operators' round loop in ``streaming``,
-the one-device shuffle (``shuffle``), the shuffle join (``dist_join``) and
-the partition engines (``partitioner``). The exchange across several
-devices is in ROADMAP §1, "Multi-device"."""
+one or several torch devices in ``mesh``, the operators' round loop in
+``streaming``, the shuffle and its exchange across devices (``shuffle``),
+the shuffle join (``dist_join``), the two-level mesh and its hierarchical
+shuffle (``multihost``) and the partition engines (``partitioner``)."""

@@ -5,17 +5,20 @@ Reference: host/partition/partitioner.{h,cc} + host/partition/partition.{h,cc}
 Partition buffers (GetOffsets, partitioner.cc:280-312) and gathers the
 fragments into them (LoadPartitions :350-375).
 
-  * ``Partitioner``: the host-staged engine. Each round uploads one batch,
-    lays its fragments into padded cells on the device
+  * ``Partitioner``: the host-staged engine. Each round uploads one batch
+    a device, lays its fragments into padded cells on that device
     (shuffle.local_fragments, the partition kernel), and the host reserves
     each cell's rows in its partition's ``native.PartitionSlab`` and copies
     them there through an ``native.OrderedExecutor`` (one queue a
     partition, at most 8), as the JAX engine does (partitioner.py:85-90,
-    127-160).
+    127-160): device by device, so a partition keeps the table's row order.
   * ``ResidentPartitioner``: the device-resident engine. One shuffle into
-    nr_partitions partitions; they stay on the device as
-    ``DevicePartitions`` (cells + counts, the layout the shuffle join
-    consumes) until ``to_host()``.
+    nr_partitions partitions (over several devices, one exchange); they
+    stay on the devices as ``DevicePartitions`` (cells + counts, the layout
+    the shuffle join consumes) until ``to_host()``.
+
+Over several devices the counts and overflow flags of a round are read back
+together, once, and so are its cells.
 
 Columns are read as uint32, as the JAX engine's slabs are
 (partitioner.py:84).
@@ -33,7 +36,7 @@ from .. import native
 from ..columnar import Table, to_numpy
 from ..config import FLAGS
 from ..timer import timed
-from .mesh import DeviceSet
+from .mesh import DeviceSet, sync_devices
 from .shuffle import default_cell_size, local_fragments, shuffle_partitions
 from .streaming import stream_rounds
 
@@ -44,7 +47,8 @@ def _u32(col) -> np.ndarray:
 
 class Partitioner:
     """Repartition a Table into nr_partitions global hash partitions,
-    streaming its batches through the device one round each."""
+    streaming its batches through the devices, one batch a device in each
+    round."""
 
     def __init__(self, ds: DeviceSet, nr_partitions: int, timers=None):
         self.ds = ds
@@ -55,40 +59,49 @@ class Partitioner:
         self, table: Table, key_col: str, payload_cols: Sequence[str] = ()
     ) -> List[Dict[str, np.ndarray]]:
         """Returns one dict of host uint32 columns per global partition."""
+        d = self.ds.nr_devices
+        if len(table) % d:
+            raise ValueError(f"{len(table)} batches do not divide over {d} devices")
         p = self.nr_partitions
         slack = FLAGS.shuffle_slack
         cell = default_cell_size(table[0].num_rows, p, slack)
         names = [key_col, *payload_cols]
-        # a round puts at most a cell in each partition (more raises below),
-        # so a slab of a cell a round holds any key skew
+        # a batch puts at most a cell in each partition (more raises below),
+        # so a slab of a cell a batch holds any key skew
         cap = len(table) * cell
         slabs = [native.PartitionSlab([np.uint32] * len(names), cap) for _ in range(p)]
         executor = native.OrderedExecutor(min(8, p))
 
         def stage(r):
-            return [_u32(table[r][c]) for c in names]
+            return [[_u32(table[r * d + i][c]) for c in names] for i in range(d)]
 
         def dispatch(r, staged):
-            keys, *pays = (self.ds.scatter(a) for a in staged)
-            return local_fragments(keys, tuple(pays), p, cell)
+            frags = []
+            for dev, cols in zip(self.ds.devices, staged):
+                keys, *pays = (torch.from_numpy(a).to(dev) for a in cols)
+                frags.append(local_fragments(keys, tuple(pays), p, cell))
+            return frags
 
         def collect(r, handle):
             # worker thread: only copies from the round's tensors, which
-            # name their device
-            ck, cp, counts, overflow = handle
-            if bool(overflow.cpu()):
+            # name their devices; each of counts, flags and cells is one
+            # readback for the round's devices
+            ck, cp, counts, overflow = zip(*handle)
+            if DeviceSet.gather(tuple(o.reshape(1) for o in overflow)).any():
                 raise OverflowError("partition fragment exceeded cell size; raise shuffle_slack")
-            counts_h = counts.cpu().numpy()
-            cols = [ck.cpu().numpy()] + [x.cpu().numpy() for x in cp]
-            for part in range(p):
-                c = int(counts_h[part])
-                if c:
-                    start = slabs[part].reserve(c)
-                    for ci, col in enumerate(cols):
-                        executor.submit_partition_write(
-                            part, slabs[part], ci, col[part, :c], start)
+            counts_h = DeviceSet.gather(counts).reshape(d, p)
+            cols = [DeviceSet.gather(ck).reshape(d, p, -1)] + [
+                DeviceSet.gather(x).reshape(d, p, -1) for x in zip(*cp)]
+            for dev in range(d):
+                for part in range(p):
+                    c = int(counts_h[dev, part])
+                    if c:
+                        start = slabs[part].reserve(c)
+                        for ci, col in enumerate(cols):
+                            executor.submit_partition_write(
+                                part, slabs[part], ci, col[dev, part, :c], start)
 
-        stream_rounds(len(table), stage, dispatch, collect, timers=self.timers)
+        stream_rounds(len(table) // d, stage, dispatch, collect, timers=self.timers)
         executor.sync()
         return [
             {nm: np.array(slab.column(i)) for i, nm in enumerate(names)} for slab in slabs
@@ -104,33 +117,37 @@ class DevicePartitions:
     [t*d*rounds, (t+1)*d*rounds), and within that block row s*rounds + r is
     source device s's fragment of partition t*rounds + r — the
     (cells, counts) layout the shuffle join consumes (shuffle.ShuffleResult).
-    Nothing leaves the device unless to_host() is called.
+    Each field is a tuple of shards, shard t device t's block (or one
+    tensor of every block). Nothing leaves the devices unless to_host() is
+    called.
     """
 
-    keys: torch.Tensor  # (d * d * rounds, cell) uint32
+    keys: tuple  # d shards of (d * rounds, cell) uint32
     payloads: tuple  # each like keys
-    counts: torch.Tensor  # (d * d * rounds,) uint32
+    counts: tuple  # d shards of (d * rounds,) uint32
     names: list  # column names, [key_col, *payload_cols]
     nr_partitions: int
     rounds: int  # partitions per device
 
     def sync(self) -> None:
-        """Completion barrier on the partitions' device."""
-        if self.keys.device.type == "cuda":
-            torch.cuda.synchronize(self.keys.device)
+        """Completion barrier on the partitions' devices."""
+        shards = self.keys if isinstance(self.keys, tuple) else (self.keys,)
+        sync_devices([s.device for s in shards])
 
     def partition_rows(self) -> np.ndarray:
-        """True row count per global partition ((P,) host array)."""
-        d = self.keys.shape[0] // self.nr_partitions
-        c = self.counts.cpu().numpy().reshape(-1, d, self.rounds)  # (t, s, r)
+        """True row count per global partition ((P,) host array; one
+        readback)."""
+        counts = DeviceSet.gather(self.counts)
+        d = counts.shape[0] // self.nr_partitions
+        c = counts.reshape(-1, d, self.rounds)  # (t, s, r)
         return c.transpose(0, 2, 1).reshape(self.nr_partitions, d).sum(1)
 
     def to_host(self) -> List[Dict[str, np.ndarray]]:
         """Host partitions, one dict per global partition: the
         Partitioner.partition_table contract."""
-        d = self.keys.shape[0] // self.nr_partitions  # source devices
-        counts = self.counts.cpu().numpy().reshape(-1)
-        cols = [self.keys.cpu().numpy()] + [x.cpu().numpy() for x in self.payloads]
+        counts = DeviceSet.gather(self.counts).reshape(-1)
+        d = counts.shape[0] // self.nr_partitions  # source devices
+        cols = [DeviceSet.gather(self.keys)] + [DeviceSet.gather(x) for x in self.payloads]
         out: List[Dict[str, np.ndarray]] = []
         for p in range(self.nr_partitions):
             t, rr = divmod(p, self.rounds)
@@ -155,23 +172,24 @@ class ResidentPartitioner:
         self.timers = timers
 
     def partition_arrays(self, keys, payloads: tuple, names: List[str]) -> DevicePartitions:
-        """keys/payloads: 1-D uint32 host arrays or tensors on ds's device,
-        rows divisible by the device count."""
+        """keys/payloads: 1-D uint32 host arrays or tensors, rows divisible
+        by the device count, split one shard a device."""
         d = self.ds.nr_devices
         n = keys.shape[0]
-        assert n % d == 0
+        if n % d:
+            raise ValueError(f"{n} rows do not split over {d} devices")
         cell = default_cell_size(n // d, self.nr_partitions, FLAGS.shuffle_slack)
-        if isinstance(keys, np.ndarray):
-            keys = self.ds.scatter(keys)
-            payloads = tuple(self.ds.scatter(p) for p in payloads)
+        keys = self.ds.split(keys)
+        payloads = tuple(self.ds.split(p) for p in payloads)
         with timed(self.timers, "partition-resident"):
-            res = shuffle_partitions(keys, tuple(payloads), d, cell, rounds=self.rounds)
-            if bool(res.overflow.any()):
+            res = shuffle_partitions(keys, payloads, d, cell, rounds=self.rounds)
+            # every device's flag in one readback
+            if DeviceSet.gather(tuple(r.overflow for r in res)).any():
                 raise OverflowError("partition fragment exceeded cell size; raise shuffle_slack")
         return DevicePartitions(
-            keys=res.keys,
-            payloads=tuple(res.payloads),
-            counts=res.counts,
+            keys=tuple(r.keys for r in res),
+            payloads=tuple(zip(*(r.payloads for r in res))),
+            counts=tuple(r.counts for r in res),
             names=names,
             nr_partitions=self.nr_partitions,
             rounds=self.rounds,

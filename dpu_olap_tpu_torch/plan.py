@@ -17,9 +17,11 @@ the sum also take 8-byte and float columns, as in the JAX package.
 The plan runs eagerly, as the rest of the port does: where the JAX package
 jit-compiles a chain (the fused filter join, the masked chunk sum), a plain
 function runs the same steps, and the kernels it reaches launch one by one.
-The JAX package's mesh (several devices) is not ported: a HashJoin on a
-DeviceSet of more than one device raises NotImplementedError (ROADMAP §1,
-"Multi-device").
+On a DeviceSet of several devices, as on the JAX package's mesh, HashJoin
+skips its fused and device-resident tiers for JoinGpu's shuffle or
+partitioned join over every device, Repartition takes PartitionGpu's
+engines over every device, and the other nodes run on the set's first
+device, as the JAX package's run on its default device.
 
 Example (the BM_FilterDpu query):
     plan = Filter(Source(table), "a")
@@ -58,13 +60,6 @@ def _np_dtype(col) -> np.dtype:
 
 def _is_u32(col) -> bool:
     return _np_dtype(col) == np.uint32
-
-
-def _one_device(ds: DeviceSet) -> None:
-    if ds.nr_devices != 1:
-        raise NotImplementedError(
-            "plans over several devices are not ported yet (ROADMAP §1, \"Multi-device\")"
-        )
 
 
 class Node:
@@ -187,7 +182,9 @@ class HashJoin(Node):
       * device-resident: a side already on the device (an upstream node's
         output) joins there through join_shard_auto and stays there;
       * JoinGpu with its routing (dense, sorted-build, fused, shuffle or
-        partitioned join) on host tables."""
+        partitioned join) on host tables.
+    On several devices only the last is taken, as in the JAX plan
+    (plan.py:149, 165-168)."""
 
     left: Node
     right: Node
@@ -198,8 +195,8 @@ class HashJoin(Node):
     def execute(self, ds: DeviceSet) -> Table:
         from .operators.join_op import JoinGpu
 
-        _one_device(ds)
-        if self.impl == "cosort":
+        one = ds.nr_devices == 1
+        if one and self.impl == "cosort":
             lc = _streamable_chain(self.left)
             rc = _streamable_chain(self.right)
             if lc is not None and rc is not None:
@@ -214,7 +211,7 @@ class HashJoin(Node):
         # columns (e.g. a materialized Filter output); join them in place and
         # return device columns; only scalar structure probes and the
         # matched count cross to the host
-        if self.impl == "cosort" and (lt.is_device or rt.is_device):
+        if one and self.impl == "cosort" and (lt.is_device or rt.is_device):
             out = self._device_join(ds, lt, rt)
             if out is not None:
                 return out

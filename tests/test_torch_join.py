@@ -224,15 +224,20 @@ def test_join_gpu_fallback_matches_join_tpu_and_native(case, nb, path):
 
 @pytest.mark.parametrize("rows, path", [(256, "shuffle"), (255, "partitioned")])
 def test_join_gpu_multi_device_raises(rows, path):
-    class TwoDevices(DeviceSet):
-        @property
-        def nr_devices(self):
-            return 2
-
-    left, right = make_join_tables(1, rows, rows)
-    op = JoinGpu(TwoDevices(torch.device("cpu")), left, right).Prepare()
-    with pytest.raises(NotImplementedError, match=f"{path}.*Multi-device"):
-        op.Run()
+    """Once a raise (several devices were not ported): on two devices both
+    routes now give pyarrow's rows (tests/test_torch_multidevice.py holds
+    them to JoinTpu at d = 4)."""
+    left, right = make_join_tables(2, rows, rows)
+    op = JoinGpu(DeviceSet([torch.device("cpu")] * 2), left, right).Prepare()
+    if path == "partitioned":
+        op.MAX_RESIDENT_ROWS = rows  # both sides "too big": the host-staged route
+    out = op.Run()
+    assert op.Timers().rank_count("partition" if path == "partitioned" else "join-total") == 1
+    nat = JoinNative(left, right).Prepare().Run()
+    cols = ("fk", "y", "x")
+    assert len(out["fk"]) == nat.num_rows == 2 * rows
+    np.testing.assert_array_equal(_canon([out[c] for c in cols]),
+                                  _canon([nat[c].to_numpy() for c in cols]))
 
 
 # ---- the shuffle join and the partitioned join (parallel/dist_join.py,

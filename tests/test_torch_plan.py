@@ -404,15 +404,24 @@ def test_aggregate_plan_float_double(ds, jds):
 
 
 def test_hashjoin_on_several_devices_raises(ds):
-    class TwoDevices(DeviceSet):
-        @property
-        def nr_devices(self):
-            return 2
+    """Once a raise (plans over several devices were not ported): on two
+    devices HashJoin now skips its fused tier, as the JAX plan does on a
+    mesh, and gives the JAX plan's rows on its two-device mesh."""
+    import jax
 
-    left, right = make_join_tables(1, 256, 256)
-    node = tplan.HashJoin(tplan.Source(port(left)), tplan.Source(port(right)))
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        node.execute(TwoDevices(torch.device("cpu")))
+    left, right = make_join_tables(2, 256, 256)
+    jds2 = JaxDeviceSet(jax.devices()[:2])
+    lt = tplan.Filter(tplan.Source(port(left)), "y")  # a transform: the fused tier's shape
+    got = tplan.HashJoin(lt, tplan.Source(port(right))).execute(
+        DeviceSet([torch.device("cpu")] * 2))
+    want = jplan.HashJoin(jplan.Filter(jplan.Source(left), "y"), jplan.Source(right)).execute(jds2)
+    assert len(got) == 1 and not got.is_device  # JoinGpu's host table
+    cols = ("fk", "y", "x")
+    g, w = got[0].to_numpy(), want[0]
+    assert len(g["fk"]) == len(np.asarray(w["fk"])) > 0
+    rows = lambda b: np.stack([np.asarray(b[c]) for c in cols])  # noqa: E731
+    gr, wr = rows(g), rows(w)
+    np.testing.assert_array_equal(gr[:, np.lexsort(gr[::-1])], wr[:, np.lexsort(wr[::-1])])
 
 
 @pytest.mark.parametrize("as_tensor", [False, True])

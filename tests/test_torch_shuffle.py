@@ -28,12 +28,6 @@ from dpu_olap_tpu_torch.parallel.shuffle import (
 CPU_SET = DeviceSet(torch.device("cpu"))
 
 
-class TwoDevices(DeviceSet):
-    @property
-    def nr_devices(self):
-        return 2
-
-
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
@@ -92,11 +86,31 @@ def test_shuffle_partitions_matches_jax(rng, rounds):
 
 
 def test_shuffle_more_than_one_device_raises(rng):
-    keys = _t(rng.integers(0, 2**32, size=256, dtype=np.uint32))
-    with pytest.raises(NotImplementedError, match="shuffle.*Multi-device"):
-        shuffle_partitions(keys, (), 2, 256)
-    with pytest.raises(NotImplementedError, match="shuffle.*Multi-device"):
-        dist_join(TwoDevices(torch.device("cpu")), keys, (), keys, ())
+    """Once a raise (the exchange was not ported): two devices' shards now
+    shuffle and join as the JAX package's two-device mesh does, block for
+    block (tests/test_torch_multidevice.py covers d = 2, 4 and 8)."""
+    import jax
+
+    n = 512
+    keys = rng.integers(0, 2**32, size=n, dtype=np.uint32)
+    pay = np.arange(n, dtype=np.uint32)
+    ds = DeviceSet([torch.device("cpu")] * 2)
+    jds = JaxDeviceSet(jax.devices()[:2])
+    res = shuffle_partitions(ds.split(keys), (ds.split(pay),), 2, 256)
+    jres = jds.shard_fn(lambda k, q: jshuffle.shuffle_partitions(k, (q,), 2, 256),
+                        in_specs=(P(AXIS), P(AXIS)), out_specs=P(AXIS))(
+        jds.scatter(keys), jds.scatter(pay))
+    for got, want in ((np.concatenate([r.keys.numpy() for r in res]), jres.keys),
+                      (np.concatenate([r.payloads[0].numpy() for r in res]), jres.payloads[0]),
+                      (np.concatenate([r.counts.numpy() for r in res]), jres.counts)):
+        np.testing.assert_array_equal(got, np.asarray(want))
+    with pytest.raises(ValueError, match="tuple of shards"):
+        shuffle_partitions(_t(keys), (), 2, 256)
+    fk, _, _, matched, overflow = dist_join(ds, keys, (), keys, ())
+    jfk, _, _, jm, _ = jax_dist_join(jds, jnp.asarray(keys), (), jnp.asarray(keys), ())
+    assert len(fk) == 2 and not any(bool(o.any()) for o in overflow)
+    np.testing.assert_array_equal(np.concatenate([m.numpy() for m in matched]), np.asarray(jm))
+    np.testing.assert_array_equal(np.concatenate([f.numpy() for f in fk]), np.asarray(jfk))
 
 
 def test_default_cell_size_matches_jax():
