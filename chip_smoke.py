@@ -98,7 +98,15 @@ and read just after:
     HashJoin; dryrun_multichip(4) and the weak-scaling curve
     (bench/multichip.py); over the real cards where there are 2 or more.
     Each line gives the exchange's copies and bytes; the partition, sort,
-    fill, filter, sum and gather kernels must each launch in the phase.
+    fill, filter, sum and gather kernels must each launch in the phase;
+  * one process a device (``[process_group]``, parallel/process_group.py
+    through bench/multiproc.rank_join): BM_JoinDpu SF=8 over an NCCL group
+    of the visible cards (this process on one card) in 1 and 2 rounds, and
+    one spawn of 4 gloo ranks on the card at world 4, at world 2 (a
+    subgroup) and on the 2 x 2 mesh; each rank's padded outputs equal
+    (SHA-256) to its shard of the one-controller join, its matched rows
+    the dense truth, its collectives counted; the partition, sort and fill
+    kernels must launch in the ranks.
 For each fallback it also splits the result's readback (copy, numpy mask,
 against masking on the card) and profiles one Run() (device busy time, idle
 share, the longest device events).
@@ -866,9 +874,11 @@ def phase_measure_filter(card: str) -> dict:
 
 def phase_measure_r3(card: str) -> dict:
     """The take/sum/probe/dense measurement entry point
-    (python -m dpu_olap_tpu_torch.bench.measure_r3), all four sections, with
-    the lane gather's launch count set to 0 just before and read just after:
-    it must launch, and no reading may lie under its floor."""
+    (python -m dpu_olap_tpu_torch.bench.measure_r3), the four sections that
+    run the port's kernels (take2, sum, probe, dense; the take section times
+    plain row gathers, no kernel), with the lane gather's launch count set
+    to 0 just before and read just after: it must launch, and no reading
+    may lie under its floor."""
     import torch
 
     from dpu_olap_tpu_torch.bench import measure_r3
@@ -879,7 +889,7 @@ def phase_measure_r3(card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     probes_cuda.LAUNCHES["lane_gather"] = 0
     t0 = time.perf_counter()
-    results = measure_r3.run()
+    results = measure_r3.run(("take2", "sum", "probe", "dense"))
     launches = {"lane_gather": probes_cuda.LAUNCHES["lane_gather"]}
     require(launches["lane_gather"] > 0, f"measure_r3: launches {launches}")
     low = [f"{s} {n}" for s, sec in results.items() for n, e in sec.items() if e.get("suspect")]
@@ -3148,6 +3158,114 @@ def phase_multidevice(card: str) -> dict:
     return launches
 
 
+# ---- one process a device: the process-group form --------------------------
+
+PG_KERNELS = ("partition", "sort", "fill", "gather")
+
+
+def _pg_gloo_ranks(gs, sf: int) -> dict:
+    """One rank of the 4-rank gloo spawn: BM_JoinDpu's join at world 4, at
+    world 2 (ranks 0 and 1, a subgroup) and on the 2 x 2 mesh; every rank
+    creates the same subgroups in the same order."""
+    from dpu_olap_tpu_torch.bench import multiproc
+
+    pair = gs.subgroups([[0, 1]])
+    return {"4": multiproc.rank_join(gs, sf),
+            "2": multiproc.rank_join(pair, sf) if pair is not None else None,
+            "2x2": multiproc.rank_join(gs, sf, mesh=(2, 2))}
+
+
+def _pg_line(label: str, ranks: list, want: list, card: str) -> dict:
+    """Hold the ranks' readings to the one-controller shards' digests and
+    print them; returns the ranks' kernel launches summed."""
+    for r, w in zip(ranks, want):
+        require(r["ok"], f"{label} rank {r['rank']}: not the dense truth")
+        require(r["digest"] == w, f"{label} rank {r['rank']}: outputs != the one-controller"
+                f" join's shard {r['rank']}")
+        require(r["collectives"] > 0, f"{label} rank {r['rank']}: no collective ran")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in PG_KERNELS}
+    per = "; ".join(f"rank {r['rank']} join-total {r['join_total_ms']:.3f} ms, exchange"
+                    f" {r['exchange_ms']:.3f} ms, {r['exchange_bytes']} B in"
+                    f" {r['collectives']} collectives" for r in ranks)
+    print(f"[process_group {label}] == the one-controller join's shards (SHA-256 of fk, y, x,"
+          f" matched), the dense truth; {per}; launches {launches} [{card}]", flush=True)
+    return launches
+
+
+def phase_process_group(card: str) -> dict:
+    """The process-group form (parallel/process_group.py, one process a
+    device) on BM_JoinDpu SF=8 (16Mi rows a side), each rank's join through
+    bench/multiproc.rank_join (its launches, exchange bytes and collectives
+    counted around its timed join, its matched rows gathered to rank 0 and
+    held to the dense truth): NCCL at world = the visible cards (in this
+    process on one card), in 1 and 2 rounds, each rank's outputs equal bit
+    for bit (SHA-256) to its shard of the one-controller dist_join on the
+    same tables; then one spawn of 4 gloo ranks, every rank on cuda:0, at
+    world 4, at world 2 (a subgroup) and on the 2 x 2 mesh, each against
+    the one-controller dist_join over DeviceSet([cuda:0] * d) or
+    dist_join_2d over its 4 shards. The libraries are built before any rank
+    starts (phase_build); the ranks load them. The partition, sort and
+    fill kernels must launch in the ranks' joins."""
+    import torch
+
+    from dpu_olap_tpu_torch.bench import multiproc
+    from dpu_olap_tpu_torch.generator import make_join_tables
+    from dpu_olap_tpu_torch.parallel import process_group as pg
+    from dpu_olap_tpu_torch.parallel.dist_join import dist_join
+    from dpu_olap_tpu_torch.parallel.mesh import DeviceSet
+    from dpu_olap_tpu_torch.parallel.multihost import dist_join_2d, make_mesh_2d
+
+    t_phase = time.perf_counter()
+    left, right = make_join_tables(SF8, SF1_ROWS, SF1_ROWS, seed=multiproc.SEED)
+    lc, rc = left.concat(), right.concat()
+    cols = (lc["fk"], (lc["y"],), rc["pk"], (rc["x"],))
+    cuda0 = torch.device("cuda", 0)
+
+    def shard_digests(out):
+        fk, lcols, rcols, matched, _ = out
+        if isinstance(fk, torch.Tensor):
+            return [multiproc.digest(fk, lcols, rcols, matched)]
+        return [multiproc.digest(fk[t], tuple(c[t] for c in lcols), tuple(c[t] for c in rcols),
+                                 matched[t]) for t in range(len(fk))]
+
+    total = {k: 0 for k in PG_KERNELS}
+    cards = torch.cuda.device_count()
+    for rounds in (1, 2):
+        want = shard_digests(dist_join(DeviceSet([cuda0] * cards), *cols, keys31=True,
+                                       rounds=rounds))
+        torch.cuda.empty_cache()
+        if cards == 1:
+            with pg.init_group("nccl", 0, 1, f"tcp://127.0.0.1:{pg.free_port()}") as gs:
+                ranks = [multiproc.rank_join(gs, SF8, rounds=rounds)]
+        else:
+            ranks = pg.spawn(multiproc.rank_join, cards, args=(SF8, None, rounds),
+                             backend="nccl")
+        torch.cuda.empty_cache()
+        for k, n in _pg_line(f"nccl world {cards} rounds={rounds}", ranks, want, card).items():
+            total[k] += n
+    want = {d: shard_digests(dist_join(DeviceSet([cuda0] * d), *cols, keys31=True))
+            for d in (4, 2)}
+    want["2x2"] = shard_digests(dist_join_2d(make_mesh_2d(2, 2, ds=DeviceSet([cuda0] * 4)),
+                                             *cols))
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = pg.spawn(_pg_gloo_ranks, 4, args=(SF8,), backend="gloo", device="cuda:0",
+                     timeout_s=240)
+    spawn_s = time.perf_counter() - t
+    for label, key in (("gloo world 4", "4"), ("gloo world 2", "2"), ("gloo mesh 2x2", "2x2")):
+        got = [r[key] for r in ranks if r[key] is not None]
+        for k, n in _pg_line(label, got, want[key if key == "2x2" else int(key)], card).items():
+            total[k] += n
+    print(f"[process_group gloo] 4 ranks on cuda:0 (one spawn, {spawn_s:.1f} s): the ranks"
+          f" hand gloo's all_to_all_single their CUDA tensors, and gloo stages them through"
+          f" host memory inside itself [{card}]", flush=True)
+    require(all(total[k] > 0 for k in ("partition", "sort", "fill")),
+            f"[process_group]: a kernel did not launch in the ranks: {total}")
+    print(f"[process_group] launches {total} (the shuffle join launches no gather); phase"
+          f" {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return total
+
+
 def phase_trace_hook(card: str) -> None:
     """ENABLE_TRACE=1 in a subprocess: filter v1 on 1Mi values prints one
     line a tile; the tiles are numbered 0..255 once each, their offsets are
@@ -3241,6 +3359,7 @@ def main() -> dict:
     paths.append(lambda: phase_plan(card))  # the query plan's chains
     paths.append(lambda: phase_suite(card))  # the operator suite and its entry points
     paths.append(lambda: phase_multidevice(card))  # several devices, one controller
+    paths.append(lambda: phase_process_group(card))  # one process a device
     for path in paths:
         for name, n in path().items():
             launches[name] += n

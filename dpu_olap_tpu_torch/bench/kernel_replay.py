@@ -81,7 +81,22 @@ Inputs are drawn on the card from seed 42:
     (``.t().contiguous()``, ``torch.gather``, a bf16 ``torch.matmul``,
     ``index_select``) and ``probes_cuda.noop``, the launch floor of the
     probes' path (a checkout without it reads none), in PROBE_ROUNDS
-    rounds, each call with its per-launch breakdown.
+    rounds, each call with its per-launch breakdown;
+  * join_phases: the chained prefixes of the fused co-sort join
+    (``join.join_shard_fused`` with keys31, the local join of the shuffle
+    join on BM_JoinDpu's keys) at 2Mi rows a side from
+    ``make_join_tables(1, 2**21, 2**21)``, the counterpart of
+    ``scripts/profile_join_phases.py``: the co-sort of the packed keys and
+    the merged payload (``join_sort``: ``join.cosort_k2``), then the
+    forward fill (``join_sort_fill``: ``join.fill_k2``), then the match mask
+    and the masked outputs (``join_full``: the whole join), each step folding bit 0 of its output into the next
+    step's keys, so the keys stay in range; the differences give the fill's
+    ms (``fill_delta``) and the mask's (``mask_delta``). Timed as
+    ``bench/device_time.time_chained_multi`` (CUDA-graph chains of JOIN_K
+    and 2 JOIN_K steps, (T(2k) - T(k)) / k, the prefixes in turns), with the
+    full join's per-launch breakdown; the full join is first held bit for
+    bit against the plain path on the CPU, and the fill prefix's payload
+    against the join's matched rows.
 Each call is captured several times in one graph (CALLS, or BIG_CALLS from
 BIG_ROWS rows on), each with outputs of its own, so that no call finds the
 last one's outputs in L2; a reading is the median of REPS replays over the
@@ -100,12 +115,13 @@ alternates' ``filter_compact(values, version)`` and
 ``sort_tiles(planes)``, ``sum_u64_pair(values)``, ``block_op(x, idx, op,
 reps)``, ``lane_gather(x, idx)``, ``transpose(x)``, ``onehot_matmul(a,
 b)`` and ``dyn_row(x, row)`` (and ``noop`` only where the package has
-it), so the
+it), and join_phases through ``join_shard_fused`` and its steps
+``cosort_k2`` and ``fill_k2``, so the
 same file can time another checkout of the package: run it by its path
 with that checkout first on PYTHONPATH, and alternate the two checkouts on
 one card. ``--only`` takes a subset of the groups (sort, gather,
 merge_probe, partition, fill, filter, merge, tiles, sum, cops,
-block_ops, lane_gather, probes). It prints one line a reading and,
+block_ops, lane_gather, probes, join_phases). It prints one line a reading and,
 last, a JSON object of them; ``--out`` writes that object to a file too.
 It needs a CUDA device.
 """
@@ -122,12 +138,14 @@ import sys
 import numpy as np
 import torch
 
+from dpu_olap_tpu_torch.bench.device_time import time_chained_multi
 from dpu_olap_tpu_torch.ops import (
     bitonic_cuda,
     block_ops_cuda,
     filter_alt_cuda,
     filter_cuda,
     filter_stages,
+    join,
     merge,
     merge_cuda,
     partition_cuda,
@@ -160,7 +178,9 @@ EMPTY = 0xFFFFFFFF
 CALLS = 10
 BLOCK_SETS = CALLS  # inputs of a cold block-op reading: one x and idx a call
 GROUPS = ("sort", "gather", "merge_probe", "partition", "fill", "filter", "merge", "tiles", "sum",
-          "cops", "block_ops", "lane_gather", "probes")
+          "cops", "block_ops", "lane_gather", "probes", "join_phases")
+JOIN_ROWS = 1 << 21  # BM_JoinDpu SF=1, a side (profile_join_phases.py's ROWS)
+JOIN_K = 4  # the chains' steps (profile_join_phases.py's K)
 BIG_ROWS = 1 << 27
 BIG_CALLS = 2
 REPS = 7
@@ -650,6 +670,58 @@ def probes_readings() -> tuple:
     return ms, {name: launch_breakdown(fn) for name, fn in fns.items()}
 
 
+def _filled(c, ly, rk, rx):
+    """join_shard_fused's sort and fill steps (keys31): the filled key and
+    payload planes."""
+    return join.fill_k2(join.cosort_k2(c, (ly,), rk, (rx,)), 1)[2]
+
+
+def _fold(c, plane):
+    """The carry with bit 0 of plane's first rows folded in: fk ^ 1 stays a
+    key of the dense build side."""
+    return (c.view(torch.int32) ^ (plane[:c.shape[0]].view(torch.int32) & 1)).view(torch.uint32)
+
+
+JOIN_PREFIXES = {
+    "join_sort": lambda c, ly, rk, rx: _fold(c, join.cosort_k2(c, (ly,), rk, (rx,))[0]),
+    "join_sort_fill": lambda c, ly, rk, rx: _fold(c, _filled(c, ly, rk, rx)[0]),
+    "join_full": lambda c, ly, rk, rx: _fold(
+        c, join.join_shard_fused(c, (ly,), rk, (rx,), keys31=True)[0]),
+}
+
+
+def join_phase_inputs(device: str = "cuda", shrink: int = 1) -> tuple:
+    """(fk, y, pk, x) of BM_JoinDpu SF=1 with JOIN_ROWS // shrink rows a
+    side, on device."""
+    from dpu_olap_tpu_torch.generator import make_join_tables
+
+    left, right = make_join_tables(1, JOIN_ROWS // shrink, JOIN_ROWS // shrink)
+    lc, rc = left.concat(), right.concat()
+    return tuple(torch.from_numpy(a).to(device) for a in (lc["fk"], lc["y"], rc["pk"], rc["x"]))
+
+
+def join_phase_readings(device: str = "cuda", shrink: int = 1, reps: int = ROUNDS) -> dict:
+    """ms a step of each of JOIN_PREFIXES, chained and in turns, with the
+    fill's and the mask's differences; the full join first held bit for bit
+    against the plain path on the CPU, and the fill prefix's payload equal
+    to the join's x on its matched rows."""
+    lf, ly, rk, rx = join_phase_inputs(device, shrink)
+    fk, (y,), (x,), m = join.join_shard_fused(lf, (ly,), rk, (rx,), keys31=True)
+    plain = join.join_shard_fused(lf.cpu(), (ly.cpu(),), rk.cpu(), (rx.cpu(),), keys31=True)
+    if not (_same([t.cpu() for t in (fk, y, x)], (plain[0], *plain[1], *plain[2]))
+            and torch.equal(m.cpu(), plain[3]) and int(m.sum()) == lf.shape[0]):
+        raise SystemExit("join_shard_fused: the device's rows != the plain path's")
+    _, filled_x = _filled(lf, ly, rk, rx)
+    if not torch.equal(filled_x.view(torch.int32)[m], x.view(torch.int32)[m]):
+        raise SystemExit("join_phases: the fill prefix's payload != the join's x")
+    ms = {name: sec * 1e3 for name, sec in time_chained_multi(
+        [(name, step, lf, JOIN_K, (ly, rk, rx)) for name, step in JOIN_PREFIXES.items()],
+        reps=reps).items()}
+    ms["fill_delta"] = ms["join_sort_fill"] - ms["join_sort"]
+    ms["mask_delta"] = ms["join_full"] - ms["join_sort_fill"]
+    return ms
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--label", default="", help="a name for this run, kept in the JSON")
@@ -740,6 +812,17 @@ def main(argv=None) -> int:
         record(size, ms)
         out["breakdown"][f"lane_gather_{size}"] = parts
         _breakdown_line(args.label, f"lane_gather {size}", parts, card)
+    if "join_phases" in only:
+        size = f"{JOIN_ROWS >> 20}Mi"
+        ms = join_phase_readings()
+        record(size, ms)
+        print(f"[{args.label}] join_phases {size}: sort {ms['join_sort']:.4f}, fill"
+              f" {ms['fill_delta']:.4f}, mask {ms['mask_delta']:.4f} ms of the full join's"
+              f" {ms['join_full']:.4f} (chained differences) [{card}]", flush=True)
+        lf, ly, rk, rx = join_phase_inputs()
+        parts = launch_breakdown(lambda: join.join_shard_fused(lf, (ly,), rk, (rx,), keys31=True))
+        out["breakdown"][f"join_full_{size}"] = parts
+        _breakdown_line(args.label, f"join_full {size}", parts, card)
     line = json.dumps(out)
     if args.out:
         with open(args.out, "w") as f:

@@ -1,8 +1,8 @@
 """The take, sum, probe and dense-join measurements on the card (counterpart
-of ``scripts/measure_r3.py``, sections ``take2``, ``sum``, ``probe`` and
-``dense``).
+of ``scripts/measure_r3.py``, sections ``take2``, ``sum``, ``probe``,
+``dense`` and ``take``).
 
-    python -m dpu_olap_tpu_torch.bench.measure_r3 [take2 sum probe dense] [--out FILE]
+    python -m dpu_olap_tpu_torch.bench.measure_r3 [take2 sum probe dense take] [--out FILE]
 
   take2  the 2-plane sort of 512Ki indices and their positions
          (``sort2op_512Ki``, k = 32), then the lane gather
@@ -20,16 +20,27 @@ of ``scripts/measure_r3.py``, sections ``take2``, ``sum``, ``probe`` and
   dense  the probe-side sort (``probe_sort_2Mi``) and the dense-pk join
          (``join_dense_2Mi``, ``ops/merge.join_shard_dense``) at 2Mi a side,
          k = 8, interleaved.
+  take   the port's row gather (``ops/take.take``, ``rowgather_*``) beside
+         ``torch.index_select`` (``index_select_*``), 512Ki indices, k = 8,
+         each pair interleaved, in rows (or indices) a second: row width 8,
+         16, 32, 64 and 128 over a 16 MB table (``w{W}_16MB``); tables of 1
+         to 32 MB at width 128 (``{M}MB_w128``); random against sorted row
+         indices (``rand_16MB_w128``, ``sorted_16MB_w128``); the element
+         gather of 1-D data at random against sorted indices
+         (``elemgather_rand_16MB``, ``elemgather_sorted_16MB`` beside
+         ``index_select_{rand,sorted}_16MB``). Each row step keeps every
+         gathered column live through a row sum, as the JAX script does.
 
 Seeds, sizes and chain lengths are the JAX script's; each step feeds its
 result back as in that script. Timing is ``bench/device_time.py``'s (CUDA
 graphs, (T(2k) - T(k)) / k); readings go through measure_filter's
 ``record`` (the H100 floor, the ``suspect`` flag). Not ported: the TPU's
 ``leaf`` sweep of take2 and ``pallas_r{256..4096}`` sweep of sum and
-``wr`` sweep of dense (they size only the TPU's grid), and the sections
-``take`` (XLA row-gather sweeps with no Pallas kernel), ``take3``,
-``take4`` and ``dense2`` (the TPU gather's window and slice, which the
-port's gather has not). A JSON file is written only with ``--out``; the
+``wr`` sweep of dense (they size only the TPU's grid), take's
+``sorted_hint`` reading (XLA's ``indices_are_sorted`` lowering: the port's
+row gather has no such hint), and the sections ``take3``, ``take4`` and
+``dense2`` (the TPU gather's window and slice, which the port's gather has
+not). A JSON file is written only with ``--out``; the
 JAX script's MEASURE_R3.json is never touched. It runs on the card;
 ``device="cpu"`` and ``shrink`` (every length divided by it) exist for the
 tests.
@@ -50,10 +61,11 @@ from ..ops.merge_cuda import merge_probe
 from ..ops.probes_cuda import lane_gather
 from ..ops.sort_cuda import sort_bitonic
 from ..ops.sum_cuda import sum_u64_pair
+from ..ops.take import take
 from .device_time import time_chained_multi
 from .measure_filter import record
 
-SECTIONS = ("take2", "sum", "probe", "dense")
+SECTIONS = ("take2", "sum", "probe", "dense", "take")
 REPS = 5
 LANES = 128
 
@@ -205,6 +217,63 @@ def measure_dense(results, device="cuda", shrink=1, reps=REPS):
     _timed(results, "dense", specs, {specs[0][0]: per * 8, specs[1][0]: per * 16},
            lambda name, sec: f"{per / sec / 1e6:.0f} M{' rows' if 'join' in name else ''}/s", reps)
     return results["dense"]
+
+
+def _row_step(c, tbl):
+    rows = take(tbl, c)
+    return c ^ (rows.view(torch.int32).sum(dim=1, dtype=torch.int64) & 1).to(torch.int32)
+
+
+def _index_select_row_step(c, tbl32):
+    rows = torch.index_select(tbl32, 0, c)
+    return c ^ (rows.sum(dim=1, dtype=torch.int64) & 1).to(torch.int32)
+
+
+def _elem_step(c, data):
+    return c ^ (take(data, c).view(torch.int32) & 1)
+
+
+def _index_select_elem_step(c, data32):
+    return c ^ (torch.index_select(data32, 0, c) & 1)
+
+
+def measure_take(results, device="cuda", shrink=1, reps=REPS):
+    """The JAX script's measure_take (scripts/measure_r3.py:98-180): the
+    row gather's rate against row width, table size and index order, and
+    the element gather's against index order; each reading of the port's
+    gather in turns with torch.index_select's on the same indices."""
+    rng = np.random.default_rng(42)
+    n_idx = (512 << 10) // shrink
+    n_data = (4 << 20) // shrink
+
+    def pair(name, tbl, idx, nbytes, what="rows"):
+        tbl32 = tbl.view(torch.int32)
+        row = tbl.dim() == 2
+        specs = [(f"{'rowgather' if row else 'elemgather'}_{name}",
+                  _row_step if row else _elem_step, idx, 8, (tbl,)),
+                 (f"index_select_{name}",
+                  _index_select_row_step if row else _index_select_elem_step, idx, 8, (tbl32,))]
+        _timed(results, "take", specs, {s[0]: nbytes for s in specs},
+               lambda _, sec: f"{n_idx / sec / 1e6:.0f} M {what}/s", reps)
+
+    data = _dev(rng.integers(0, 2**32, n_data, dtype=np.uint32), device)
+    for w in (8, 16, 32, 64, 128):
+        ridx = rng.integers(0, n_data // w, n_idx, dtype=np.uint32).astype(np.int32)
+        pair(f"w{w}_16MB", data.view(-1, w), _dev(ridx, device), n_idx * w * 4)
+    for mb in (1, 2, 4, 8, 16, 32):
+        nd = (mb << 18) // shrink
+        tbl = _dev(rng.integers(0, 2**32, nd, dtype=np.uint32), device).view(-1, 128)
+        ridx = rng.integers(0, nd // 128, n_idx, dtype=np.uint32).astype(np.int32)
+        pair(f"{mb}MB_w128", tbl, _dev(ridx, device), n_idx * 128 * 4)
+        del tbl
+    tbl = data.view(-1, 128)
+    ridx = rng.integers(0, n_data // 128, n_idx, dtype=np.uint32)
+    for order, idx in (("rand", ridx), ("sorted", np.sort(ridx))):
+        pair(f"{order}_16MB_w128", tbl, _dev(idx.astype(np.int32), device), n_idx * 128 * 4)
+    eidx = rng.integers(0, n_data, n_idx, dtype=np.uint32)
+    for order, idx in (("rand", eidx), ("sorted", np.sort(eidx))):
+        pair(f"{order}_16MB", data, _dev(idx.astype(np.int32), device), n_idx * 4, "idx")
+    return results["take"]
 
 
 def run(sections=SECTIONS, device: str = "cuda", shrink: int = 1, reps: int = REPS) -> dict:

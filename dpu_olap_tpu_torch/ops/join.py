@@ -31,8 +31,10 @@ from .hashtable import ht_build, ht_probe, table_capacity
 from .merge import (
     EMPTY,
     _as_u32,
+    _decode_k2,
+    _fill,
     _fill_match,
-    _fill_match_k2,
+    _match,
     _sort,
     _u32,
     join_shard_sorted_build,
@@ -86,6 +88,44 @@ def _cosort_probe(left_fk, right_pk, right_valid, left_valid):
     return prow.to(torch.int64)[restore], found_sorted[restore]
 
 
+def _cosort_planes(left_fk, left_payload, right_pk, right_payload, left_valid, right_valid):
+    """The fused join's sort operands: the masked keys (pk, fk) and the
+    merged payload planes, right rows first (payload k of both sides in one
+    plane, zeros where a side has fewer)."""
+    _check_32bit_payloads(left_payload, right_payload)
+    n_r, n_l = right_pk.shape[0], left_fk.shape[0]
+    m_l, m_r = len(left_payload), len(right_payload)
+    dev = left_fk.device
+    zeros_r = torch.zeros(n_r, dtype=torch.uint32, device=dev)
+    zeros_l = torch.zeros(n_l, dtype=torch.uint32, device=dev)
+    merged = [
+        torch.cat([_as_u32(right_payload[k]) if k < m_r else zeros_r,
+                   _as_u32(left_payload[k]) if k < m_l else zeros_l])
+        for k in range(max(m_l, m_r))
+    ]
+    return _masked_key(right_pk, right_valid), _masked_key(left_fk, left_valid), merged
+
+
+def cosort_k2(left_fk, left_payload, right_pk, right_payload, left_valid=None,
+              right_valid=None) -> tuple:
+    """The sort step of join_shard_fused with keys31: the side packed into
+    the key, k2 = key << 1 | side (pk rows 0), sorted with the merged
+    payload planes. Returns the sorted planes (k2, payload 0, ...)."""
+    pk, fk, merged = _cosort_planes(left_fk, left_payload, right_pk, right_payload, left_valid,
+                                    right_valid)
+    # EMPTY maps to 0xFFFFFFFE/0xFFFFFFFF: still the maximum
+    k2 = _u32(torch.cat([pk.to(torch.int64) << 1, (fk.to(torch.int64) << 1) | 1]))
+    return _sort((k2, *merged))
+
+
+def fill_k2(planes, m_r: int) -> tuple:
+    """The fill step of join_shard_fused with keys31, on cosort_k2's sorted
+    planes: (sk, is_pk, filled), the decoded keys and sides and each pk
+    row's key and first m_r payloads filled forward."""
+    sk, is_pk = _decode_k2(planes[0])
+    return sk, is_pk, _fill(sk, is_pk, planes[1:], m_r)
+
+
 def join_shard_fused(
     left_fk: torch.Tensor,
     left_payload: Tuple[torch.Tensor, ...],
@@ -103,28 +143,21 @@ def join_shard_fused(
     keys31: all keys < 2^31 - 1, so the side packs into the sort key as
     k2 = key << 1 | side and stability no longer matters; k2 values >=
     0xFFFFFFFE decode back to EMPTY (which excludes 0x7FFFFFFF itself).
-    Callers check the range on the host."""
-    _check_32bit_payloads(left_payload, right_payload)
-    n_r, n_l = right_pk.shape[0], left_fk.shape[0]
+    Callers check the range on the host. Its steps are cosort_k2, fill_k2
+    and the match."""
     m_l, m_r = len(left_payload), len(right_payload)
-    dev = left_fk.device
-    pk = _masked_key(right_pk, right_valid)
-    fk = _masked_key(left_fk, left_valid)
-    zeros_r = torch.zeros(n_r, dtype=torch.uint32, device=dev)
-    zeros_l = torch.zeros(n_l, dtype=torch.uint32, device=dev)
-    merged = [
-        torch.cat([_as_u32(right_payload[k]) if k < m_r else zeros_r,
-                   _as_u32(left_payload[k]) if k < m_l else zeros_l])
-        for k in range(max(m_l, m_r))
-    ]
     if keys31:
-        # EMPTY maps to 0xFFFFFFFE/0xFFFFFFFF: still the maximum
-        k2 = _u32(torch.cat([pk.to(torch.int64) << 1, (fk.to(torch.int64) << 1) | 1]))
-        sorted_all = _sort((k2, *merged))
-        return _fill_match_k2(sorted_all[0], sorted_all[1:], m_l, m_r)
+        planes = cosort_k2(left_fk, left_payload, right_pk, right_payload, left_valid,
+                           right_valid)
+        sk, is_pk, filled = fill_k2(planes, m_r)
+        return _match(sk, is_pk, filled, planes[1:], m_l)
+    pk, fk, merged = _cosort_planes(left_fk, left_payload, right_pk, right_payload, left_valid,
+                                    right_valid)
     # the stable sort keeps each pk row before its equal fk rows; side
     # rides as an operand
-    side = torch.cat([zeros_r, torch.ones(n_l, dtype=torch.uint32, device=dev)])
+    dev = left_fk.device
+    side = torch.cat([torch.zeros(pk.shape[0], dtype=torch.uint32, device=dev),
+                      torch.ones(fk.shape[0], dtype=torch.uint32, device=dev)])
     sk, sside, *smerged = sort_bitonic_ref((torch.cat([pk, fk]), side, *merged))
     return _fill_match(sk.to(torch.int64), sside.view(torch.int32) == 0, smerged, m_l, m_r)
 

@@ -77,14 +77,17 @@ def bitonic_merge(planes) -> tuple:
     return bitonic_merge_blocks(planes, block_rows=n // LANES)
 
 
-def _fill_match(sk: torch.Tensor, is_pk: torch.Tensor, smerged, m_l: int, m_r: int):
-    """The tail of every co-sort join: sk (int64 keys, EMPTY for invalid
-    lanes) sorted so that each pk row (is_pk; the others are fk rows)
-    precedes its fk rows, smerged the payload planes that followed the
-    sort. Fill each pk row's key and right
-    payloads forward, keep the fk rows whose filled key is their own, and
-    zero the rest. Returns (key, out_l, out_r, matched)."""
-    filled = propagate_fill((_u32(torch.where(is_pk, sk, EMPTY)), *smerged[:m_r]))
+def _fill(sk: torch.Tensor, is_pk: torch.Tensor, smerged, m_r: int) -> tuple:
+    """The fill step of every co-sort join: sk (int64 keys, EMPTY for
+    invalid lanes) sorted so that each pk row (is_pk; the others are fk
+    rows) precedes its fk rows, smerged the payload planes that followed the
+    sort. Each pk row's key and its m_r right payloads filled forward."""
+    return propagate_fill((_u32(torch.where(is_pk, sk, EMPTY)), *smerged[:m_r]))
+
+
+def _match(sk: torch.Tensor, is_pk: torch.Tensor, filled, smerged, m_l: int):
+    """The match step after _fill: keep the fk rows whose filled key is
+    their own, and zero the rest. Returns (key, out_l, out_r, matched)."""
     pkey = filled[0].to(torch.int64)
     matched = (pkey != EMPTY) & (pkey == sk) & ~is_pk & (sk != EMPTY)
     out_l = tuple(_where0(matched, smerged[k]) for k in range(m_l))
@@ -92,12 +95,21 @@ def _fill_match(sk: torch.Tensor, is_pk: torch.Tensor, smerged, m_l: int, m_r: i
     return _u32(torch.where(matched, sk, 0)), out_l, out_r, matched
 
 
-def _fill_match_k2(sk2: torch.Tensor, smerged, m_l: int, m_r: int):
-    """_fill_match for sorted packed keys k2 = key << 1 | side (side 0 for a
+def _fill_match(sk: torch.Tensor, is_pk: torch.Tensor, smerged, m_l: int, m_r: int):
+    """The tail of every co-sort join: _fill, then _match."""
+    return _match(sk, is_pk, _fill(sk, is_pk, smerged, m_r), smerged, m_l)
+
+
+def _decode_k2(sk2: torch.Tensor) -> tuple:
+    """(sk, is_pk) of sorted packed keys k2 = key << 1 | side (side 0 for a
     pk row): k2 >= 0xFFFFFFFE decodes back to EMPTY."""
     k2 = sk2.to(torch.int64)
-    is_pk = (k2 & 1) == 0
-    sk = torch.where(k2 >= 0xFFFFFFFE, EMPTY, k2 >> 1)
+    return torch.where(k2 >= 0xFFFFFFFE, EMPTY, k2 >> 1), (k2 & 1) == 0
+
+
+def _fill_match_k2(sk2: torch.Tensor, smerged, m_l: int, m_r: int):
+    """_fill_match for sorted packed keys (_decode_k2)."""
+    sk, is_pk = _decode_k2(sk2)
     return _fill_match(sk, is_pk, smerged, m_l, m_r)
 
 

@@ -24,18 +24,27 @@ t, and one overflow flag a device. The host compacts them
 
 ``dist_join_phase_ms`` attributes the join's device time to its phases
 (fragments, exchange, local join) for FLAGS.join_timers.
+
+Over a process group (one process a device, ``parallel/process_group.py``)
+``dist_join`` takes a GroupSet in place of the DeviceSet: the same code,
+each rank holding one shard, moving it by the group's exchange and joining
+its own partitions. ``dist_join_retry`` is JoinGpu's cell-doubling retry
+over either set, decided from every device's or rank's flag, and
+``dist_join_phase_ms_group`` times the phases on each rank.
 """
 
 from __future__ import annotations
 
 import functools
 import operator
+import time
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from ..config import FLAGS
+from ..metrics import log
 from .mesh import DeviceSet
 from .shuffle import ShuffleResult, default_cell_size, shuffle_partitions
 
@@ -85,11 +94,19 @@ def join_shuffled(left: ShuffleResult, right: ShuffleResult, impl: str = "cosort
     )
 
 
-def _on_device(ds: DeviceSet, a):
-    """A host numpy array or a tensor, on ds's device; over several devices
-    split into a tuple of shards (a tuple of shards is taken as it is)."""
-    if ds.nr_devices > 1:
-        return tuple(a) if isinstance(a, (tuple, list)) else ds.split(a)
+RETRIES = 4  # joins, the cells doubled after each overflow, before a skewed input raises
+PHASE_REPS = 3  # timed runs of each phase, after a warm-up one
+
+
+def _on_device(ds, a):
+    """A host numpy array or a tensor (the whole column) on ds: on one
+    device under one controller the tensor there; otherwise split into the
+    tuple of shards this process holds (a GroupSet's: its rank's one). A
+    tuple of shards is taken as it is."""
+    if isinstance(a, (tuple, list)):
+        return tuple(a)
+    if ds.nr_devices > 1 or not isinstance(ds, DeviceSet):
+        return ds.split(a)
     if isinstance(a, np.ndarray):
         return ds.scatter(a)
     return a.to(ds.device)
@@ -122,25 +139,41 @@ def dist_join_spmd(
     impl: str = "cosort",
     keys31: bool = False,
     rounds: int = 1,
+    ds=None,
 ):
-    """The per-device program over every shard (JAX dist_join.py:84): the
-    co-shuffle of both sides (one exchange each), then join_shuffled on each
-    device. Inputs are tuples of d shards (each payload a column of shards);
+    """The per-device program over every shard this process holds (JAX
+    dist_join.py:84): the co-shuffle of both sides (one exchange each, by
+    ds's exchange, as shuffle_partitions), then join_shuffled on each
+    device. Inputs are tuples of shards (each payload a column of shards);
     returns (fk, left_cols, right_cols, matched, overflow), each a tuple of
-    d shards, overflow (1,) a device."""
-    right = shuffle_partitions(right_pk, right_payloads, nr_partitions, cell_right, rounds=rounds)
-    left = shuffle_partitions(left_fk, left_payloads, nr_partitions, cell_left, rounds=rounds)
+    shards, overflow (1,) a device. Over a process group (ds a GroupSet)
+    the tuples hold this rank's one shard, and its outputs are shard t of
+    the one-controller form."""
+    right = shuffle_partitions(right_pk, right_payloads, nr_partitions, cell_right, rounds=rounds,
+                               ds=ds)
+    left = shuffle_partitions(left_fk, left_payloads, nr_partitions, cell_left, rounds=rounds,
+                              ds=ds)
     return _columns([join_shuffled(lt, rt, impl=impl, keys31=keys31)
                      for lt, rt in zip(left, right)])
 
 
-def _rows(x) -> int:
-    """Rows of a tensor or of a tuple of shards."""
-    return sum(s.shape[0] for s in x) if isinstance(x, tuple) else x.shape[0]
+def _shard_rows(x, nr_devices: int) -> int:
+    """Rows a shard: of a tuple of shards (this process's), or of a whole
+    column split over nr_devices."""
+    if isinstance(x, (tuple, list)):
+        return sum(s.shape[0] for s in x) // len(x)
+    return x.shape[0] // nr_devices
+
+
+def _cell(ds, x, rounds: int) -> int:
+    """The default cell of a column (whole, or this process's shards) over
+    ds, from its rows a shard."""
+    return default_cell_size(_shard_rows(x, ds.nr_devices), ds.nr_devices * rounds,
+                             FLAGS.shuffle_slack)
 
 
 def dist_join(
-    ds: DeviceSet,
+    ds,
     left_fk,
     left_payloads: Tuple,
     right_pk,
@@ -152,26 +185,52 @@ def dist_join(
     rounds: int = 1,
 ):
     """Run the partitioned join of uint32 columns: host numpy arrays or
-    tensors, split over ds's devices (over several devices a tuple of shards
-    is taken as it is). Returns padded outputs (fk, left_cols, right_cols,
-    matched, overflow): both sides co-shuffled into nr_devices * rounds
-    partitions, then joined (join_shuffled). rounds > 1 joins the data as
-    that many resident partition rounds. On one device each output is a
-    tensor; over several, a tuple of shards (``dist_join_spmd``)."""
-    n_dev = ds.nr_devices
+    tensors, split over ds's devices (a tuple of shards is taken as it is).
+    Returns padded outputs (fk, left_cols, right_cols, matched, overflow):
+    both sides co-shuffled into nr_devices * rounds partitions, then joined
+    (join_shuffled). rounds > 1 joins the data as that many resident
+    partition rounds. On one device each output is a tensor; over several,
+    a tuple of shards (``dist_join_spmd``).
+
+    ``ds`` may be a GroupSet (one process a device): each rank takes its
+    own rows of the whole columns (GroupSet.split) or is given its shard as
+    a 1-tuple, and gets back its own partitions' rows, each output a 1-tuple;
+    the cells are sized from the rows a shard, as above."""
+    cell_left = cell_left or _cell(ds, left_fk, rounds)
+    cell_right = cell_right or _cell(ds, right_pk, rounds)
     left_fk, right_pk = _on_device(ds, left_fk), _on_device(ds, right_pk)
     left_payloads = tuple(_on_device(ds, p) for p in left_payloads)
     right_payloads = tuple(_on_device(ds, p) for p in right_payloads)
-    slack = FLAGS.shuffle_slack
-    n_left, n_right = _rows(left_fk), _rows(right_pk)
-    cell_left = cell_left or default_cell_size(n_left // n_dev, n_dev * rounds, slack)
-    cell_right = cell_right or default_cell_size(n_right // n_dev, n_dev * rounds, slack)
-    if n_dev > 1:
-        return dist_join_spmd(left_fk, left_payloads, right_pk, right_payloads, n_dev,
-                              cell_left, cell_right, impl=impl, keys31=keys31, rounds=rounds)
-    right = shuffle_partitions(right_pk, right_payloads, n_dev, cell_right, rounds=rounds)
-    left = shuffle_partitions(left_fk, left_payloads, n_dev, cell_left, rounds=rounds)
+    if isinstance(left_fk, tuple):
+        return dist_join_spmd(left_fk, left_payloads, right_pk, right_payloads, ds.nr_devices,
+                              cell_left, cell_right, impl=impl, keys31=keys31, rounds=rounds,
+                              ds=ds)
+    right = shuffle_partitions(right_pk, right_payloads, 1, cell_right, rounds=rounds)
+    left = shuffle_partitions(left_fk, left_payloads, 1, cell_left, rounds=rounds)
     return join_shuffled(left, right, impl=impl, keys31=keys31)
+
+
+def dist_join_retry(ds, left_fk, left_payloads: Tuple, right_pk, right_payloads: Tuple,
+                    impl: str = "cosort", cell_left: int | None = None,
+                    cell_right: int | None = None, keys31: bool = False, rounds: int = 1):
+    """``dist_join`` with the skew handling of JoinGpu: when a cell
+    overflows on any device or rank (``ds.any``: over a process group one
+    decision that every rank takes alike), double both cells and join again,
+    up to RETRIES joins; then raise OverflowError (the reference throws at
+    once, partition.cc:19-26). Returns the outputs and the cells (left,
+    right) they were joined with. Columns placed on ds (tensors there, or
+    tuples of shards) are not placed again for a retry."""
+    cell_left = cell_left or _cell(ds, left_fk, rounds)
+    cell_right = cell_right or _cell(ds, right_pk, rounds)
+    for attempt in range(RETRIES):
+        out = dist_join(ds, left_fk, left_payloads, right_pk, right_payloads, impl=impl,
+                        cell_left=cell_left, cell_right=cell_right, keys31=keys31, rounds=rounds)
+        if not ds.any(out[4]):
+            return out, (cell_left, cell_right)
+        log(f"join shuffle overflow (attempt {attempt}): cells {cell_left} / {cell_right}"
+            " doubled")
+        cell_left, cell_right = cell_left * 2, cell_right * 2
+    raise OverflowError("shuffle cell overflow after retries")
 
 
 def dist_join_phase_ms(
@@ -300,3 +359,60 @@ def dist_join_phase_ms(
         phases[f"{name}-ms"] = sec * 1e3 - prev
         prev = sec * 1e3
     return phases
+
+
+def dist_join_phase_ms_group(gs, left_fk, right_pk, n_left_payloads: int,
+                             n_right_payloads: int, cell_left: int, cell_right: int,
+                             impl: str = "cosort", keys31: bool = False, rounds: int = 1,
+                             mesh=None) -> dict:
+    """This rank's device ms of the shuffle join's phases over a process
+    group (gs; left_fk and right_pk this rank's shard, a tensor), the
+    counterpart of ``dist_join_phase_ms``: fragments (the local partition
+    of both sides), exchange (both sides' collectives and unstacking; over
+    a ProcessMesh2D ``mesh``, its two stages) and local-join
+    (join_shuffled), each timed alone after a barrier (every rank's device
+    work done, then every rank), by CUDA events on a card and the host
+    clock on the CPU; payload planes derived from the keys as there.
+    Median of PHASE_REPS runs after a warm-up run."""
+    from .multihost import move_fragments_2d
+    from .shuffle import local_fragments, move_fragments
+
+    left_fk, right_pk = gs.put(left_fk), gs.put(right_pk)
+    p = gs.world_size * rounds
+    inband = FLAGS.shuffle_counts_inband
+
+    def move(frag, cell):
+        if mesh is not None:
+            return move_fragments_2d(mesh, [frag], rounds)[0]
+        return move_fragments(gs, [frag], cell, rounds, inband)[0]
+
+    def planes(key, n):
+        return tuple((key.view(torch.int32) ^ (i + 1)).view(torch.uint32) for i in range(n))
+
+    lp, rp = planes(left_fk, n_left_payloads), planes(right_pk, n_right_payloads)
+    on_card = gs.device.type == "cuda"
+
+    def timed(fn):
+        gs.barrier()
+        if not on_card:
+            t = time.perf_counter()
+            out = fn()
+            return out, (time.perf_counter() - t) * 1e3
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = fn()
+        stop.record()
+        stop.synchronize()
+        return out, start.elapsed_time(stop)
+
+    got = {"fragments-ms": [], "exchange-ms": [], "local-join-ms": []}
+    for rep in range(PHASE_REPS + 1):
+        frags, f_ms = timed(lambda: (local_fragments(right_pk, rp, p, cell_right),
+                                     local_fragments(left_fk, lp, p, cell_left)))
+        (right, left), x_ms = timed(lambda: tuple(
+            move(f, cell) for f, cell in zip(frags, (cell_right, cell_left))))
+        _, j_ms = timed(lambda: join_shuffled(left, right, impl=impl, keys31=keys31))
+        if rep:  # the first run warms the allocator and the collectives
+            for name, ms in zip(got, (f_ms, x_ms, j_ms)):
+                got[name].append(ms)
+    return {name: float(np.median(v)) for name, v in got.items()}

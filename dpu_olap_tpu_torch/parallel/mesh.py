@@ -98,6 +98,17 @@ class DeviceSet:
         dev = x[0].device
         return torch.cat([s.to(dev) for s in x]).cpu().numpy()
 
+    def exchange(self, blocks, split_axis: int = 0, concat_axis: int = 0) -> tuple:
+        """The tiled all-to-all over the set's shards (``shuffle.exchange``)."""
+        from .shuffle import exchange
+
+        return exchange(blocks, split_axis, concat_axis)
+
+    def any(self, flags) -> bool:
+        """Whether any element of the flags (a tensor or a tuple of shards)
+        is set, in one readback."""
+        return bool(self.gather(flags).any())
+
     def sync(self) -> None:
         """Barrier on outstanding device work (DpuSetAsync::sync), each
         distinct device once."""

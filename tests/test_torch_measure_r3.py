@@ -21,7 +21,14 @@ SHRINK = 1024
 
 @pytest.fixture(scope="module")
 def results():
-    return m3.run(device="cpu", shrink=SHRINK, reps=3)
+    # tiny tensors: one thread, so that the chains do not contend for cores
+    # with the other test workers
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return m3.run(device="cpu", shrink=SHRINK, reps=3)
+    finally:
+        torch.set_num_threads(threads)
 
 
 EXPECTED = {
@@ -29,8 +36,14 @@ EXPECTED = {
     "sum": ["kernel_64Ki", "kernel_32Ki", "torch_8Ki", "kernel_8Ki"],
     "probe": ["build_sorted_1Ki", "merge_stream_1Ki", "probe_sorted_1Ki"],
     "dense": ["probe_sort_2Ki", "join_dense_2Ki"],
+    "take": [f"{kind}_{name}" for name in (
+        "w8_16MB", "w16_16MB", "w32_16MB", "w64_16MB", "w128_16MB", "1MB_w128", "2MB_w128",
+        "4MB_w128", "8MB_w128", "16MB_w128", "32MB_w128", "rand_16MB_w128", "sorted_16MB_w128")
+        for kind in ("rowgather", "index_select")] + [
+        f"{kind}_{order}_16MB" for order in ("rand", "sorted")
+        for kind in ("elemgather", "index_select")],
 }
-NOTES = {"take2": "/s", "sum": "GB/s", "probe": "M/s", "dense": "M"}
+NOTES = {"take2": "/s", "sum": "GB/s", "probe": "M/s", "dense": "M", "take": "M"}
 
 
 @pytest.mark.parametrize("section", m3.SECTIONS)
@@ -97,6 +110,26 @@ def test_probe_steps_match_numpy():
                                   _np_xor(q, got & 1, found))
     np.testing.assert_array_equal(m3._build_step(torch.from_numpy(keys), torch.from_numpy(vals))
                                   .numpy(), _np_xor(keys, keys[order] & 1, vals[order] & 2))
+
+
+def test_take_steps_match_numpy_and_each_other():
+    """The row and element gather steps: the port's take and
+    torch.index_select give the same carry, equal to numpy's."""
+    rng = np.random.default_rng(2)
+    tbl = rng.integers(0, 2**32, (64, 16), dtype=np.uint32)
+    c = rng.integers(0, 64, 500).astype(np.int32)
+    want = c ^ (tbl[c].astype(np.int64).sum(axis=1) & 1).astype(np.int32)
+    tc, tt = torch.from_numpy(c), torch.from_numpy(tbl)
+    np.testing.assert_array_equal(m3._row_step(tc, tt).numpy(), want)
+    np.testing.assert_array_equal(m3._index_select_row_step(tc, tt.view(torch.int32)).numpy(),
+                                  want)
+    data = tbl.reshape(-1)
+    e = rng.integers(0, data.size, 700).astype(np.int32)
+    want = e ^ (data[e] & 1).astype(np.int32)
+    te, td = torch.from_numpy(e), torch.from_numpy(data)
+    np.testing.assert_array_equal(m3._elem_step(te, td).numpy(), want)
+    np.testing.assert_array_equal(m3._index_select_elem_step(te, td.view(torch.int32)).numpy(),
+                                  want)
 
 
 def test_unknown_section_raises(capsys):
