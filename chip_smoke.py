@@ -2930,11 +2930,17 @@ def phase_multidevice(card: str) -> dict:
     from dpu_olap_tpu_torch.operators.filter_op import FilterGpu, FilterNative
     from dpu_olap_tpu_torch.operators.join_op import JoinGpu, JoinNative
     from dpu_olap_tpu_torch.operators.take_op import TakeGpu, TakeNative
+    from dpu_olap_tpu_torch.metrics import counts
     from dpu_olap_tpu_torch.ops.hashing import bucket_shift, wang_hash_np
     from dpu_olap_tpu_torch.parallel import shuffle
     from dpu_olap_tpu_torch.parallel.dist_join import dist_join
     from dpu_olap_tpu_torch.parallel.mesh import DeviceSet
     from dpu_olap_tpu_torch.parallel.multihost import dist_join_2d, make_mesh_2d
+
+    def exchanged(since=(0, 0)):
+        """The exchange's copies and bytes counted since the reading ``since``."""
+        c = counts()
+        return (c.get("exchange.copies", 0) - since[0], c.get("exchange.bytes", 0) - since[1])
 
     kernels = {k: m for k, m in _plan_kernels().items() if k in MD_KERNELS}
     cards = torch.cuda.device_count()
@@ -2959,7 +2965,7 @@ def phase_multidevice(card: str) -> dict:
         names the truth it held."""
         op = make_op().Prepare()
         before = {k: m.LAUNCHES for k, m in kernels.items()}
-        copies, nbytes = shuffle.COPIES, shuffle.BYTES
+        counted = exchanged()
         sync_cards()
         t = time.perf_counter()
         out = run(op)
@@ -2969,9 +2975,9 @@ def phase_multidevice(card: str) -> dict:
         ph = {name: round(op.Timers().sum_ms(name), 3) for name in phases}
         extra = f"; phase_ms {op.phase_ms}" if getattr(op, "phase_ms", None) else ""
         truth = check(out) if check else "-"
-        copies = shuffle.COPIES - copies
+        copies, nbytes = exchanged(counted)
         print(f"[multidevice {label}] == {truth}; Run() {ms:.3f} ms; phases ms {ph}{extra};"
-              f" exchange {copies} copies, {shuffle.BYTES - nbytes} B;"
+              f" exchange {copies} copies, {nbytes} B;"
               f" launches {launches} [{card}]", flush=True)
         return out, op, copies
 
@@ -3025,13 +3031,13 @@ def phase_multidevice(card: str) -> dict:
     cols = [lc["fk"], lc["y"], rc["pk"], rc["x"]]
     mesh = make_mesh_2d(2, 2, ds=ds4)
     for rounds in (1, 2):
-        c0, b0 = shuffle.COPIES, shuffle.BYTES
+        counted = exchanged()
         sync_cards()
         t = time.perf_counter()
         two = dist_join_2d(mesh, cols[0], (cols[1],), cols[2], (cols[3],), rounds=rounds)
         sync_cards()
         ms = (time.perf_counter() - t) * 1e3
-        c2, b2 = shuffle.COPIES - c0, shuffle.BYTES - b0
+        c2, b2 = exchanged(counted)
         flat = dist_join(ds4, cols[0], (cols[1],), cols[2], (cols[3],), rounds=rounds)
         require(not DeviceSet.gather(two[4]).any(), f"2-D rounds={rounds}: overflow")
         for name, a, b in (("fk", two[0], flat[0]), ("y", two[1][0], flat[1][0]),
@@ -3048,11 +3054,12 @@ def phase_multidevice(card: str) -> dict:
         keys, pay = ds4.split(cols[0]), (ds4.split(cols[1]),)
         sync_cards()
         ms = cuda_ms(lambda: shuffle.shuffle_partitions(keys, pay, 4, cell, counts_inband=inband))
-        c0, b0 = shuffle.COPIES, shuffle.BYTES
+        counted = exchanged()
         res[inband] = shuffle.shuffle_partitions(keys, pay, 4, cell, counts_inband=inband)
+        c2, b2 = exchanged(counted)
         print(f"[multidevice shuffle counts_inband={inband}] 4 shards of {lc.num_rows // 4} rows,"
               f" cell {cell}: {ms:.4f} ms a shuffle (device, median of {REPS}); exchange"
-              f" {shuffle.COPIES - c0} copies, {shuffle.BYTES - b0} B [{card}]", flush=True)
+              f" {c2} copies, {b2} B [{card}]", flush=True)
     for a, b in zip(res[False], res[True]):
         require(card_equal([a.keys, a.payloads[0], a.counts], [b.keys, b.payloads[0], b.counts])
                 and bool(a.overflow) == bool(b.overflow),

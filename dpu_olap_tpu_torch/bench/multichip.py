@@ -248,14 +248,16 @@ def run_local_at(d: int, rows_per_dev: int, devices: DeviceSet) -> float:
 
 def exchange_traffic(d: int, rows_per_dev: int, devices: DeviceSet) -> dict:
     """What one shuffle join over d shards moves through the exchange."""
-    from ..parallel import shuffle
+    from ..metrics import counts
     from ..parallel.dist_join import dist_join
 
     ds, (lf, ly, rk, rx) = _placed(d, rows_per_dev, devices)
-    shuffle.COPIES = shuffle.BYTES = 0
+    before = counts()
     dist_join(ds, lf, (ly,), rk, (rx,))
     ds.sync()
-    return {"exchange_copies": shuffle.COPIES, "exchange_bytes": shuffle.BYTES}
+    after = counts()
+    return {f"exchange_{k}": after.get(f"exchange.{k}", 0) - before.get(f"exchange.{k}", 0)
+            for k in ("copies", "bytes")}
 
 
 def _curve(points: list) -> list:

@@ -91,7 +91,7 @@ def rank_join(gs, sf: int = 8, mesh=None, rounds: int = 1, impl: str = "cosort",
     gs calls this alike). Returns the rank's readings and checks."""
     from ..config import FLAGS
     from ..generator import make_join_tables
-    from ..parallel import shuffle
+    from ..metrics import counts
     from ..parallel.dist_join import dist_join_phase_ms_group, dist_join_retry
     from ..parallel.multihost import dist_join_2d, make_mesh_2d
     from ..parallel.shuffle import default_cell_size
@@ -115,14 +115,15 @@ def rank_join(gs, sf: int = 8, mesh=None, rounds: int = 1, impl: str = "cosort",
     join()  # warm-up: the allocator's blocks, the collectives' first setup
     kernels = _kernels()
     before = {k: m.LAUNCHES for k, m in kernels.items()}
-    nbytes, colls = shuffle.BYTES, shuffle.COLLECTIVES
+    counted = counts()
     gs.barrier()
     t = time.perf_counter()
     out, cells = join()
     gs.sync()
     total_ms = (time.perf_counter() - t) * 1e3
     launches = {k: m.LAUNCHES - before[k] for k, m in kernels.items()}
-    nbytes, colls = shuffle.BYTES - nbytes, shuffle.COLLECTIVES - colls
+    nbytes, colls = (counts().get(k, 0) - counted.get(k, 0)
+                     for k in ("exchange.bytes", "exchange.collectives"))
     fk, (y,), (x,), matched, overflow = shard(out, 0)
     over = gs.any(overflow)
     # the phases at the cells the join ran with

@@ -10,7 +10,13 @@ Reference (SURVEY §5.1, §5.5):
     normalized by rank count, join_benchmark.cc:48-60) -> ``Counters``,
     emitted as JSON lines (scripts/parse_results.py -> CSV);
   * ENABLE_LOG printf logging (shared/umq/log.h) -> ``log``/``device_log``
-    gated on config.FLAGS.
+    gated on config.FLAGS;
+  * the hot path's own spans and counters: ``trace`` opens a span at each
+    step of a query (``dpu_olap.<layer>.<step>``) when a profiler runs, and
+    ``count`` adds to a registry of plain ints (``readback.<site>``, the
+    host readbacks of device scalars; ``exchange.copies``, ``.bytes`` and
+    ``.collectives``, what the shuffle's exchanges moved), read as the
+    difference of two ``counts()``.
 """
 
 from __future__ import annotations
@@ -22,6 +28,9 @@ import sys
 from typing import Dict
 
 import numpy as np
+import torch
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from .config import FLAGS
 
@@ -50,23 +59,29 @@ def device_log(tag: str, per_device_values, names=None) -> None:
         print(f"[dev {dev}] {tag}: {body}", file=sys.stderr, flush=True)
 
 
-@contextlib.contextmanager
-def trace(name: str, trace_dir: str | None = None):
-    """Device profiling scope (the perfcounter analog; the JAX package's
-    jax.profiler.trace + TraceAnnotation). The region is always annotated
-    with ``torch.profiler.record_function(name)``, so that a profiler
-    running around it attributes its device work to ``name``. With
-    ``trace_dir`` set and FLAGS.enable_perf, it also profiles the region on
-    the CPU and, where there is one, the CUDA device, and writes a Chrome
-    trace ``<name>.<pid>.json`` into ``trace_dir``; the path is then
-    yielded (None otherwise)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+_OFF = contextlib.nullcontext()  # every span when no profiler runs
+_COUNTS: Dict[str, int] = {}
 
-    if not (trace_dir and FLAGS.enable_perf):
-        with record_function(name):
-            yield None
-        return
+
+def trace(name: str, trace_dir: str | None = None):
+    """A span named ``name`` (the perfcounter analog; the JAX package's
+    jax.profiler.trace + TraceAnnotation): a ``record_function(name)`` while
+    a ``torch.profiler`` runs, so that the profiler puts the region and the
+    device work launched in it on its own clock, and one shared no-op
+    otherwise, which costs a flag test. With ``trace_dir`` set and
+    FLAGS.enable_perf, it profiles the region itself on the CPU and, where
+    there is one, the CUDA device, and writes a Chrome trace
+    ``<name>.<pid>.json`` into ``trace_dir``; the path is then yielded (None
+    otherwise)."""
+    if trace_dir and FLAGS.enable_perf:
+        return _exported(name, trace_dir)
+    if _autograd_profiler._is_profiler_enabled:
+        return record_function(name)
+    return _OFF
+
+
+@contextlib.contextmanager
+def _exported(name: str, trace_dir: str):
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
@@ -78,6 +93,17 @@ def trace(name: str, trace_dir: str | None = None):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(path)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the counter ``name``: a plain int, no device work."""
+    _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def counts() -> Dict[str, int]:
+    """A copy of every counter; what a stretch of work counted is the
+    difference of the copies taken before and after it."""
+    return dict(_COUNTS)
 
 
 class Counters:

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..metrics import count
 from . import sum_cuda
 
 _FBLOCK = 1 << 13  # f32 partial-sum block of the float path
@@ -34,6 +35,9 @@ def sum_u64_pair(values: torch.Tensor):
 
 
 def u64_pair_to_int(lo, hi) -> int:
+    """The sum's (lo, hi) pair as one int: two readbacks of device scalars,
+    counted as ``readback.aggregate.u64``."""
+    count("readback.aggregate.u64", 2)
     return (int(hi) << 32) | int(lo)
 
 

@@ -27,16 +27,16 @@ from typing import Tuple
 
 import torch
 
+from ..metrics import trace
 from .hashtable import ht_build, ht_probe, table_capacity
 from .merge import (
     EMPTY,
     _as_u32,
-    _decode_k2,
-    _fill,
     _fill_match,
     _match,
     _sort,
     _u32,
+    fill_k2,
     join_shard_sorted_build,
 )
 from .scan_cuda import propagate_fill
@@ -108,22 +108,16 @@ def _cosort_planes(left_fk, left_payload, right_pk, right_payload, left_valid, r
 
 def cosort_k2(left_fk, left_payload, right_pk, right_payload, left_valid=None,
               right_valid=None) -> tuple:
-    """The sort step of join_shard_fused with keys31: the side packed into
-    the key, k2 = key << 1 | side (pk rows 0), sorted with the merged
-    payload planes. Returns the sorted planes (k2, payload 0, ...)."""
-    pk, fk, merged = _cosort_planes(left_fk, left_payload, right_pk, right_payload, left_valid,
-                                    right_valid)
-    # EMPTY maps to 0xFFFFFFFE/0xFFFFFFFF: still the maximum
-    k2 = _u32(torch.cat([pk.to(torch.int64) << 1, (fk.to(torch.int64) << 1) | 1]))
-    return _sort((k2, *merged))
-
-
-def fill_k2(planes, m_r: int) -> tuple:
-    """The fill step of join_shard_fused with keys31, on cosort_k2's sorted
-    planes: (sk, is_pk, filled), the decoded keys and sides and each pk
-    row's key and first m_r payloads filled forward."""
-    sk, is_pk = _decode_k2(planes[0])
-    return sk, is_pk, _fill(sk, is_pk, planes[1:], m_r)
+    """The sort step of join_shard_fused with keys31, in the span
+    dpu_olap.join.sort: the side packed into the key, k2 = key << 1 | side
+    (pk rows 0), sorted with the merged payload planes. Returns the sorted
+    planes (k2, payload 0, ...)."""
+    with trace("dpu_olap.join.sort"):
+        pk, fk, merged = _cosort_planes(left_fk, left_payload, right_pk, right_payload,
+                                        left_valid, right_valid)
+        # EMPTY maps to 0xFFFFFFFE/0xFFFFFFFF: still the maximum
+        k2 = _u32(torch.cat([pk.to(torch.int64) << 1, (fk.to(torch.int64) << 1) | 1]))
+        return _sort((k2, *merged))
 
 
 def join_shard_fused(
@@ -144,21 +138,22 @@ def join_shard_fused(
     k2 = key << 1 | side and stability no longer matters; k2 values >=
     0xFFFFFFFE decode back to EMPTY (which excludes 0x7FFFFFFF itself).
     Callers check the range on the host. Its steps are cosort_k2, fill_k2
-    and the match."""
+    and the match (the spans dpu_olap.join.sort, .fill and .match)."""
     m_l, m_r = len(left_payload), len(right_payload)
     if keys31:
         planes = cosort_k2(left_fk, left_payload, right_pk, right_payload, left_valid,
                            right_valid)
         sk, is_pk, filled = fill_k2(planes, m_r)
         return _match(sk, is_pk, filled, planes[1:], m_l)
-    pk, fk, merged = _cosort_planes(left_fk, left_payload, right_pk, right_payload, left_valid,
-                                    right_valid)
-    # the stable sort keeps each pk row before its equal fk rows; side
-    # rides as an operand
-    dev = left_fk.device
-    side = torch.cat([torch.zeros(pk.shape[0], dtype=torch.uint32, device=dev),
-                      torch.ones(fk.shape[0], dtype=torch.uint32, device=dev)])
-    sk, sside, *smerged = sort_bitonic_ref((torch.cat([pk, fk]), side, *merged))
+    with trace("dpu_olap.join.sort"):
+        pk, fk, merged = _cosort_planes(left_fk, left_payload, right_pk, right_payload,
+                                        left_valid, right_valid)
+        # the stable sort keeps each pk row before its equal fk rows; side
+        # rides as an operand
+        dev = left_fk.device
+        side = torch.cat([torch.zeros(pk.shape[0], dtype=torch.uint32, device=dev),
+                          torch.ones(fk.shape[0], dtype=torch.uint32, device=dev)])
+        sk, sside, *smerged = sort_bitonic_ref((torch.cat([pk, fk]), side, *merged))
     return _fill_match(sk.to(torch.int64), sside.view(torch.int32) == 0, smerged, m_l, m_r)
 
 

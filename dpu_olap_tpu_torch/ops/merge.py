@@ -28,6 +28,7 @@ from typing import Tuple
 
 import torch
 
+from ..metrics import trace
 from . import hashtable
 from .bitonic_cuda import LANES, bitonic_merge_blocks
 from .scan_cuda import propagate_fill
@@ -86,18 +87,23 @@ def _fill(sk: torch.Tensor, is_pk: torch.Tensor, smerged, m_r: int) -> tuple:
 
 
 def _match(sk: torch.Tensor, is_pk: torch.Tensor, filled, smerged, m_l: int):
-    """The match step after _fill: keep the fk rows whose filled key is
-    their own, and zero the rest. Returns (key, out_l, out_r, matched)."""
-    pkey = filled[0].to(torch.int64)
-    matched = (pkey != EMPTY) & (pkey == sk) & ~is_pk & (sk != EMPTY)
-    out_l = tuple(_where0(matched, smerged[k]) for k in range(m_l))
-    out_r = tuple(_where0(matched, c) for c in filled[1:])
-    return _u32(torch.where(matched, sk, 0)), out_l, out_r, matched
+    """The match step after _fill, in the span dpu_olap.join.match: keep the
+    fk rows whose filled key is their own, and zero the rest. Returns (key,
+    out_l, out_r, matched)."""
+    with trace("dpu_olap.join.match"):
+        pkey = filled[0].to(torch.int64)
+        matched = (pkey != EMPTY) & (pkey == sk) & ~is_pk & (sk != EMPTY)
+        out_l = tuple(_where0(matched, smerged[k]) for k in range(m_l))
+        out_r = tuple(_where0(matched, c) for c in filled[1:])
+        return _u32(torch.where(matched, sk, 0)), out_l, out_r, matched
 
 
 def _fill_match(sk: torch.Tensor, is_pk: torch.Tensor, smerged, m_l: int, m_r: int):
-    """The tail of every co-sort join: _fill, then _match."""
-    return _match(sk, is_pk, _fill(sk, is_pk, smerged, m_r), smerged, m_l)
+    """The tail of every co-sort join: _fill (in the span
+    dpu_olap.join.fill), then _match."""
+    with trace("dpu_olap.join.fill"):
+        filled = _fill(sk, is_pk, smerged, m_r)
+    return _match(sk, is_pk, filled, smerged, m_l)
 
 
 def _decode_k2(sk2: torch.Tensor) -> tuple:
@@ -107,10 +113,20 @@ def _decode_k2(sk2: torch.Tensor) -> tuple:
     return torch.where(k2 >= 0xFFFFFFFE, EMPTY, k2 >> 1), (k2 & 1) == 0
 
 
-def _fill_match_k2(sk2: torch.Tensor, smerged, m_l: int, m_r: int):
-    """_fill_match for sorted packed keys (_decode_k2)."""
-    sk, is_pk = _decode_k2(sk2)
-    return _fill_match(sk, is_pk, smerged, m_l, m_r)
+def fill_k2(planes, m_r: int) -> tuple:
+    """The fill step of the co-sort joins with keys31, in the span
+    dpu_olap.join.fill, on sorted planes (k2, payload 0, ...): (sk, is_pk,
+    filled), the decoded keys and sides and each pk row's key and first m_r
+    payloads filled forward."""
+    with trace("dpu_olap.join.fill"):
+        sk, is_pk = _decode_k2(planes[0])
+        return sk, is_pk, _fill(sk, is_pk, planes[1:], m_r)
+
+
+def _fill_match_k2(planes, m_l: int, m_r: int):
+    """_fill_match for sorted planes led by packed keys (fill_k2)."""
+    sk, is_pk, filled = fill_k2(planes, m_r)
+    return _match(sk, is_pk, filled, planes[1:], m_l)
 
 
 def _sort(planes) -> tuple:
@@ -134,25 +150,29 @@ def join_shard_sorted_build(
     m_l, m_r = len(left_payload), len(right_payload)
     m = max(m_l, m_r)
     dev = left_fk.device
-    xs = [_as_u32(right_payload[k]) if k < m_r else torch.zeros(n_r, dtype=torch.uint32, device=dev)
-          for k in range(m)]
-    ys = [_as_u32(left_payload[k]) if k < m_l else torch.zeros(n_l, dtype=torch.uint32, device=dev)
-          for k in range(m)]
+    with trace("dpu_olap.join.keys"):
+        xs = [_as_u32(right_payload[k]) if k < m_r
+              else torch.zeros(n_r, dtype=torch.uint32, device=dev) for k in range(m)]
+        ys = [_as_u32(left_payload[k]) if k < m_l
+              else torch.zeros(n_l, dtype=torch.uint32, device=dev) for k in range(m)]
+        probe = (_u32((_as_u32(left_fk).to(torch.int64) << 1) | 1), *ys)
+        k2_r = _u32(_as_u32(right_pk).to(torch.int64) << 1)
+    with trace("dpu_olap.join.sort"):
+        sorted_l = _sort(probe)
+        del probe  # the packed probe keys, as soon as they are sorted
+        if not pk_sorted:
+            k2_r, *xs = _sort((k2_r, *xs))
 
-    sorted_l = _sort((_u32((_as_u32(left_fk).to(torch.int64) << 1) | 1), *ys))
-    k2_r = _u32(_as_u32(right_pk).to(torch.int64) << 1)
-    if not pk_sorted:
-        k2_r, *xs = _sort((k2_r, *xs))
-
-    n = n_r + n_l
-    pad = (1 << (n - 1).bit_length()) - n
-    # [ascending pk run | max-key pad | descending fk run] is bitonic
-    zk = torch.cat([k2_r, torch.full((pad,), EMPTY, dtype=torch.uint32, device=dev),
-                    _reverse(sorted_l[0])])
-    zps = [torch.cat([x, torch.zeros(pad, dtype=torch.uint32, device=dev), _reverse(sy)])
-           for x, sy in zip(xs, sorted_l[1:])]
-    merged = bitonic_merge((zk, *zps))
-    return _fill_match_k2(merged[0], merged[1:], m_l, m_r)
+    with trace("dpu_olap.join.merge"):
+        n = n_r + n_l
+        pad = (1 << (n - 1).bit_length()) - n
+        # [ascending pk run | max-key pad | descending fk run] is bitonic
+        zk = torch.cat([k2_r, torch.full((pad,), EMPTY, dtype=torch.uint32, device=dev),
+                        _reverse(sorted_l[0])])
+        zps = [torch.cat([x, torch.zeros(pad, dtype=torch.uint32, device=dev), _reverse(sy)])
+               for x, sy in zip(xs, sorted_l[1:])]
+        merged = bitonic_merge((zk, *zps))
+    return _fill_match_k2(merged, m_l, m_r)
 
 
 def join_dense_eligible(n_l: int, n_r: int) -> bool:

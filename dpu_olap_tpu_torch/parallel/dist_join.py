@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from ..config import FLAGS
-from ..metrics import log
+from ..metrics import log, trace
 from .mesh import DeviceSet
 from .shuffle import ShuffleResult, default_cell_size, shuffle_partitions
 
@@ -56,7 +56,8 @@ def join_shuffled(left: ShuffleResult, right: ShuffleResult, impl: str = "cosort
     rounds (the reference bounces every fragment through host slabs,
     join_dpu.cc:254-369).
 
-    Returns (fk, left_cols, right_cols, matched, overflow)."""
+    Returns (fk, left_cols, right_cols, matched, overflow). Runs in the span
+    dpu_olap.dist.join."""
     from ..ops.join import join_shard, join_shard_fused  # avoid cycles
 
     def local_join(lk, lp, l_valid, rk, rp, r_valid):
@@ -68,30 +69,31 @@ def join_shuffled(left: ShuffleResult, right: ShuffleResult, impl: str = "cosort
             )
         return join_shard(lk, lp, rk, rp, left_valid=l_valid, right_valid=r_valid, impl=impl)
 
-    overflow = (left.overflow | right.overflow).reshape(1)
-    assert left.rounds == right.rounds
-    if left.rounds == 1:
-        rk, rp, r_valid = right.flat()
-        lk, lp, l_valid = left.flat()
-        fk, lcols, rcols, matched = local_join(lk, lp, l_valid, rk, rp, r_valid)
-        return fk, lcols, rcols, matched, overflow
+    with trace("dpu_olap.dist.join"):
+        overflow = (left.overflow | right.overflow).reshape(1)
+        assert left.rounds == right.rounds
+        if left.rounds == 1:
+            rk, rp, r_valid = right.flat()
+            lk, lp, l_valid = left.flat()
+            fk, lcols, rcols, matched = local_join(lk, lp, l_valid, rk, rp, r_valid)
+            return fk, lcols, rcols, matched, overflow
 
-    lkp, lpp, lvp = left.round_planes()  # (R, d*cell_l) each
-    rkp, rpp, rvp = right.round_planes()
-    outs = [
-        local_join(lkp[r], tuple(p[r] for p in lpp), lvp[r],
-                   rkp[r], tuple(p[r] for p in rpp), rvp[r])
-        for r in range(left.rounds)
-    ]
+        lkp, lpp, lvp = left.round_planes()  # (R, d*cell_l) each
+        rkp, rpp, rvp = right.round_planes()
+        outs = [
+            local_join(lkp[r], tuple(p[r] for p in lpp), lvp[r],
+                       rkp[r], tuple(p[r] for p in rpp), rvp[r])
+            for r in range(left.rounds)
+        ]
 
-    n_l, n_r = len(outs[0][1]), len(outs[0][2])
-    return (
-        torch.cat([o[0] for o in outs]),
-        tuple(torch.cat([o[1][k] for o in outs]) for k in range(n_l)),
-        tuple(torch.cat([o[2][k] for o in outs]) for k in range(n_r)),
-        torch.cat([o[3] for o in outs]),
-        overflow,
-    )
+        n_l, n_r = len(outs[0][1]), len(outs[0][2])
+        return (
+            torch.cat([o[0] for o in outs]),
+            tuple(torch.cat([o[1][k] for o in outs]) for k in range(n_l)),
+            tuple(torch.cat([o[2][k] for o in outs]) for k in range(n_r)),
+            torch.cat([o[3] for o in outs]),
+            overflow,
+        )
 
 
 RETRIES = 4  # joins, the cells doubled after each overflow, before a skewed input raises
@@ -225,7 +227,9 @@ def dist_join_retry(ds, left_fk, left_payloads: Tuple, right_pk, right_payloads:
     for attempt in range(RETRIES):
         out = dist_join(ds, left_fk, left_payloads, right_pk, right_payloads, impl=impl,
                         cell_left=cell_left, cell_right=cell_right, keys31=keys31, rounds=rounds)
-        if not ds.any(out[4]):
+        with trace("dpu_olap.dist.vote"):
+            over = ds.any(out[4])
+        if not over:
             return out, (cell_left, cell_right)
         log(f"join shuffle overflow (attempt {attempt}): cells {cell_left} / {cell_right}"
             " doubled")

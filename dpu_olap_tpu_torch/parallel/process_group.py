@@ -45,6 +45,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..metrics import count
 from .shuffle import exchange_group
 
 TIMEOUT_S = 300  # a collective's and a spawn's time limit
@@ -152,6 +153,7 @@ class GroupSet:
             (flags,) = flags
         t = flags.reshape(-1).any().to(torch.int32).reshape(1).to(self.device)
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        count("readback.group.any")
         return bool(t.item())
 
     def barrier(self) -> None:

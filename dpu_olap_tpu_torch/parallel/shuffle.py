@@ -42,19 +42,18 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ..metrics import count, trace
 from ..ops.partition_cuda import partition_cells, partition_cells_ref, partitionable
 from .mesh import DeviceSet
 
 LANES = 128  # the in-band counts' tail column (the JAX package's LANES_)
-# What the exchanges moved since the counts were last set to 0: copies
-# issued (one a destination where its sources share its physical device, one
-# a source and destination otherwise) and the bytes that reached the
-# destinations. The JAX package counts collectives in the compiled program
-# (scripts/bench_multichip.py collective_count); these take their place,
-# with the collectives that exchange_group called (one a rank's call).
-COPIES = 0
-BYTES = 0
-COLLECTIVES = 0
+# What the exchanges move is counted in the program's counters
+# (metrics.count): ``exchange.copies``, the copies issued (one a destination
+# where its sources share its physical device, one a source and destination
+# otherwise); ``exchange.bytes``, the bytes that reached the destinations;
+# ``exchange.collectives``, the collectives exchange_group called (one a
+# rank's call). The JAX package counts collectives in the compiled program
+# (scripts/bench_multichip.py collective_count); these take their place.
 
 
 @dataclasses.dataclass
@@ -141,18 +140,17 @@ def exchange(blocks: Sequence[torch.Tensor], split_axis: int = 0,
     equal slices of every blocks[s] along split_axis, concatenated in source
     order along concat_axis. Blocks move as they are (the shuffle sends int32
     views of its uint32 planes)."""
-    global COPIES, BYTES
     d = len(blocks)
     out = []
     for t, dst in enumerate(b.device for b in blocks):
         pieces = [b.chunk(d, dim=split_axis)[t] for b in blocks]
         if all(p.device == dst for p in pieces):
             recv = torch.cat(pieces, dim=concat_axis)
-            COPIES += 1
+            count("exchange.copies")
         else:
             recv = _peer_copy(pieces, dst, concat_axis)
-            COPIES += d
-        BYTES += recv.numel() * recv.element_size()
+            count("exchange.copies", d)
+        count("exchange.bytes", recv.numel() * recv.element_size())
         out.append(recv)
     return tuple(out)
 
@@ -168,7 +166,6 @@ def exchange_group(block: torch.Tensor, group, axis: int = 0) -> torch.Tensor:
     takes the identity: one card's NCCL group has only that world). The
     block moves as it is; neither NCCL nor gloo moves uint32, and the
     shuffle sends int32 views."""
-    global COPIES, BYTES, COLLECTIVES
     import torch.distributed as dist
 
     send = block.movedim(axis, 0).contiguous()
@@ -177,9 +174,9 @@ def exchange_group(block: torch.Tensor, group, axis: int = 0) -> torch.Tensor:
                          f" {group.world_size} ranks")
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group.group)
-    COLLECTIVES += 1
-    COPIES += 1
-    BYTES += recv.numel() * recv.element_size()
+    count("exchange.collectives")
+    count("exchange.copies")
+    count("exchange.bytes", recv.numel() * recv.element_size())
     return recv.movedim(0, axis)
 
 
@@ -217,22 +214,23 @@ def move_fragments(ds, frags, cell_size: int, rounds: int = 1,
     each shard this process holds, moved by the set's exchange (ds, a
     DeviceSet or a GroupSet): the stacked key and payload planes, with the
     counts in their tail column (counts_inband) or in a second, tiny
-    exchange."""
-    move = ds.exchange
-    stacked = [_stacked(ck, cp) for ck, cp, _, _ in frags]
-    if counts_inband:
-        tails = []
-        for st, (_, _, counts, _) in zip(stacked, frags):
-            tail = torch.zeros((st.shape[0], st.shape[1], LANES), dtype=torch.int32,
-                               device=st.device)
-            tail[:, 0, 0] = counts.view(torch.int32)
-            tails.append(torch.cat([st, tail], dim=2))
-        recv = move(tails)
-        return tuple(_unstacked(r[:, :, :cell_size], r[:, 0, cell_size], f[3], rounds)
-                     for r, f in zip(recv, frags))
-    recv = move(stacked)
-    recv_counts = move([f[2].view(torch.int32) for f in frags])
-    return tuple(_unstacked(r, c, f[3], rounds) for r, c, f in zip(recv, recv_counts, frags))
+    exchange. Runs in the span dpu_olap.dist.exchange."""
+    with trace("dpu_olap.dist.exchange"):
+        move = ds.exchange
+        stacked = [_stacked(ck, cp) for ck, cp, _, _ in frags]
+        if counts_inband:
+            tails = []
+            for st, (_, _, counts, _) in zip(stacked, frags):
+                tail = torch.zeros((st.shape[0], st.shape[1], LANES), dtype=torch.int32,
+                                   device=st.device)
+                tail[:, 0, 0] = counts.view(torch.int32)
+                tails.append(torch.cat([st, tail], dim=2))
+            recv = move(tails)
+            return tuple(_unstacked(r[:, :, :cell_size], r[:, 0, cell_size], f[3], rounds)
+                         for r, f in zip(recv, frags))
+        recv = move(stacked)
+        recv_counts = move([f[2].view(torch.int32) for f in frags])
+        return tuple(_unstacked(r, c, f[3], rounds) for r, c, f in zip(recv, recv_counts, frags))
 
 
 def shuffle_partitions(
@@ -283,8 +281,9 @@ def shuffle_partitions(
     d = ds.nr_devices
     if nr_partitions != d:
         raise ValueError(f"{d} shards take nr_partitions {d}, got {nr_partitions}")
-    frags = [local_fragments(k, tuple(col[s] for col in payloads), d * rounds, cell_size)
-             for s, k in enumerate(keys)]
+    with trace("dpu_olap.dist.partition"):
+        frags = [local_fragments(k, tuple(col[s] for col in payloads), d * rounds, cell_size)
+                 for s, k in enumerate(keys)]
     if d == 1 and isinstance(ds, DeviceSet):
         # one device under one controller: the identity exchange (a group's
         # is a collective at every world size)

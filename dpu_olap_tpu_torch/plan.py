@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from .columnar import Batch, Table, to_numpy
+from .metrics import count, trace
 from .parallel.mesh import DeviceSet
 
 
@@ -62,6 +63,13 @@ def _is_u32(col) -> bool:
     return _np_dtype(col) == np.uint32
 
 
+def _readback(site: str, scalar) -> bool:
+    """A device scalar's truth on the host: one readback, counted as
+    ``readback.plan.<site>``."""
+    count(f"readback.plan.{site}")
+    return bool(scalar)
+
+
 class Node:
     def execute(self, ds: DeviceSet) -> Table:
         raise NotImplementedError
@@ -69,11 +77,13 @@ class Node:
     # result cache so diamond-shaped plans execute each node once per
     # DeviceSet. Keyed on the DeviceSet OBJECT (WeakKeyDictionary): an
     # id()-keyed dict would serve a stale Table when a collected DeviceSet's
-    # id is recycled by a new one.
+    # id is recycled by a new one. A miss runs in the span
+    # dpu_olap.plan.<node class>.
     def _run(self, ds) -> Table:
         cache = self.__dict__.setdefault("_cached", weakref.WeakKeyDictionary())
         if ds not in cache:
-            cache[ds] = self.execute(ds)
+            with trace(f"dpu_olap.plan.{type(self).__name__}"):
+                cache[ds] = self.execute(ds)
         return cache[ds]
 
 
@@ -112,11 +122,11 @@ class Filter(Node):
             col = _dev(ds, batch[self.column])
             others = [n for n in batch.names if n != self.column]
             if not others:
-                vals, count = filter_compact(col, predicate=pred)
-                out.append(Batch({self.column: vals[: int(count)]}))
+                vals, kept = filter_compact(col, predicate=pred)
+                out.append(Batch({self.column: vals[: int(kept)]}))
                 continue
-            vals, idxs, count = filter_with_indices(col, predicate=pred)
-            c = int(count)
+            vals, idxs, kept = filter_with_indices(col, predicate=pred)
+            c = int(kept)
             cols = {self.column: vals[:c]}
             for n in others:
                 cols[n] = take(_dev(ds, batch[n]), idxs[:c])
@@ -144,12 +154,14 @@ def _compact_device(matched: torch.Tensor, cols: dict) -> dict:
     from .ops.filter import filter_with_indices
     from .ops.take import take
 
-    # encode the mask so the default predicate (v < 2^30) selects matched
-    # rows: the filter kernel serves only that predicate
-    plane = torch.where(matched, 0, -1).to(torch.int32).view(torch.uint32)
-    _, idxs, count = filter_with_indices(plane)
-    sel = idxs[: int(count)]  # the one host readback
-    return {n: take(col, sel) for n, col in cols.items()}
+    with trace("dpu_olap.plan.compact"):
+        # encode the mask so the default predicate (v < 2^30) selects
+        # matched rows: the filter kernel serves only that predicate
+        plane = torch.where(matched, 0, -1).to(torch.int32).view(torch.uint32)
+        _, idxs, kept = filter_with_indices(plane)
+        count("readback.plan.compact")
+        sel = idxs[: int(kept)]  # the one host readback
+        return {n: take(col, sel) for n, col in cols.items()}
 
 
 def _recombine(tags, outs, m: np.ndarray, wide: dict) -> dict:
@@ -226,28 +238,32 @@ class HashJoin(Node):
         which would copy the very intermediates this tier keeps resident."""
         from .ops.join import join_shard_auto
 
-        for tab in (lt, rt):
-            for b in tab:
-                if not all(_is_u32(b[n]) for n in b.names):
-                    return None  # wide/float planes: operator tier
+        with trace("dpu_olap.plan.dtypes"):
+            for tab in (lt, rt):
+                for b in tab:
+                    if not all(_is_u32(b[n]) for n in b.names):
+                        return None  # wide/float planes: operator tier
 
         def cat(tab, name):
             cols = [_dev(ds, b[name]) for b in tab]
             return cols[0] if len(cols) == 1 else torch.cat(cols)
 
-        lf = cat(lt, self.fk)
-        rk = cat(rt, self.pk)
-        lnames = [n for n in lt.names if n != self.fk]
-        rnames = [n for n in rt.names if n != self.pk]
-        lps = tuple(cat(lt, n) for n in lnames)
-        rps = tuple(cat(rt, n) for n in rnames)
+        with trace("dpu_olap.plan.concat"):
+            lf = cat(lt, self.fk)
+            rk = cat(rt, self.pk)
+            lnames = [n for n in lt.names if n != self.fk]
+            rnames = [n for n in rt.names if n != self.pk]
+            lps = tuple(cat(lt, n) for n in lnames)
+            rps = tuple(cat(rt, n) for n in rnames)
         if lf.shape[0] == 0 or rk.shape[0] == 0:
             return None
 
         lim = 0x7FFFFFFF
-        lf64, rk64 = lf.to(torch.int64), rk.to(torch.int64)
-        keys31 = bool(lf64.max() < lim) and bool(rk64.max() < lim)
-        pk_sorted = bool((rk64[1:] >= rk64[:-1]).all()) if rk.shape[0] > 1 else True
+        with trace("dpu_olap.plan.structure"):
+            lf64, rk64 = lf.to(torch.int64), rk.to(torch.int64)
+            keys31 = _readback("keys31", lf64.max() < lim) and _readback("keys31", rk64.max() < lim)
+            pk_sorted = (_readback("pk_sorted", (rk64[1:] >= rk64[:-1]).all())
+                         if rk.shape[0] > 1 else True)
         fk, lcols, rcols, matched = join_shard_auto(
             lf, lps, rk, rps, keys31=keys31, pk_sorted=pk_sorted
         )
@@ -425,12 +441,16 @@ class Aggregate(Node):
             pass
         else:
             t = self.input._run(ds)
-            if t.is_device and u32_col is not False and all(_is_u32(b[self.column]) for b in t):
-                # device-resident input (an upstream node's un-materialized
-                # result): reduce in place, scalar readbacks only
-                result = sum(u64_pair_to_int(*sum_u64_pair(b[self.column])) for b in t)
-                result &= (1 << 64) - 1
-            else:
+            with trace("dpu_olap.plan.sum"):
+                resident = (t.is_device and u32_col is not False
+                            and all(_is_u32(b[self.column]) for b in t))
+                if resident:
+                    # device-resident input (an upstream node's
+                    # un-materialized result): reduce in place, scalar
+                    # readbacks only
+                    result = sum(u64_pair_to_int(*sum_u64_pair(b[self.column])) for b in t)
+                    result &= (1 << 64) - 1
+            if not resident:
                 from .operators.aggr_op import SumGpu
 
                 result = SumGpu(ds, t, self.column).Prepare().Run()

@@ -31,6 +31,7 @@ from dpu_olap_tpu.parallel.partitioner import ResidentPartitioner as JaxResident
 from dpu_olap_tpu_torch import config
 from dpu_olap_tpu_torch.columnar import Batch, Table
 from dpu_olap_tpu_torch.config import FLAGS
+from dpu_olap_tpu_torch.metrics import counts
 from dpu_olap_tpu_torch.operators import PartitionGpu
 from dpu_olap_tpu_torch.operators.aggr_op import SumGpu, SumNative
 from dpu_olap_tpu_torch.operators.filter_op import FilterGpu, FilterNative
@@ -111,13 +112,16 @@ def test_exchange_is_the_tiled_all_to_all():
     d, k = 4, 3
     blocks_in = [torch.arange(d * k * 2, dtype=torch.int32).reshape(d * k, 2) + 100 * s
                  for s in range(d)]
-    copies, nbytes = shuffle.COPIES, shuffle.BYTES
+    before = counts()
     recv = shuffle.exchange(blocks_in)
     for t in range(d):
         want = torch.cat([b[t * k:(t + 1) * k] for b in blocks_in])
         assert torch.equal(recv[t], want)
-    assert shuffle.COPIES - copies == d  # one cat a destination on one device
-    assert shuffle.BYTES - nbytes == sum(b.numel() * 4 for b in blocks_in)
+    after = counts()
+    # one cat a destination on one device
+    assert after["exchange.copies"] - before.get("exchange.copies", 0) == d
+    assert (after["exchange.bytes"] - before.get("exchange.bytes", 0)
+            == sum(b.numel() * 4 for b in blocks_in))
     # split and concat on the second axis (the 2-D shuffle's first stage)
     wide = [b.reshape(k, d * 2) for b in blocks_in]
     recv = shuffle.exchange(wide, split_axis=1, concat_axis=1)

@@ -16,6 +16,7 @@ from jax.sharding import Mesh
 from dpu_olap_tpu.generator import make_join_tables as jax_make_join_tables
 from dpu_olap_tpu.parallel.multihost import DCN_AXIS, ICI_AXIS
 from dpu_olap_tpu.parallel.multihost import dist_join_2d as jax_dist_join_2d
+from dpu_olap_tpu_torch.metrics import counts
 from dpu_olap_tpu_torch.parallel import shuffle
 from dpu_olap_tpu_torch.parallel.dist_join import dist_join
 from dpu_olap_tpu_torch.parallel.mesh import DeviceSet
@@ -69,10 +70,10 @@ def test_hierarchical_shuffle_equals_flat(h, c, rounds):
     cell = shuffle.default_cell_size(n // d, d * rounds, 2.0)
     ds = cpu_set(d)
     flat = shuffle.shuffle_partitions(ds.split(keys), (ds.split(pay),), d, cell, rounds=rounds)
-    copies = shuffle.COPIES
+    copies = counts()["exchange.copies"]
     two = shuffle_partitions_2d(ds.split(keys), (ds.split(pay),), h, c, cell, rounds=rounds)
     # two stages, each a cat a destination, for the planes and the counts
-    assert shuffle.COPIES - copies == 2 * 2 * d
+    assert counts()["exchange.copies"] - copies == 2 * 2 * d
     for a, b in zip(flat, two):
         assert torch.equal(a.keys, b.keys) and torch.equal(a.payloads[0], b.payloads[0])
         assert torch.equal(a.counts, b.counts) and torch.equal(a.overflow, b.overflow)

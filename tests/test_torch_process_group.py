@@ -26,6 +26,7 @@ import torch
 
 from dpu_olap_tpu_torch.bench import multiproc
 from dpu_olap_tpu_torch.generator import make_join_tables
+from dpu_olap_tpu_torch.metrics import counts
 from dpu_olap_tpu_torch.bench.multiproc import shard
 from dpu_olap_tpu_torch.parallel import dist_join as dj
 from dpu_olap_tpu_torch.parallel import process_group as pg
@@ -78,9 +79,11 @@ def _host(out):
 
 def _counted(fn):
     """fn()'s result and what the exchanges counted meanwhile."""
-    c, b, k = shuffle.COPIES, shuffle.BYTES, shuffle.COLLECTIVES
+    names = ("exchange.copies", "exchange.bytes", "exchange.collectives")
+    before = counts()
     out = fn()
-    return out, (shuffle.COPIES - c, shuffle.BYTES - b, shuffle.COLLECTIVES - k)
+    after = counts()
+    return out, tuple(after.get(n, 0) - before.get(n, 0) for n in names)
 
 
 def _rank_cases(gs):
