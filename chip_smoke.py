@@ -17,7 +17,9 @@ on every plane, the sorted gather, the radix partition and merge-probe, all
 four also timed as graph replays, the partition with its per-launch
 breakdown; filter v1 and the forward fill in both modes, also timed as
 graph replays and checked on views at offsets 1-3, in two calls in a row
-and in CUDA-graph replays; sum, block merge, the filter alternates and
+and in CUDA-graph replays; the co-sort joins' fill and match
+(fill_match_k2) at the same edges and at the two benchmark cells' lengths,
+timed beside the glue and fill it replaced; sum, block merge, the filter alternates and
 stage ablation, the block ops (every op on 1 to 264 blocks at reps 0 to
 17 with indices over the int32 range, misaligned views refused;
 count_matmul also on 1 to 264 tiles whose products are not all 0), the
@@ -35,7 +37,7 @@ shapes, each with the kernels' launch counts set to 0 just before its run
 and read just after:
   * JoinGpu at BM_JoinDpu SF=64 (128Mi rows a side), above one round's
     budget: the shuffle join in two resident rounds (partition, sort and
-    fill kernels), against the dense truth; at SF=8 its _run_ici(rounds=2)
+    fill_match kernels), against the dense truth; at SF=8 its _run_ici(rounds=2)
     against pyarrow, impl="sort" at SF=1 against pyarrow, and the
     host-staged partitioned join at SF=8 against the dense truth;
   * PartitionGpu on the SF=8 probe table into 16 partitions, both engines,
@@ -45,10 +47,11 @@ and read just after:
   * JoinGpu, the BM_JoinDpu dense-pk join (sort + gather kernels): SF=1
     against pyarrow, SF=8 against the dense truth;
   * JoinGpu's fallbacks at SF=1, each against pyarrow: the sorted-build
-    join on TPC-H's sparse o_orderkey shape (sort + merge + fill kernels),
-    the fused keys31 join on BM_JoinDpu tables with a permuted build side
-    (sort + fill kernels) and the generic fused join on the same tables
-    with keys above 2^31 (fill kernel);
+    join on TPC-H's sparse o_orderkey shape (sort + merge + fill_match
+    kernels), the fused keys31 join on BM_JoinDpu tables with a permuted
+    build side (sort + fill_match kernels) and the generic fused join on
+    the same tables with keys above 2^31 (the fill kernel, propagate_fill);
+    a path that launches the other of the two fill kernels fails;
   * FilterGpu, BM_Filter (filter kernel): against pyarrow, chunk by chunk;
   * SumGpu, BM_Aggr and its small-batch shape (sum kernel): the exact
     integer against pyarrow;
@@ -75,9 +78,10 @@ and read just after:
     Filter.execute never runs), SF=1 again under metrics.trace (its Chrome
     trace names the scope and CUDA kernels), the materialized Filter at
     SF=1 (filter kernel), on BM_JoinDpu SF=1 the fused filter join (sort +
-    fill) and an Aggregate over it (+ sum), the bare join (JoinGpu's dense
-    route: sort + gather) and the device-resident Filter -> HashJoin ->
-    Aggregate (filter, sort, merge, fill, sum; intermediates on the card),
+    fill_match) and an Aggregate over it (+ sum), the bare join (JoinGpu's
+    dense route: sort + gather) and the device-resident Filter -> HashJoin
+    -> Aggregate (filter, sort, merge, fill_match, sum; intermediates on
+    the card),
     Aggregate(TakeNode) on BM_Take SF=1 (sort + gather + sum, no restore
     sort) and Repartition of the SF=8 probe table into 16 partitions
     (partition kernel), against pyarrow or numpy;
@@ -86,7 +90,7 @@ and read just after:
     with the kernels it must launch counted; the join row with
     ACTIVATE_JOIN_TIMERS's flag on the shuffle route (its phase_ms), and
     the SF=64 path's shuffle join at SF=8 with the same timers (partition,
-    sort and fill kernels); verify_parity with REFERENCE_SHAPES=1 at SF=1,
+    sort and fill_match kernels); verify_parity with REFERENCE_SHAPES=1 at SF=1,
     bench_streaming --op filter --sf 1 2 and devicecount, each required to
     return 0;
   * several devices (``[multidevice]``): the paths above over DeviceSets
@@ -98,15 +102,16 @@ and read just after:
     HashJoin; dryrun_multichip(4) and the weak-scaling curve
     (bench/multichip.py); over the real cards where there are 2 or more.
     Each line gives the exchange's copies and bytes; the partition, sort,
-    fill, filter, sum and gather kernels must each launch in the phase;
+    fill (the 2 x 2 mesh's generic join), fill_match (the keys31 joins),
+    filter, sum and gather kernels must each launch in the phase;
   * one process a device (``[process_group]``, parallel/process_group.py
     through bench/multiproc.rank_join): BM_JoinDpu SF=8 over an NCCL group
     of the visible cards (this process on one card) in 1 and 2 rounds, and
     one spawn of 4 gloo ranks on the card at world 4, at world 2 (a
     subgroup) and on the 2 x 2 mesh; each rank's padded outputs equal
     (SHA-256) to its shard of the one-controller join, its matched rows
-    the dense truth, its collectives counted; the partition, sort and fill
-    kernels must launch in the ranks.
+    the dense truth, its collectives counted; the partition, sort, fill
+    and fill_match kernels must launch in the ranks.
 For each fallback it also splits the result's readback (copy, numpy mask,
 against masking on the card) and profiles one Run() (device busy time, idle
 share, the longest device events).
@@ -134,6 +139,9 @@ RUN_REPS = 3  # timed Run() calls per operator path (median)
 FILTER_N = 64 << 20  # one filter round at SF=8 (1024 x 64Ki)
 SUM_N = 16 << 20  # one sum round at SF=8 (8 x 2Mi)
 FILL_N = 8 << 20  # the sorted-build join's merge length at TPC-H SF=1
+# the co-sort joins' fill and match: cell 1's merge (bm_join_sf128, 256Mi rows
+# a side) and one round of cell 2 (bm_join_sf256_x4, two 128Mi cells a rank)
+FILL_MATCH_SHAPES = {"sf128_merge": 1 << 29, "sf256_x4_round": 1 << 28}
 TPCH_ORDERS = 1_500_000  # TPC-H SF=1 orders rows (spec §4.2.5)
 SF64 = 64  # BM_JoinDpu above one round's budget: 128Mi rows a side
 PART_N = 16 << 20  # partition_kernel_p8 at SF=8 (run_benchmarks.py:257-288)
@@ -1462,6 +1470,141 @@ def phase_fill_kernels(rng, card: str) -> dict:
     }
 
 
+def _fill_match_case(rng, n: int, m: int, kind: str):
+    """(k2, payload 0, ...) of a keys31 co-sort of n lanes, on the card.
+    sorted: fks below every pk, pk rows with their fks, fks with no pk,
+    then masked-out pk rows (0xFFFFFFFE) and pad or masked fk rows
+    (0xFFFFFFFF); run: fks with no pk, then from two lanes before the first
+    tile's end one pk and its fks to the end; unsorted: the sorted case's
+    keys in no order."""
+    if kind == "run":
+        lead = min(n, 4094)
+        k2 = np.full(n, 2 * 5000 + 1, np.int64)
+        k2[:lead] = 2 * rng.integers(0, 1000, lead) + 1
+        k2[lead:lead + 1] = 2 * 5000
+    else:
+        tail = n // 16
+        body = n - 2 * tail
+        pks = np.sort(100 + 3 * rng.choice((2**31 - 101) // 3, max(1, body // 4), replace=False))
+        fks = np.concatenate([rng.choice(pks, body - body // 2), rng.integers(0, 2**31 - 1, body // 2)])
+        fks[: min(3, body)] = rng.integers(0, 100, min(3, body))
+        k2 = np.sort(np.concatenate([pks.astype(np.int64) << 1, (fks.astype(np.int64) << 1) | 1]))
+        k2 = np.concatenate([k2[:body], np.full(tail, 0xFFFFFFFE), np.full(tail, 0xFFFFFFFF)])
+        if kind == "unsorted":
+            k2 = rng.permutation(k2)
+    pays = [rng.integers(0, 2**32, n, dtype=np.uint32) for _ in range(m)]
+    return (on_card(k2.astype(np.uint32)), *(on_card(p) for p in pays))
+
+
+def _cosort_on_card(n: int, seed: int):
+    """(k2, payload) of a keys31 co-sort of n lanes made on the card: n/2 -
+    n/32 pk rows (keys 3i) and as many fk rows, 9 in 10 with a pk, then n/32
+    masked-out pk rows (0xFFFFFFFE) and n/32 pad fk rows (0xFFFFFFFF), sorted
+    by k2; and the number of fk rows that find their pk."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows, pad = n // 2 - n // 32, n // 32
+    pk = torch.arange(rows, device="cuda") * 3
+    fk = pk[torch.randint(0, rows, (rows,), generator=gen, device="cuda")]
+    miss = torch.rand(rows, generator=gen, device="cuda") < 0.1
+    fk = torch.where(miss, fk + 1, fk)  # keys 3i + 1: no pk has one
+    k2 = torch.cat([pk << 1, (fk << 1) | 1, torch.full((pad,), 0xFFFFFFFE, device="cuda"),
+                    torch.full((pad,), 0xFFFFFFFF, device="cuda")])
+    del pk, fk
+    k2, order = torch.sort(k2)
+    pay = rand_u32(n, gen).view(torch.int32)[order].view(torch.uint32)
+    del order
+    return (k2.to(torch.uint32), pay), rows - int(miss.sum())
+
+
+def phase_fill_match_kernel(rng, card: str) -> dict:
+    """fill_match_k2's kernel == its plain version, bit for bit on every
+    plane, on the card: at the CPU tests' edges (lengths around the tile of
+    4096, 0 to 3 payloads a side, masked and pad lanes, fks before any pk, a
+    carry across tiles, unsorted keys, views at offsets 1 and 3), in two
+    calls in a row and a CUDA-graph replay, and at FILL_MATCH_SHAPES, each
+    call one launch. Timed there (eager, one call replayed from a graph),
+    beside the plain version and the path the joins took before it: the
+    decode, the fill planes, propagate_fill's kernel and the match."""
+    import torch
+
+    from dpu_olap_tpu_torch.ops import fill_match_cuda, merge, scan_cuda
+
+    def flat(res):
+        return [res[0], *res[1], *res[2], res[3]]
+
+    def check(label, planes, m_l, m_r):
+        before = (fill_match_cuda.LAUNCHES, scan_cuda.LAUNCHES)
+        got = fill_match_cuda.fill_match_k2(planes, m_l, m_r)
+        torch.cuda.synchronize()
+        require((fill_match_cuda.LAUNCHES, scan_cuda.LAUNCHES) == (before[0] + 1, before[1]),
+                f"fill_match_k2 {label}: not one launch of its own kernel")
+        require(card_equal(flat(got), flat(fill_match_cuda.fill_match_k2_ref(planes, m_l, m_r))),
+                f"fill_match_k2 kernel != plain: {label}")
+        return got
+
+    for kind in ("sorted", "run", "unsorted"):
+        for n in (1, 4095, 4096, 4097, 3 * 4096 + 5):
+            for m_l, m_r in ((1, 1), (0, 0), (2, 1), (1, 3), (3, 3)):
+                check(f"{kind} n={n} m_l={m_l} m_r={m_r}",
+                      _fill_match_case(rng, n, max(m_l, m_r), kind), m_l, m_r)
+    planes = _fill_match_case(rng, 3 * 4096 + 5, 2, "sorted")
+    for off in (1, 3):  # views that are not 16-byte aligned
+        check(f"views at offset {off}", tuple(p[off:] for p in planes), 2, 1)
+    first = check("two calls in a row", planes, 1, 2)
+    require(card_equal(flat(first), flat(fill_match_cuda.fill_match_k2(planes, 1, 2))),
+            "fill_match_k2: two calls in a row differ")
+    gp = tuple(p.clone() for p in planes)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fill_match_cuda.fill_match_k2(gp, 1, 2)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fill_match_cuda.fill_match_k2(gp, 1, 2)
+    for kind in ("run", "unsorted"):  # each replay clears and reuses the work memory
+        for p, q in zip(gp, _fill_match_case(rng, gp[0].shape[0], 2, kind)):
+            p.copy_(q)
+        graph.replay()
+        torch.cuda.synchronize()
+        require(card_equal(flat(captured), flat(fill_match_cuda.fill_match_k2_ref(gp, 1, 2))),
+                f"fill_match_k2 kernel != plain in a graph replay ({kind})")
+    del graph, captured, first, gp
+    print("[fill_match] kernel == plain at the tile's edges, 0-3 payloads a side, masked,"
+          " pad and unsorted lanes, views at offsets 1 and 3, two calls in a row and two"
+          " graph replays", flush=True)
+
+    rows = {}
+    for name, n in FILL_MATCH_SHAPES.items():
+        torch.cuda.empty_cache()
+        planes, want = _cosort_on_card(n, SEED + n.bit_length())
+        got = check(f"{name} (n={n})", planes, 1, 1)
+        require(int(got[3].sum()) == want, f"fill_match_k2 {name}: {int(got[3].sum())} matched,"
+                                           f" not {want}")
+        del got
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: fill_match_cuda.fill_match_k2(planes, 1, 1))
+        replay = graph_ms(lambda: fill_match_cuda.fill_match_k2(planes, 1, 1))
+        plain = cuda_ms(lambda: fill_match_cuda.fill_match_k2_ref(planes, 1, 1))
+        torch.cuda.empty_cache()
+        before = cuda_ms(lambda: merge._fill_match(*fill_match_cuda._decode_k2(planes[0]),
+                                                   planes[1:], 1, 1))
+        nbytes = 21 * n  # k2 and the payload read; key, out_l, out_r and the mask written
+        rows[name] = {**kernel_row(0, ms, plain, nbytes, None), "graph_ms": replay,
+                      "before_ms": before, "n": n}
+        print(f"[fill_match] {name} n={n} m_l=m_r=1: kernel {ms:.4f} ms eager, {replay:.4f}"
+              f" replayed, bound {bound_ms(nbytes):.4f} ({bound_ms(nbytes) / replay:.1%} of the"
+              f" replay); plain {plain:.4f} ms; the glue and propagate_fill it replaces"
+              f" {before:.4f} ms (median of {REPS}, CUDA events) [{card}]", flush=True)
+        del planes
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    main = rows["sf128_merge"]
+    return {**main, "shapes": rows}
+
+
 MERGE_TOP_BIT = np.array([0, 1, 3, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF], np.uint32)
 
 
@@ -1974,19 +2117,16 @@ def phase_join(sf: int, card: str) -> dict:
 
     from dpu_olap_tpu_torch.generator import make_join_tables
     from dpu_olap_tpu_torch.operators.join_op import JoinGpu, JoinNative
-    from dpu_olap_tpu_torch.ops import (
-        bitonic_cuda, merge, merge_cuda, partition_cuda, scan_cuda, sort_cuda, take_cuda,
-    )
+    from dpu_olap_tpu_torch.ops import merge, sort_cuda, take_cuda
     from dpu_olap_tpu_torch.parallel.mesh import DeviceSet
 
     left, right = make_join_tables(sf, SF1_ROWS, SF1_ROWS, seed=SEED)
     ds = DeviceSet.allocate(1)
     require(JoinGpu(ds, left, right).Prepare().pk_dense, "generator pk not detected dense")
+    counters, absent = _split(_join_kernels(), ("sort", "gather"))
     out, launches = run_path(
-        f"join SF={sf}", lambda: JoinGpu(ds, left, right),
-        {"sort": sort_cuda, "gather": take_cuda}, JOIN_PHASES, card, left.num_rows,
-        absent={"merge": bitonic_cuda, "fill": scan_cuda, "partition": partition_cuda,
-                "merge_probe": merge_cuda},
+        f"join SF={sf}", lambda: JoinGpu(ds, left, right), counters, JOIN_PHASES, card,
+        left.num_rows, absent=absent,
     )
     lc, rc = left.concat(), right.concat()
     if sf == 1:
@@ -2067,29 +2207,29 @@ def phase_join_fallbacks(card: str) -> dict:
     import torch
 
     from dpu_olap_tpu_torch.operators.join_op import JoinGpu, JoinNative
-    from dpu_olap_tpu_torch.ops import (
-        bitonic_cuda, join, merge_cuda, partition_cuda, scan_cuda, sort_cuda, take_cuda,
-    )
+    from dpu_olap_tpu_torch.ops import join
     from dpu_olap_tpu_torch.parallel.mesh import DeviceSet
 
     ds = DeviceSet.allocate(1)
-    others = {"partition": partition_cuda, "merge_probe": merge_cuda}
+    # each path: the kernels it must launch and those it must not (the
+    # generic path's stable torch.sort may or may not reach the sort kernel)
     paths = [
         ("sorted-build TPC-H SF=1", _tpch_sf1_tables(), (True, True),
-         {"sort": sort_cuda, "merge": bitonic_cuda, "fill": scan_cuda}, {"gather": take_cuda}),
+         ("sort", "merge", "fill_match"), ("fill", "gather", "partition", "merge_probe")),
         ("fused keys31 SF=1", _permuted_join_tables(0), (True, False),
-         {"sort": sort_cuda, "fill": scan_cuda}, {"gather": take_cuda, "merge": bitonic_cuda}),
+         ("sort", "fill_match"), ("fill", "gather", "merge", "partition", "merge_probe")),
         ("fused generic SF=1", _permuted_join_tables(0x80000000), (False, False),
-         {"fill": scan_cuda}, {"gather": take_cuda, "merge": bitonic_cuda}),
+         ("fill",), ("fill_match", "gather", "merge", "partition", "merge_probe")),
     ]
-    total = {"sort": 0, "merge": 0, "fill": 0}
-    for label, (left, right), flags, counters, absent in paths:
+    kernels = _join_kernels()
+    total = {"sort": 0, "merge": 0, "fill": 0, "fill_match": 0}
+    for label, (left, right), flags, names, others in paths:
         op = JoinGpu(ds, left, right).Prepare()
         require((op.keys31, op.pk_sorted, op.pk_dense) == (*flags, False),
                 f"{label}: structure flags {(op.keys31, op.pk_sorted, op.pk_dense)}")
         out, launches = run_path(
-            f"join {label}", lambda: JoinGpu(ds, left, right), counters, JOIN_PHASES, card,
-            left.num_rows, absent={**absent, **others},
+            f"join {label}", lambda: JoinGpu(ds, left, right), {k: kernels[k] for k in names},
+            JOIN_PHASES, card, left.num_rows, absent={k: kernels[k] for k in others},
         )
         for name, n in launches.items():
             total[name] += n
@@ -2238,12 +2378,16 @@ def check_dense_truth(label: str, out, lc, rc) -> None:
 
 
 def _join_kernels():
+    """The join paths' kernels by launch counter: fill is propagate_fill
+    (the generic co-sort join), fill_match the keys31 joins' fill and match."""
     from dpu_olap_tpu_torch.ops import (
-        bitonic_cuda, merge_cuda, partition_cuda, scan_cuda, sort_cuda, take_cuda,
+        bitonic_cuda, fill_match_cuda, merge_cuda, partition_cuda, scan_cuda, sort_cuda,
+        take_cuda,
     )
 
     return {"partition": partition_cuda, "sort": sort_cuda, "fill": scan_cuda,
-            "gather": take_cuda, "merge": bitonic_cuda, "merge_probe": merge_cuda}
+            "fill_match": fill_match_cuda, "gather": take_cuda, "merge": bitonic_cuda,
+            "merge_probe": merge_cuda}
 
 
 def _split(kernels: dict, names) -> tuple:
@@ -2256,7 +2400,7 @@ def phase_join_shuffle_sf64(card: str) -> dict:
     """The slice's main path: JoinGpu on BM_JoinDpu at SF=64, 128Mi rows a
     side, above one round's budget (SINGLE_ROUND_ROWS): _run_any routes it
     to the shuffle join in two resident rounds, which launches the partition
-    kernel once per side and the sort and fill kernels once per round.
+    kernel once per side and the sort and fill_match kernels once per round.
     Checked against the dense truth; one counted and one timed Run()."""
     from dpu_olap_tpu_torch.generator import make_join_tables
     from dpu_olap_tpu_torch.operators.join_op import JoinGpu
@@ -2272,14 +2416,14 @@ def phase_join_shuffle_sf64(card: str) -> dict:
             f"SF=64: {rows} rows do not route to the shuffle join in 2 rounds")
     print(f"[join SF={SF64} shuffle] tables and Prepare() {time.perf_counter() - t0:.1f} s",
           flush=True)
-    counters, absent = _split(_join_kernels(), ("partition", "sort", "fill"))
+    counters, absent = _split(_join_kernels(), ("partition", "sort", "fill_match"))
     out, launches = run_path(
         f"join SF={SF64} shuffle", lambda: JoinGpu(ds, left, right), counters, JOIN_PHASES, card,
         left.num_rows, absent=absent, reps=1,
     )
-    require(launches == {"partition": 2, "sort": 2, "fill": 2},
+    require(launches == {"partition": 2, "sort": 2, "fill_match": 2},
             f"SF=64: not the two-round shuffle join (one partition per side, one sort and"
-            f" fill per round): {launches}")
+            f" fill_match per round): {launches}")
     t0 = time.perf_counter()
     check_dense_truth(f"SF={SF64} shuffle", out, left.concat(), right.concat())
     print(f"[join SF={SF64} shuffle] {len(out['fk'])} rows == the dense truth"
@@ -2297,11 +2441,12 @@ def phase_join_shuffle_sf8(card: str) -> dict:
 
     ds = DeviceSet.allocate(1)
     left, right = make_join_tables(SF8, SF1_ROWS, SF1_ROWS, seed=SEED)
-    counters, absent = _split(_join_kernels(), ("partition", "sort", "fill"))
+    counters, absent = _split(_join_kernels(), ("partition", "sort", "fill_match"))
     label = f"join SF={SF8} _run_ici(rounds=2)"
     out, launches = run_path(label, lambda: JoinGpu(ds, left, right), counters, JOIN_PHASES, card,
                              left.num_rows, absent=absent, run=lambda o: o._run_ici(rounds=2))
-    require(launches == {"partition": 2, "sort": 2, "fill": 2}, f"{label}: launches {launches}")
+    require(launches == {"partition": 2, "sort": 2, "fill_match": 2},
+            f"{label}: launches {launches}")
     nat = JoinNative(left, right).Prepare().Run()
     check_rows(label, out, *(nat[c].to_numpy() for c in ("fk", "y", "x")))
     print(f"[{label}] {len(out['fk'])} rows == pyarrow [{card}]", flush=True)
@@ -2341,11 +2486,11 @@ def phase_join_partitioned_sf8(card: str) -> dict:
         op.MAX_RESIDENT_ROWS = 1 << 10  # everything "too big"
         return op
 
-    counters, absent = _split(_join_kernels(), ("partition", "sort", "fill"))
+    counters, absent = _split(_join_kernels(), ("partition", "sort", "fill_match"))
     label = f"join SF={SF8} partitioned"
     out, launches = run_path(label, make, counters, PART_PHASES, card, left.num_rows,
                              absent=absent)
-    require(launches == {"partition": 2 * SF8, "sort": SF8, "fill": SF8},
+    require(launches == {"partition": 2 * SF8, "sort": SF8, "fill_match": SF8},
             f"{label}: launches {launches}")
     check_dense_truth(label, out, left.concat(), right.concat())
     print(f"[{label}] {len(out['fk'])} rows == the dense truth [{card}]", flush=True)
@@ -2670,12 +2815,12 @@ def phase_plan(card: str) -> dict:
 
     add(plan_chain("HashJoin(Filter, Source) SF=1 fused",
                    lambda: P.HashJoin(P.Filter(P.Source(left), "y"), P.Source(right)).execute(ds),
-                   ("sort", "fill"), left.num_rows,
+                   ("sort", "fill_match"), left.num_rows,
                    lambda t: rows_equal(t, truth_f_rows, "fused join"), card))
     add(plan_chain("Aggregate(HashJoin(Filter, Source)) SF=1",
                    lambda: P.Aggregate(P.HashJoin(P.Filter(P.Source(left), "y"), P.Source(right)),
                                        "x").scalar(ds),
-                   ("sort", "fill", "sum"), left.num_rows,
+                   ("sort", "fill_match", "sum"), left.num_rows,
                    lambda got: require(got == truth_f_sum, f"{got} != {truth_f_sum}") or "pyarrow",
                    card))
     add(plan_chain("HashJoin(Source, Source) SF=1 dense",
@@ -2709,7 +2854,8 @@ def phase_plan(card: str) -> dict:
     join_op.JoinGpu = aggr_op.SumGpu = Boom
     try:
         add(plan_chain("Filter -> HashJoin -> Aggregate SF=1 device-resident", device_chain,
-                       ("filter", "sort", "merge", "fill", "sum"), left.num_rows, check_chain,
+                       ("filter", "sort", "merge", "fill_match", "sum"), left.num_rows,
+                       check_chain,
                        card))
     finally:
         join_op.JoinGpu, aggr_op.SumGpu = saved
@@ -2752,9 +2898,9 @@ SUITE_GROUPS = (
     ("^take_(tpu|native)", ("sort", "gather")),
     ("^hashtable_", ("sort", "merge_probe")),
     ("^partition_", ("partition",)),
-    ("^plan_", ("filter", "sum", "sort", "merge", "fill", "gather")),
+    ("^plan_", ("filter", "sum", "sort", "merge", "fill_match", "gather")),
     ("^(filter|sum|take|take_rowgather|join)_kernel", ("filter", "sum", "sort", "gather", "merge",
-                                                        "fill")),
+                                                        "fill_match")),
     ("^parallel_memcpy_", ()),
     ("^join_(tpu|native)", ("sort", "gather")),
 )
@@ -2842,7 +2988,7 @@ def phase_suite(card: str) -> dict:
         launches = {k: m.LAUNCHES for k, m in kernels.items()}
         require(list(getattr(op, "phase_ms", {})) == PHASE_KEYS,
                 f"join SF={SF8} _run_ici(rounds=2) timers: {getattr(op, 'phase_ms', None)}")
-        require(all(launches[k] > 0 for k in ("partition", "sort", "fill")),
+        require(all(launches[k] > 0 for k in ("partition", "sort", "fill_match")),
                 f"join SF={SF8} timers: launches {launches}")
         for k, v in launches.items():
             total[k] += v
@@ -2879,7 +3025,7 @@ def phase_suite(card: str) -> dict:
 
 # ---- several devices: one controller over shards --------------------------
 
-MD_KERNELS = ("partition", "sort", "fill", "filter", "sum", "gather")
+MD_KERNELS = ("partition", "sort", "fill", "fill_match", "filter", "sum", "gather")
 MD_ROWS_PER_DEV = 1 << 20  # the weak-scaling curve's rows a shard (bench_multichip.py's)
 
 
@@ -2912,8 +3058,9 @@ def phase_multidevice(card: str) -> dict:
     shards against numpy; FilterGpu, SumGpu and TakeGpu at SF=8 over 4
     shards against pyarrow; HashJoin over 4 shards at SF=1 against pyarrow;
     dryrun_multichip(4); the weak-scaling curve at d = 1, 2, 4. The
-    partition, sort, fill, filter, sum and gather kernels' launch counts are
-    set to 0 before the phase and must all be above 0 after it. Where the
+    partition, sort, fill, fill_match, filter, sum and gather kernels'
+    launch counts are set to 0 before the phase and must all be above 0
+    after it. Where the
     machine has 2 or more cards the join and the dry run also run over
     them. DeviceSet.allocate(4) must raise on a machine of fewer cards:
     the phase builds its sets of one card's shards by constructing them."""
@@ -3167,7 +3314,7 @@ def phase_multidevice(card: str) -> dict:
 
 # ---- one process a device: the process-group form --------------------------
 
-PG_KERNELS = ("partition", "sort", "fill", "gather")
+PG_KERNELS = ("partition", "sort", "fill", "fill_match", "gather")
 
 
 def _pg_gloo_ranks(gs, sf: int) -> dict:
@@ -3211,8 +3358,9 @@ def phase_process_group(card: str) -> dict:
     world 4, at world 2 (a subgroup) and on the 2 x 2 mesh, each against
     the one-controller dist_join over DeviceSet([cuda:0] * d) or
     dist_join_2d over its 4 shards. The libraries are built before any rank
-    starts (phase_build); the ranks load them. The partition, sort and
-    fill kernels must launch in the ranks' joins."""
+    starts (phase_build); the ranks load them. The partition, sort, fill
+    (the 2 x 2 mesh) and fill_match (the flat joins) kernels must launch
+    in the ranks' joins."""
     import torch
 
     from dpu_olap_tpu_torch.bench import multiproc
@@ -3266,7 +3414,7 @@ def phase_process_group(card: str) -> dict:
     print(f"[process_group gloo] 4 ranks on cuda:0 (one spawn, {spawn_s:.1f} s): the ranks"
           f" hand gloo's all_to_all_single their CUDA tensors, and gloo stages them through"
           f" host memory inside itself [{card}]", flush=True)
-    require(all(total[k] > 0 for k in ("partition", "sort", "fill")),
+    require(all(total[k] > 0 for k in ("partition", "sort", "fill", "fill_match")),
             f"[process_group]: a kernel did not launch in the ranks: {total}")
     print(f"[process_group] launches {total} (the shuffle join launches no gather); phase"
           f" {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
@@ -3333,6 +3481,7 @@ def main() -> dict:
     fills = phase_fill_kernels(rng, card)
     measured["propagate_fill"] = fills["propagate_fill"]
     measured["propagate_last"] = fills["propagate_last"]
+    measured["fill_match_k2"] = phase_fill_match_kernel(rng, card)
     measured["bitonic_merge_blocks"] = phase_merge_kernels(rng, card)
     measured["partition_cells"] = phase_partition_kernel(rng, card)
     phase_round_kernels(card)
@@ -3354,7 +3503,7 @@ def main() -> dict:
     filter_launches.update(phase_probe_lowering(card))
 
     launches = {"sort": 0, "gather": 0, "filter": 0, "sum": 0, "merge": 0, "fill": 0,
-                "partition": 0, "merge_probe": 0}
+                "fill_match": 0, "partition": 0, "merge_probe": 0}
     paths = [lambda sf=sf, ph=ph: ph(sf, card)
              for sf in (1, SF8) for ph in (phase_join, phase_filter, phase_sum, phase_take)]
     paths.append(lambda: phase_join_fallbacks(card))
@@ -3388,6 +3537,11 @@ def main() -> dict:
         "sum_u64_pair": ("sum", "sum.cu", "dpu_olap_tpu/ops/aggregate.py:113", None),
         "propagate_fill": ("fill", "scan.cu", "dpu_olap_tpu/ops/scan_pallas.py:178", None),
         "propagate_last": ("last", "scan.cu", "dpu_olap_tpu/ops/scan_pallas.py:222", None),
+        # no TPU kernel of its own: propagate_fill fused with the joins' glue
+        # around it
+        "fill_match_k2": ("fill_match", "scan.cu", "dpu_olap_tpu/ops/scan_pallas.py:178", [
+            "dpu_olap_tpu/ops/merge_xla.py:62", "dpu_olap_tpu/ops/join.py:128",
+        ]),
         "bitonic_merge_blocks": ("merge", "sort.cu", "dpu_olap_tpu/ops/bitonic_pallas.py:91",
                                  ["dpu_olap_tpu/ops/sort_pallas.py:327"]),
         "partition_cells": ("partition", "partition.cu",

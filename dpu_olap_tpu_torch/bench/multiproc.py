@@ -20,7 +20,7 @@ The line: backend, world, sf, mesh, rounds, impl, ok, and for each rank
 ``join_total_ms`` (the join after a warm-up one, barrier to the rank's
 device finishing), ``exchange_ms`` (the exchange phase of
 ``dist_join_phase_ms_group``: CUDA events after a barrier), the exchange's
-bytes and collectives in the timed join, its partition, sort, fill and
+bytes and collectives in the timed join, its partition, sort, fill, fill_match and
 gather kernel launches, its matched rows, and a SHA-256 of its padded
 outputs (fk, y, x, matched), which the one-controller join's shard of the
 same rank must match. NCCL (the default on a card) takes one rank a card;
@@ -62,10 +62,10 @@ def digest(fk, lcols, rcols, matched) -> str:
 
 
 def _kernels() -> dict:
-    from ..ops import partition_cuda, scan_cuda, sort_cuda, take_cuda
+    from ..ops import fill_match_cuda, partition_cuda, scan_cuda, sort_cuda, take_cuda
 
     return {"partition": partition_cuda, "sort": sort_cuda, "fill": scan_cuda,
-            "gather": take_cuda}
+            "fill_match": fill_match_cuda, "gather": take_cuda}
 
 
 def dense_truth(device, lc, rc, fk, y, x) -> bool:

@@ -41,6 +41,9 @@
 // What bounds it on the H100: device-memory traffic. The key (or the alive
 // bytes) and each plane are read once and each plane written once: 16n
 // bytes for a key and one payload, 10n in mask mode with one plane.
+//
+// The same sweep, with the co-sort joins' decode and match around it, is
+// fill_match_kernel (see the note above it).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -127,6 +130,60 @@ __device__ __forceinline__ unsigned long long look_back_last(const unsigned long
   }
 }
 
+// The thread's before[k] (the last live position in the tile before its run
+// of row k, or -1) and the tile's last live position (returned, or -1), from
+// its live bits (bit 4k + e for element (k, e)): first within the warp (a
+// ballot of the runs with a live element, then the nearest such lane
+// below), then over the warps. Every thread of the block calls it.
+__device__ __forceinline__ int tile_before(unsigned live, int (&before)[ROWS],
+                                           int (*s_warp)[WARPS]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int mine0 = threadIdx.x * VEC;
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    const unsigned m = (live >> (VEC * k)) & 0xFu;
+    const int own = m ? k * ROW + mine0 + 31 - __clz(m) : -1;
+    const unsigned lower = __ballot_sync(FULL, m != 0) & below;  // lanes below with a live run
+    const int from = __shfl_sync(FULL, own, lower ? 31 - __clz(lower) : 0);
+    before[k] = lower ? from : -1;
+    if (lane == 31) s_warp[k][warp] = m ? own : before[k];
+  }
+  __syncthreads();
+  int last = -1;  // over the rows and warps in tile order: positions ascend
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    int pre = last;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const int v = s_warp[k][w];
+      if (w < warp) pre = max(pre, v);
+      last = max(last, v);
+    }
+    before[k] = max(before[k], pre);
+  }
+  return last;
+}
+
+// By warp 0: publish the tile's status word (PREFIX with its own last live
+// position where it has one, else AGG until the look-back ends) and return
+// the carry, the last live position before the tile + 1, or 0.
+__device__ __forceinline__ unsigned long long publish_carry(unsigned long long* status,
+                                                            long long tile, long long base,
+                                                            int last) {
+  const int lane = threadIdx.x & 31;
+  const unsigned long long own = last >= 0 ? (unsigned long long)(base + last) + 1 : 0ull;
+  volatile unsigned long long* word = status + tile;
+  if (lane == 0) *word = (own || tile == 0 ? FLAG_PREFIX : FLAG_AGG) | own;
+  unsigned long long carry = 0;
+  if (tile > 0) {
+    carry = look_back_last(status, tile);
+    if (lane == 0 && !own) *word = FLAG_PREFIX | carry;
+  }
+  return carry;
+}
+
 // One tile of the sweep (see the note at the top). Element (k, e) of a
 // thread is tile position k * ROW + threadIdx.x * VEC + e. MASK: alive bytes
 // mark live positions and `has` is written; otherwise in.p[0] != sentinel.
@@ -185,43 +242,11 @@ fill_kernel(InPlanes in, const uint8_t* __restrict__ alive, uint32_t sentinel, l
     live |= runs[k] << (VEC * k);
   }
 
-  // before[k]: the last live position in the tile before the thread's run
-  // of row k, or -1; first within the warp (a ballot of the runs with a
-  // live element, then the nearest such lane below), then over the warps
-  const unsigned below = (1u << lane) - 1u;
   int before[ROWS];
-#pragma unroll
-  for (int k = 0; k < ROWS; ++k) {
-    const unsigned m = (live >> (VEC * k)) & 0xFu;
-    const int own = m ? k * ROW + mine0 + 31 - __clz(m) : -1;
-    const unsigned lower = __ballot_sync(FULL, m != 0) & below;  // lanes below with a live run
-    const int from = __shfl_sync(FULL, own, lower ? 31 - __clz(lower) : 0);
-    before[k] = lower ? from : -1;
-    if (lane == 31) s_warp[k][warp] = m ? own : before[k];
-  }
-  __syncthreads();
-  int last = -1;  // over the rows and warps in tile order: positions ascend
-#pragma unroll
-  for (int k = 0; k < ROWS; ++k) {
-    int pre = last;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const int v = s_warp[k][w];
-      if (w < warp) pre = max(pre, v);
-      last = max(last, v);
-    }
-    before[k] = max(before[k], pre);
-  }
+  const int last = tile_before(live, before, s_warp);
 
   if (warp == 0) {  // publish, look back for the carry, read its values
-    const unsigned long long own = last >= 0 ? (unsigned long long)(base + last) + 1 : 0ull;
-    volatile unsigned long long* word = status + tile;
-    if (lane == 0) *word = (own || tile == 0 ? FLAG_PREFIX : FLAG_AGG) | own;
-    unsigned long long carry = 0;  // last live position before the tile + 1, or 0
-    if (tile > 0) {
-      carry = look_back_last(status, tile);
-      if (lane == 0 && !own) *word = FLAG_PREFIX | carry;
-    }
+    const unsigned long long carry = publish_carry(status, tile, base, last);
 #pragma unroll
     for (int q = 0; q < NP; ++q)
       if (lane == q) s_carry[q] = carry ? in.p[q][carry - 1] : dead;
@@ -322,6 +347,184 @@ cudaError_t dispatch_fill(int n_planes, InPlanes in, const uint8_t* alive, uint3
 #undef DPU_FILL_CASE
 }
 
+// ---------------------------------------------------------------------------
+// The co-sort joins' fill and match in one sweep (ops/fill_match_cuda.py
+// fill_match_k2). No TPU kernel of its own: it fuses
+// dpu_olap_tpu/ops/scan_pallas.py:178 propagate_fill with the JAX package's
+// fill and match glue around it (dpu_olap_tpu/ops/merge_xla.py:62
+// join_shard_sorted_build, dpu_olap_tpu/ops/join.py:128 join_shard_fused),
+// which the port ran as int64 elementwise passes before and after the fill.
+//
+// Input: the sorted planes (k2, payload 0 .. M-1), k2 = key << 1 | side (pk
+// rows 0). A lane is live, a pk row that starts a carry, when k2 is even and
+// below 0xFFFFFFFE (EMPTY << 1 is a masked-out build row); its carry is the
+// nearest live lane at or before it. A lane is matched when k2 is odd and the
+// carry's k2 is k2 ^ 1: the same key, which is then not EMPTY, since
+// 0xFFFFFFFE is never live. Output, each of the length n: key = k2 >> 1,
+// out_l[q] = payload q (q < m_l), out_r[q] = the carry's payload q (q <
+// m_r) and matched = 1 where matched; 0 in every plane elsewhere.
+//
+// What bounds it on the H100: device-memory traffic. k2 and each payload
+// are read once and every output written once: 4(1 + M) + 4(1 + m_l + m_r)
+// + 1 bytes a lane, 21 at m_l = m_r = 1 (3.36 ms at 2^29 lanes). The design
+// keeps every intermediate of the glue (the decoded key, the side mask, the
+// filled key and payloads) out of device memory: the sweep is fill_kernel's
+// (ticket, live bits in registers, a warp's ballot, the max look-back), the
+// live bits come from k2 as it is read, the match is decided from k2 staged
+// in shared memory, and each output leaves with 16-byte stores (the mask
+// with 4-byte ones). A payload is staged only where a carry reads it (q <
+// m_r); payload 0 is read with k2, before the look-back, as fill_kernel
+// reads plane 1. Up to two payloads it keeps fill_kernel's budget of five
+// blocks an SM (ptxas: 48 registers, 32 and 20 bytes spilled at one and two
+// payloads; 74% of the bound at 2^29 lanes and one payload on an H100).
+constexpr uint32_t K2_DEAD = 0xFFFFFFFFu;  // the carry's k2 where there is none: odd
+
+struct JoinOut {
+  uint32_t* key;
+  uint32_t* l[MAX_PLANES - 1];
+  uint32_t* r[MAX_PLANES - 1];
+  uint8_t* matched;
+};
+
+template <int M>
+__global__ void __launch_bounds__(THREADS, M <= 2 ? FILL_BLOCKS_PER_SM : 1)
+fill_match_kernel(InPlanes in, int m_l, int m_r, long long n, bool vec, JoinOut out,
+                  unsigned* ticket, unsigned long long* status) {
+  __shared__ __align__(16) uint32_t s_buf[2][TILE];  // k2 in s_buf[0], payload q in s_buf[(q + 1) & 1]
+  __shared__ int s_warp[ROWS][WARPS];
+  __shared__ uint32_t s_carry[1 + M];  // the carry's k2 (K2_DEAD where none) and payloads
+  __shared__ unsigned s_tile;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1u);
+  __syncthreads();
+  const long long tile = s_tile;
+  const long long base = tile * TILE;
+  const bool whole = vec && base + TILE <= n;
+  const int mine0 = threadIdx.x * VEC;
+
+  uint4 v0[ROWS], v1[ROWS];
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    const long long i = base + k * ROW + mine0;
+    v0[k] = load4(in.p[0], i, n, whole);
+    if constexpr (M > 0) v1[k] = load4(in.p[1], i, n, whole);
+  }
+  unsigned live = 0;
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    const int off = k * ROW + mine0;
+    *reinterpret_cast<uint4*>(&s_buf[0][off]) = v0[k];
+    if constexpr (M > 0) *reinterpret_cast<uint4*>(&s_buf[1][off]) = v1[k];
+    const uint32_t x[VEC] = {v0[k].x, v0[k].y, v0[k].z, v0[k].w};
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      live |= !(x[e] & 1u) && x[e] < K2_DEAD - 1u && base + off + e < n ? 1u << (VEC * k + e)
+                                                                        : 0u;
+  }
+
+  int before[ROWS];
+  const int last = tile_before(live, before, s_warp);
+  if (warp == 0) {
+    const unsigned long long carry = publish_carry(status, tile, base, last);
+#pragma unroll
+    for (int q = 0; q <= M; ++q)
+      if (lane == q && q <= m_r) s_carry[q] = carry ? in.p[q][carry - 1] : K2_DEAD;
+  }
+  __syncthreads();
+
+  // the match (bit 4k + e), the key and the mask
+  unsigned hit = 0;
+  const uint32_t ck = s_carry[0];
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    const int off = k * ROW + mine0;
+    const unsigned m = (live >> (VEC * k)) & 0xFu;
+    const uint4 v = *reinterpret_cast<const uint4*>(&s_buf[0][off]);
+    const uint32_t own[VEC] = {v.x, v.y, v.z, v.w};
+    int src = before[k];
+    uint32_t o[VEC];
+    unsigned h = 0;  // byte e: element e matched
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      if ((m >> e) & 1u) src = off + e;
+      const uint32_t pk = src >= 0 ? s_buf[0][src] : ck;
+      const bool hit_e = (own[e] & 1u) && pk == (own[e] ^ 1u);
+      o[e] = hit_e ? own[e] >> 1 : 0u;
+      hit |= (unsigned)hit_e << (VEC * k + e);
+      h |= (unsigned)hit_e << (8 * e);
+    }
+    const long long i = base + off;
+    store4(out.key, i, n, whole, o);
+    if (whole) {
+      *reinterpret_cast<unsigned*>(out.matched + i) = h;
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        if (i + e < n) out.matched[i + e] = (uint8_t)(h >> (8 * e));
+    }
+  }
+
+  // each payload: its own values where matched (q < m_l), and the carry's
+  // from the staged tile or s_carry (q < m_r)
+#pragma unroll
+  for (int q = 0; q < M; ++q) {
+    const bool carried = q < m_r;
+    const bool staged = q == 0 || carried;  // the lane's own values are read from buf
+    uint32_t* buf = s_buf[(q + 1) & 1];
+    uint4 v[ROWS];
+    if (q > 0) {
+#pragma unroll
+      for (int k = 0; k < ROWS; ++k) v[k] = load4(in.p[1 + q], base + k * ROW + mine0, n, whole);
+      if (carried) {
+        __syncthreads();  // the reads of k2 or of payload q - 2 from this buffer are done
+#pragma unroll
+        for (int k = 0; k < ROWS; ++k)
+          *reinterpret_cast<uint4*>(&buf[k * ROW + mine0]) = v[k];
+        __syncthreads();
+      }
+    }
+    const uint32_t cv = s_carry[1 + q];
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+      const int off = k * ROW + mine0;
+      const long long i = base + off;
+      const unsigned mk = (hit >> (VEC * k)) & 0xFu;
+      const uint4 w = staged ? *reinterpret_cast<const uint4*>(&buf[off]) : v[k];
+      const uint32_t own[VEC] = {w.x, w.y, w.z, w.w};
+      uint32_t o[VEC];
+      if (q < m_l) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) o[e] = (mk >> e) & 1u ? own[e] : 0u;
+        store4(out.l[q], i, n, whole, o);
+      }
+      if (carried) {
+        const unsigned m = (live >> (VEC * k)) & 0xFu;
+        int src = before[k];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          if ((m >> e) & 1u) src = off + e;
+          o[e] = (mk >> e) & 1u ? (src >= 0 ? buf[src] : cv) : 0u;
+        }
+        store4(out.r[q], i, n, whole, o);
+      }
+    }
+  }
+}
+
+template <int M>
+cudaError_t launch_fill_match(InPlanes in, int m_l, int m_r, long long n, bool vec, JoinOut out,
+                              unsigned long long* work, cudaStream_t s) {
+  const long long ntiles = (n + TILE - 1) / TILE;
+  cudaError_t err = cudaMemsetAsync(work, 0, (size_t)(ntiles + 1) * 8, s);
+  if (err != cudaSuccess) return err;
+  unsigned* ticket = reinterpret_cast<unsigned*>(work + ntiles);
+  fill_match_kernel<M><<<(unsigned)ntiles, THREADS, 0, s>>>(in, m_l, m_r, n, vec, out, ticket,
+                                                            work);
+  return cudaGetLastError();
+}
+
 bool aligned(const void* p, uintptr_t to) { return reinterpret_cast<uintptr_t>(p) % to == 0; }
 
 }  // namespace
@@ -355,4 +558,53 @@ extern "C" int dpu_fill_u32(void* const* in_planes, void* const* out_planes, int
       al ? dispatch_fill<true>(n_planes, in, al, sentinel, n, vec, out, h, w, s)
          : dispatch_fill<false>(n_planes, in, al, sentinel, n, vec, out, h, w, s);
   return (int)err;
+}
+
+
+// The co-sort joins' fill and match (fill_match_kernel): in_planes holds k2
+// and max(m_l, m_r) payload planes of length n (0 <= m_l, m_r <= 8),
+// out_l and out_r m_l and m_r uint32 planes, key a uint32 plane and matched
+// n bytes (host arrays of device pointers where plural). work holds
+// ops/scan_cuda.py fill_plan's words, which the function clears on the
+// stream. Launches on `stream` and does not synchronise. Returns 0 or the
+// first CUDA error.
+extern "C" int dpu_fill_match_u32(void* const* in_planes, int m_l, int m_r, long long n,
+                                  void* key, void* const* out_l, void* const* out_r,
+                                  void* matched, void* work, void* stream) {
+  if (m_l < 0 || m_r < 0 || m_l >= MAX_PLANES || m_r >= MAX_PLANES || n < 1)
+    return (int)cudaErrorInvalidValue;
+  const int m = m_l > m_r ? m_l : m_r;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  InPlanes in{};
+  JoinOut out{};
+  out.key = static_cast<uint32_t*>(key);
+  out.matched = static_cast<uint8_t*>(matched);
+  bool vec = aligned(key, 16) && aligned(matched, 4);
+  for (int q = 0; q <= m; ++q) {
+    in.p[q] = static_cast<const uint32_t*>(in_planes[q]);
+    vec = vec && aligned(in.p[q], 16);
+  }
+  for (int q = 0; q < m_l; ++q) {
+    out.l[q] = static_cast<uint32_t*>(out_l[q]);
+    vec = vec && aligned(out.l[q], 16);
+  }
+  for (int q = 0; q < m_r; ++q) {
+    out.r[q] = static_cast<uint32_t*>(out_r[q]);
+    vec = vec && aligned(out.r[q], 16);
+  }
+  unsigned long long* w = static_cast<unsigned long long*>(work);
+#define DPU_FILL_MATCH_CASE(M) \
+  case M: return (int)launch_fill_match<M>(in, m_l, m_r, n, vec, out, w, s);
+  switch (m) {
+    DPU_FILL_MATCH_CASE(0)
+    DPU_FILL_MATCH_CASE(1)
+    DPU_FILL_MATCH_CASE(2)
+    DPU_FILL_MATCH_CASE(3)
+    DPU_FILL_MATCH_CASE(4)
+    DPU_FILL_MATCH_CASE(5)
+    DPU_FILL_MATCH_CASE(6)
+    DPU_FILL_MATCH_CASE(7)
+    default: return (int)launch_fill_match<8>(in, m_l, m_r, n, vec, out, w, s);
+  }
+#undef DPU_FILL_MATCH_CASE
 }

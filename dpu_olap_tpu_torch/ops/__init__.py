@@ -12,6 +12,8 @@
   sum_cuda    - exact u64 sum, csrc/sum.cu    (ops/aggregate.py:_sum_pallas_pair)
   scan_cuda   - forward fill, csrc/scan.cu    (ops/scan_pallas.py:propagate_fill,
                 propagate_last)
+  fill_match_cuda - the co-sort joins' fill and match, csrc/scan.cu (no TPU
+                kernel of its own: propagate_fill fused with the glue around it)
   bitonic_cuda - in-block merge cascade, csrc/sort.cu
                                               (ops/bitonic_pallas.py:bitonic_merge_blocks)
   partition_cuda - radix partition into padded cells, csrc/partition.cu

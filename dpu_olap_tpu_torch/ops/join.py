@@ -2,11 +2,13 @@
 
   * ``join_shard_fused`` — the co-sort join: sort the concatenation of both
     sides so that every pk row precedes its fk rows, forward-fill the pk's
-    key and payloads (scan_cuda.propagate_fill) and keep the fk rows whose
-    filled key is their own. Rows come back key-sorted and padded to
-    n_l + n_r with a ``matched`` mask. Under ``keys31`` the side packs into
-    the key (k2 = key << 1 | side) and the ported bitonic sort runs;
-    otherwise a stable sort keeps pk before equal fk.
+    key and payloads and keep the fk rows whose filled key is their own.
+    Rows come back key-sorted and padded to n_l + n_r with a ``matched``
+    mask. Under ``keys31`` the side packs into the key (k2 = key << 1 |
+    side), the ported bitonic sort runs and one kernel fills and matches
+    (fill_match_cuda.fill_match_k2); otherwise a stable sort keeps pk before
+    equal fk, and the fill (scan_cuda.propagate_fill) and the match run
+    apart.
   * ``join_shard_auto`` — the sorted-build join (merge.py) for a sorted pk
     with 31-bit keys, the fused join otherwise.
   * ``join_shard`` / ``probe_indices`` — one output row per left row in left
@@ -33,10 +35,9 @@ from .merge import (
     EMPTY,
     _as_u32,
     _fill_match,
-    _match,
     _sort,
     _u32,
-    fill_k2,
+    fill_match,
     join_shard_sorted_build,
 )
 from .scan_cuda import propagate_fill
@@ -137,14 +138,13 @@ def join_shard_fused(
     keys31: all keys < 2^31 - 1, so the side packs into the sort key as
     k2 = key << 1 | side and stability no longer matters; k2 values >=
     0xFFFFFFFE decode back to EMPTY (which excludes 0x7FFFFFFF itself).
-    Callers check the range on the host. Its steps are cosort_k2, fill_k2
-    and the match (the spans dpu_olap.join.sort, .fill and .match)."""
+    Callers check the range on the host. Its steps are cosort_k2 and
+    merge.fill_match (the spans dpu_olap.join.sort and .fill_match)."""
     m_l, m_r = len(left_payload), len(right_payload)
     if keys31:
         planes = cosort_k2(left_fk, left_payload, right_pk, right_payload, left_valid,
                            right_valid)
-        sk, is_pk, filled = fill_k2(planes, m_r)
-        return _match(sk, is_pk, filled, planes[1:], m_l)
+        return fill_match(planes, m_l, m_r)
     with trace("dpu_olap.join.sort"):
         pk, fk, merged = _cosort_planes(left_fk, left_payload, right_pk, right_payload,
                                         left_valid, right_valid)

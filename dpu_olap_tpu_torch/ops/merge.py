@@ -9,7 +9,8 @@ pass and then the in-block cascade as one tile pass.
 ``join_shard_sorted_build`` joins a unique-pk build side that arrives sorted
 (or is sorted once) with 31-bit keys: sort the probe side only, bitonic-merge
 [ascending pk run | pad | descending fk run], then the forward fill and the
-match mask, the tail that the fused co-sort join (ops/join.py) shares.
+match mask in one kernel (``fill_match_cuda.fill_match_k2``), the tail that the
+fused co-sort join with keys31 (ops/join.py) shares.
 
 When the build side's pk is dense (pk[i] = pk[0] + i, checked on the host by
 the operator; always true for the reference generator's sequential pk,
@@ -28,19 +29,12 @@ from typing import Tuple
 
 import torch
 
-from ..metrics import trace
-from . import hashtable
+from ..metrics import count, trace
 from .bitonic_cuda import LANES, bitonic_merge_blocks
-from .scan_cuda import propagate_fill
+from .fill_match_cuda import fill_match_k2
+from .scan_cuda import EMPTY, _u32, _where0, fill_planes, match_filled, propagate_fill
 from .sort_cuda import sort_bitonic, sortable_bitonic
 from .take_cuda import gather_sorted
-
-EMPTY = int(hashtable.EMPTY)  # the invalid-key and pad sentinel
-
-
-def _u32(x: torch.Tensor) -> torch.Tensor:
-    """int64 -> uint32, wrapping modulo 2^32 like u32 arithmetic."""
-    return (x & 0xFFFFFFFF).to(torch.uint32)
 
 
 def _as_u32(x: torch.Tensor) -> torch.Tensor:
@@ -51,11 +45,6 @@ def _as_u32(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.int32:
         return x.view(torch.uint32)
     return _u32(x.to(torch.int64))
-
-
-def _where0(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """x where mask, else 0, for a uint32 column."""
-    return torch.where(mask, x.view(torch.int32), 0).view(torch.uint32)
 
 
 def _reverse(x: torch.Tensor) -> torch.Tensor:
@@ -78,55 +67,27 @@ def bitonic_merge(planes) -> tuple:
     return bitonic_merge_blocks(planes, block_rows=n // LANES)
 
 
-def _fill(sk: torch.Tensor, is_pk: torch.Tensor, smerged, m_r: int) -> tuple:
-    """The fill step of every co-sort join: sk (int64 keys, EMPTY for
-    invalid lanes) sorted so that each pk row (is_pk; the others are fk
-    rows) precedes its fk rows, smerged the payload planes that followed the
-    sort. Each pk row's key and its m_r right payloads filled forward."""
-    return propagate_fill((_u32(torch.where(is_pk, sk, EMPTY)), *smerged[:m_r]))
-
-
-def _match(sk: torch.Tensor, is_pk: torch.Tensor, filled, smerged, m_l: int):
-    """The match step after _fill, in the span dpu_olap.join.match: keep the
-    fk rows whose filled key is their own, and zero the rest. Returns (key,
-    out_l, out_r, matched)."""
-    with trace("dpu_olap.join.match"):
-        pkey = filled[0].to(torch.int64)
-        matched = (pkey != EMPTY) & (pkey == sk) & ~is_pk & (sk != EMPTY)
-        out_l = tuple(_where0(matched, smerged[k]) for k in range(m_l))
-        out_r = tuple(_where0(matched, c) for c in filled[1:])
-        return _u32(torch.where(matched, sk, 0)), out_l, out_r, matched
-
-
 def _fill_match(sk: torch.Tensor, is_pk: torch.Tensor, smerged, m_l: int, m_r: int):
-    """The tail of every co-sort join: _fill (in the span
-    dpu_olap.join.fill), then _match."""
+    """The tail of the generic co-sort join (keys not all below 2^31 - 1):
+    sk (int64 keys, EMPTY for invalid lanes) sorted so that each pk row
+    (is_pk) precedes its fk rows, smerged the payload planes that followed
+    the sort. The fill (propagate_fill, in the span dpu_olap.join.fill),
+    then the match (in the span dpu_olap.join.match). Returns (key, out_l,
+    out_r, matched)."""
     with trace("dpu_olap.join.fill"):
-        filled = _fill(sk, is_pk, smerged, m_r)
-    return _match(sk, is_pk, filled, smerged, m_l)
+        filled = propagate_fill(fill_planes(sk, is_pk, smerged, m_r))
+    with trace("dpu_olap.join.match"):
+        return match_filled(sk, is_pk, filled, smerged, m_l)
 
 
-def _decode_k2(sk2: torch.Tensor) -> tuple:
-    """(sk, is_pk) of sorted packed keys k2 = key << 1 | side (side 0 for a
-    pk row): k2 >= 0xFFFFFFFE decodes back to EMPTY."""
-    k2 = sk2.to(torch.int64)
-    return torch.where(k2 >= 0xFFFFFFFE, EMPTY, k2 >> 1), (k2 & 1) == 0
-
-
-def fill_k2(planes, m_r: int) -> tuple:
-    """The fill step of the co-sort joins with keys31, in the span
-    dpu_olap.join.fill, on sorted planes (k2, payload 0, ...): (sk, is_pk,
-    filled), the decoded keys and sides and each pk row's key and first m_r
-    payloads filled forward."""
-    with trace("dpu_olap.join.fill"):
-        sk, is_pk = _decode_k2(planes[0])
-        return sk, is_pk, _fill(sk, is_pk, planes[1:], m_r)
-
-
-def _fill_match_k2(planes, m_l: int, m_r: int):
-    """_fill_match for sorted planes led by packed keys (fill_k2)."""
-    sk, is_pk, filled = fill_k2(planes, m_r)
-    return _match(sk, is_pk, filled, planes[1:], m_l)
+def fill_match(planes, m_l: int, m_r: int):
+    """The tail of the co-sort joins with keys31, in the span
+    dpu_olap.join.fill_match and counted as join.fill_match: the fill and
+    the match over sorted planes (k2, payload 0, ...) in one kernel
+    (fill_match_cuda.fill_match_k2). Returns (key, out_l, out_r, matched)."""
+    with trace("dpu_olap.join.fill_match"):
+        count("join.fill_match")
+        return fill_match_k2(planes, m_l, m_r)
 
 
 def _sort(planes) -> tuple:
@@ -172,7 +133,7 @@ def join_shard_sorted_build(
         zps = [torch.cat([x, torch.zeros(pad, dtype=torch.uint32, device=dev), _reverse(sy)])
                for x, sy in zip(xs, sorted_l[1:])]
         merged = bitonic_merge((zk, *zps))
-    return _fill_match_k2(merged, m_l, m_r)
+    return fill_match(merged, m_l, m_r)
 
 
 def join_dense_eligible(n_l: int, n_r: int) -> bool:

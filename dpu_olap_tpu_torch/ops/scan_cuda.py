@@ -19,6 +19,10 @@ decoupled look-back, ``csrc/scan.cu``); its work memory, allocated by the
 wrapper for each call, is ``fill_plan``'s: one 64-bit status word a tile of
 TILE lanes and the ticket, 8 * (ceil(n / 4096) + 1) bytes (512 KiB at one
 SF=64 round's 256Mi lanes).
+
+``fill_planes`` and ``match_filled`` are the glue around the fill in the
+generic co-sort join (ops/merge.py); the keys31 joins run the fill and
+match in one kernel of the same file (ops/fill_match_cuda.py).
 """
 
 from __future__ import annotations
@@ -28,12 +32,13 @@ from typing import NamedTuple
 
 import torch
 
-from . import _kernels
+from . import _kernels, hashtable
 from .filter_cuda import _as_i32
 
 MAX_PLANES = 9  # planes the kernel gathers: a key + 8 payloads (csrc/scan.cu)
 TILE = 4096  # elements per block of the kernel (csrc/scan.cu TILE)
 LAUNCHES = 0  # kernel launches by propagate_fill / propagate_last
+EMPTY = int(hashtable.EMPTY)  # the invalid-key and pad sentinel
 
 
 def _check_planes(name: str, planes, dtypes) -> torch.device:
@@ -79,6 +84,36 @@ def propagate_last_ref(alive: torch.Tensor, values) -> tuple:
     return src >= 0, _gather(tuple(values), src, 0)
 
 
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> uint32, wrapping modulo 2^32 like u32 arithmetic."""
+    return (x & 0xFFFFFFFF).to(torch.uint32)
+
+
+def _where0(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x where mask, else 0, for a uint32 column."""
+    return torch.where(mask, x.view(torch.int32), 0).view(torch.uint32)
+
+
+def fill_planes(sk: torch.Tensor, is_pk: torch.Tensor, smerged, m_r: int) -> tuple:
+    """The planes every co-sort join fills forward: sk (int64 keys, EMPTY
+    for invalid lanes) sorted so that each pk row (is_pk; the others are fk
+    rows) precedes its fk rows, smerged the payload planes that followed
+    the sort. Each pk row's key (EMPTY on the fk rows) and the first m_r
+    payloads."""
+    return (_u32(torch.where(is_pk, sk, EMPTY)), *smerged[:m_r])
+
+
+def match_filled(sk: torch.Tensor, is_pk: torch.Tensor, filled, smerged, m_l: int):
+    """The match after the fill of fill_planes: keep the fk rows whose
+    filled key is their own, and zero the rest. Returns (key, out_l, out_r,
+    matched)."""
+    pkey = filled[0].to(torch.int64)
+    matched = (pkey != EMPTY) & (pkey == sk) & ~is_pk & (sk != EMPTY)
+    out_l = tuple(_where0(matched, smerged[k]) for k in range(m_l))
+    out_r = tuple(_where0(matched, c) for c in filled[1:])
+    return _u32(torch.where(matched, sk, 0)), out_l, out_r, matched
+
+
 class FillPlan(NamedTuple):
     """How ``csrc/scan.cu`` lays out a call of n lanes: the tiles (one block
     each), then one work buffer of int64 words: a status word a tile, then
@@ -89,9 +124,15 @@ class FillPlan(NamedTuple):
 
 
 def fill_plan(n: int) -> FillPlan:
-    """The fill kernel's launch plan (csrc/scan.cu dpu_fill_u32)."""
+    """The fill kernels' launch plan (csrc/scan.cu dpu_fill_u32 and
+    dpu_fill_match_u32)."""
     tiles = -(-n // TILE)
     return FillPlan(tiles, tiles + 1)
+
+
+def _pointers(tensors) -> ctypes.Array:
+    """A host array of the tensors' device pointers."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
 def _launch(planes, sentinel: int, alive: torch.Tensor | None):
@@ -105,11 +146,10 @@ def _launch(planes, sentinel: int, alive: torch.Tensor | None):
     if n == 0:
         return has, tuple(outs)
     work = torch.empty(fill_plan(n).work_words, dtype=torch.int64, device=dev)
-    ptrs = ctypes.c_void_p * len(planes)
     with torch.cuda.device(dev):
         rc = _kernels.library().dpu_fill_u32(
-            ptrs(*[p.data_ptr() for p in planes]),
-            ptrs(*[o.data_ptr() for o in outs]),
+            _pointers(planes),
+            _pointers(outs),
             len(planes), n, int(sentinel) & 0xFFFFFFFF,
             None if alive is None else alive.data_ptr(),
             None if has is None else has.data_ptr(),

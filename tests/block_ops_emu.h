@@ -1,8 +1,10 @@
-// A CPU stand-in for the CUDA features csrc/block_ops.cu and csrc/probes.cu
-// use, for tests/test_torch_block_ops_emulated.py and
-// tests/test_torch_probes_emulated.py: one std::thread a CUDA thread, one
-// block at a time, std::barrier for __syncthreads and for each warp; a
-// static __shared__ array is one array that the blocks take in turn.
+// A CPU stand-in for the CUDA features csrc/block_ops.cu, csrc/probes.cu and
+// csrc/scan.cu use, for tests/test_torch_block_ops_emulated.py,
+// tests/test_torch_probes_emulated.py and tests/test_torch_fill_match.py:
+// one std::thread a CUDA thread, one block at a time, std::barrier for
+// __syncthreads and for each warp; a static __shared__ array is one array
+// that the blocks take in turn. Blocks run in the order of their index, so
+// a block that takes a ticket (atomicAdd) finds every earlier one done.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -66,6 +68,32 @@ inline uint32_t __shfl_sync(unsigned, uint32_t v, int src) {
   const uint32_t r = w.xch[src & 31];
   w.bar.arrive_and_wait();
   return r;
+}
+inline int __shfl_sync(unsigned mask, int v, int src) {
+  return (int)__shfl_sync(mask, (uint32_t)v, src);
+}
+inline unsigned long long __shfl_sync(unsigned mask, unsigned long long v, int src) {
+  const uint32_t lo = __shfl_sync(mask, (uint32_t)v, src);
+  return (unsigned long long)__shfl_sync(mask, (uint32_t)(v >> 32), src) << 32 | lo;
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  auto& w = emu::warps[emu::tid / 32];
+  w.xch[emu::tid % 32] = pred != 0;
+  w.bar.arrive_and_wait();
+  unsigned b = 0;
+  for (int i = 0; i < 32; ++i) b |= w.xch[i] ? 1u << i : 0u;
+  w.bar.arrive_and_wait();
+  return b;
+}
+inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
+inline int __ffs(int x) { return __builtin_ffs(x); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline void __nanosleep(unsigned) { std::this_thread::yield(); }
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  memset(p, v, n);
+  return cudaSuccess;
 }
 inline unsigned __reduce_add_sync(unsigned, unsigned v) {
   auto& w = emu::warps[emu::tid / 32];

@@ -22,7 +22,9 @@ indices, misaligned views), the one-hot product (K of 16 to 4096, M and N of
 the block merge (csrc/sort.cu: every pass structure of merge_plan, ties,
 the top-bit edges, misaligned views, in == out, the sorted-build join's
 call) and the tile stage at its geometry's edges,
-the forward fill in both modes (csrc/scan.cu) and filter v1
+the forward fill in both modes (csrc/scan.cu), the co-sort joins' fill
+and match (csrc/scan.cu fill_match_kernel: 0 to 3 payloads a side, masked,
+pad and unsorted lanes, and 2^29 lanes) and filter v1
 (csrc/filter.cu) at their one-sweep edges (lengths around a tile and not a
 multiple of 4, misaligned views, dead stretches over many tiles, one kept
 value in the last tile; v1's ENABLE_TRACE sweep against the untraced one
@@ -50,6 +52,7 @@ from dpu_olap_tpu_torch.ops import (
     bitonic_cuda,
     block_ops_cuda,
     filter_alt_cuda,
+    fill_match_cuda,
     filter_cuda,
     filter_stages,
     merge,
@@ -60,6 +63,7 @@ from dpu_olap_tpu_torch.ops import (
     sort_cuda,
     take_cuda,
 )
+from fill_match_cases import KINDS, k2_case
 
 EMPTY = np.uint32(0xFFFFFFFF)
 EDGE_KEYS = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF], np.uint32)
@@ -656,6 +660,57 @@ def test_fill_kernel_dead_stretch(cuda_device, pos):
     live[pos] = True
     pays = [np.random.default_rng(pos).integers(0x80000000, 2**32, n, dtype=np.uint32)]
     _fill_same(cuda_device, live, pays)
+
+
+def _join_flat(res):
+    return [res[0], *res[1], *res[2], res[3]]
+
+
+def _fill_match_same(planes, m_l, m_r):
+    """fill_match_k2's kernel, one launch, against its plain version."""
+    before = (fill_match_cuda.LAUNCHES, scan_cuda.LAUNCHES)
+    got = fill_match_cuda.fill_match_k2(planes, m_l, m_r)
+    torch.cuda.synchronize()
+    assert (fill_match_cuda.LAUNCHES, scan_cuda.LAUNCHES) == (before[0] + 1, before[1])
+    _same(_join_flat(got), _join_flat(fill_match_cuda.fill_match_k2_ref(planes, m_l, m_r)))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n", FILL_LENGTHS)
+@pytest.mark.parametrize("m_l, m_r, offset", [(1, 1, 0), (0, 0, 0), (2, 1, 1), (1, 3, 3),
+                                              (3, 3, 0), (0, 2, 2)])
+def test_fill_match_kernel_matches_plain(cuda_device, kind, n, m_l, m_r, offset):
+    """The co-sort joins' fill and match at the CPU tests' edges: lengths
+    around a tile, 0 to 3 payloads a side, masked and pad lanes, fks before
+    any pk, a carry across tiles, unsorted keys, views at offsets 1-3."""
+    rng = np.random.default_rng(n + 10 * m_l + m_r)
+    arrays = [k2_case(kind, n, rng),
+              *(rng.integers(0, 2**32, n, dtype=np.uint32) for _ in range(max(m_l, m_r)))]
+
+    def view(a):
+        t = torch.from_numpy(np.concatenate([np.zeros(offset, a.dtype), a])).to(cuda_device)
+        return t[offset:]
+
+    _fill_match_same(tuple(view(a) for a in arrays), m_l, m_r)
+
+
+@pytest.mark.cuda
+def test_fill_match_kernel_at_the_merge_length(cuda_device):
+    """At bm_join_sf128's merge length, 2^29 lanes: a pk row and three fk
+    rows a key, 1 in 20 pk rows masked out (0xFFFFFFFE, its fks unmatched)."""
+    n = 1 << 29
+    gen = torch.Generator(device=cuda_device).manual_seed(29)
+    i = torch.arange(n, device=cuda_device)
+    k2 = ((i >> 2) << 1) | ((i & 3) != 0).to(torch.int64)
+    masked = ((i & 3) == 0) & (torch.rand(n, generator=gen, device=cuda_device) < 0.05)
+    k2 = torch.where(masked, 0xFFFFFFFE, k2).to(torch.uint32)
+    pay = torch.randint(-2**31, 2**31, (n,), dtype=torch.int32, device=cuda_device,
+                        generator=gen).view(torch.uint32)
+    del i
+    got = _fill_match_same((k2, pay), 1, 1)
+    assert int(got[3].sum()) == 3 * (n // 4 - int(masked.sum()))
 
 
 FILTER_TILE = filter_cuda.TILE

@@ -369,7 +369,8 @@ def test_multiproc_rank_join(ranks, case):
         assert got["ok"] and got["rank"] == t and got["world"] == WORLD
         assert got["digest"] == multiproc.digest(*shard(ref, t)[:4])
         assert got["matched"] == int(ref[3][t].sum())
-        assert got["launches"] == {"partition": 0, "sort": 0, "fill": 0, "gather": 0}
+        assert got["launches"] == {"partition": 0, "sort": 0, "fill": 0, "fill_match": 0,
+                                   "gather": 0}
         assert got["exchange_bytes"] > 0 and got["collectives"] == (2 if case == "multiproc"
                                                                     else 4) * 2
         assert set(got["phase_ms"]) == {"fragments-ms", "exchange-ms", "local-join-ms"}

@@ -32,12 +32,13 @@ QUERY_SPANS = {
     "dpu_olap.plan.dtypes": 1, "dpu_olap.plan.concat": 1, "dpu_olap.plan.structure": 1,
     "dpu_olap.plan.compact": 1, "dpu_olap.plan.sum": 1,
     "dpu_olap.join.keys": 1, "dpu_olap.join.sort": 1, "dpu_olap.join.merge": 1,
-    "dpu_olap.join.fill": 1, "dpu_olap.join.match": 1,
+    "dpu_olap.join.fill_match": 1,
 }
 QUERY_READBACKS = {"readback.plan.keys31": 2, "readback.plan.pk_sorted": 1,
                    "readback.plan.compact": 1, "readback.aggregate.u64": 2}
 DIST_SPANS = {"dpu_olap.dist.partition": 2, "dpu_olap.dist.exchange": 2,
               "dpu_olap.dist.join": 1, "dpu_olap.dist.vote": 1}
+ROUNDS = 2  # the shuffle join's rounds a rank, as on four cards at SF=256
 
 
 def _join_columns(n, seed):
@@ -110,6 +111,15 @@ def test_query_counts_its_six_readbacks(cell, profiled):
     assert got == QUERY_READBACKS and sum(got.values()) == 6
 
 
+def test_query_counts_one_fill_match(cell):
+    """The plan's device tier joins with keys31 through the fused fill and
+    match: one step a query."""
+    queries = 2
+    before = metrics.counts()
+    assert [_query(cell) for _ in range(queries)] == [cell[2]] * queries
+    assert _delta(before, metrics.counts(), "join.") == {"join.fill_match": queries}
+
+
 def test_span_off_is_one_shared_noop(cell, monkeypatch):
     assert not torch.autograd.profiler._is_profiler_enabled
     off = metrics.trace("dpu_olap.a")
@@ -153,7 +163,7 @@ def _rank_join(gs, n):
     before = metrics.counts()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         out, _ = dist_join_retry(gs, (fk[rows],), ((y[rows],),), (pk[rows],), ((x[rows],),),
-                                 keys31=True)
+                                 keys31=True, rounds=ROUNDS)
     counted = metrics.counts()
     names = [n for n, _, _ in _spans(prof)]
     return names, _delta(before, counted, ""), sum(received), int(out[3][0].sum())
@@ -165,9 +175,10 @@ def test_shuffle_join_spans_vote_and_exchange_bytes():
     assert sum(matched for *_, matched in ranks) == 2 * n  # every probe row matches
     for names, counted, received, _ in ranks:
         assert Counter(x for x in names if x.startswith("dpu_olap.dist.")) == DIST_SPANS
-        # the join's steps inside the rank's one round
+        # the join's steps, once in each of the rank's rounds
         assert Counter(x for x in names if x.startswith("dpu_olap.join.")) == {
-            "dpu_olap.join.sort": 1, "dpu_olap.join.fill": 1, "dpu_olap.join.match": 1}
+            "dpu_olap.join.sort": ROUNDS, "dpu_olap.join.fill_match": ROUNDS}
+        assert counted["join.fill_match"] == ROUNDS
         assert {k: v for k, v in counted.items() if k.startswith("readback.")} == {
             "readback.group.any": 1}
         # two exchanges a side (the stacked planes, the counts), one collective each
