@@ -19,7 +19,10 @@ breakdown; filter v1 and the forward fill in both modes, also timed as
 graph replays and checked on views at offsets 1-3, in two calls in a row
 and in CUDA-graph replays; the co-sort joins' fill and match
 (fill_match_k2) at the same edges and at the two benchmark cells' lengths,
-timed beside the glue and fill it replaced; sum, block merge, the filter alternates and
+timed beside the glue and fill it replaced; its compacting form
+(fill_match_compact_k2) at those edges, below a capacity, in two calls and
+graph replays, and at both lengths against fill_match_k2 and the plan's
+compaction (_compact_device), timed beside them; sum, block merge, the filter alternates and
 stage ablation, the block ops (every op on 1 to 264 blocks at reps 0 to
 17 with indices over the int32 range, misaligned views refused;
 count_matmul also on 1 to 264 tiles whose products are not all 0), the
@@ -80,8 +83,9 @@ and read just after:
     SF=1 (filter kernel), on BM_JoinDpu SF=1 the fused filter join (sort +
     fill_match) and an Aggregate over it (+ sum), the bare join (JoinGpu's
     dense route: sort + gather) and the device-resident Filter -> HashJoin
-    -> Aggregate (filter, sort, merge, fill_match, sum; intermediates on
-    the card),
+    -> Aggregate (filter, sort, merge, fill_match_compact, sum; no filter
+    launch past the Filter node's own and no padded fill_match: the join
+    writes only the matched rows; intermediates on the card),
     Aggregate(TakeNode) on BM_Take SF=1 (sort + gather + sum, no restore
     sort) and Repartition of the SF=8 probe table into 16 partitions
     (partition kernel), against pyarrow or numpy;
@@ -128,6 +132,7 @@ import subprocess
 import sys
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 
@@ -1471,29 +1476,16 @@ def phase_fill_kernels(rng, card: str) -> dict:
 
 
 def _fill_match_case(rng, n: int, m: int, kind: str):
-    """(k2, payload 0, ...) of a keys31 co-sort of n lanes, on the card.
-    sorted: fks below every pk, pk rows with their fks, fks with no pk,
-    then masked-out pk rows (0xFFFFFFFE) and pad or masked fk rows
-    (0xFFFFFFFF); run: fks with no pk, then from two lanes before the first
-    tile's end one pk and its fks to the end; unsorted: the sorted case's
-    keys in no order."""
-    if kind == "run":
-        lead = min(n, 4094)
-        k2 = np.full(n, 2 * 5000 + 1, np.int64)
-        k2[:lead] = 2 * rng.integers(0, 1000, lead) + 1
-        k2[lead:lead + 1] = 2 * 5000
-    else:
-        tail = n // 16
-        body = n - 2 * tail
-        pks = np.sort(100 + 3 * rng.choice((2**31 - 101) // 3, max(1, body // 4), replace=False))
-        fks = np.concatenate([rng.choice(pks, body - body // 2), rng.integers(0, 2**31 - 1, body // 2)])
-        fks[: min(3, body)] = rng.integers(0, 100, min(3, body))
-        k2 = np.sort(np.concatenate([pks.astype(np.int64) << 1, (fks.astype(np.int64) << 1) | 1]))
-        k2 = np.concatenate([k2[:body], np.full(tail, 0xFFFFFFFE), np.full(tail, 0xFFFFFFFF)])
-        if kind == "unsorted":
-            k2 = rng.permutation(k2)
+    """(k2, payload 0, ...) of n lanes on the card: the packed keys of
+    tests/fill_match_cases.py's kind (the CPU tests' cases) and m random
+    payloads."""
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from fill_match_cases import k2_case
+
     pays = [rng.integers(0, 2**32, n, dtype=np.uint32) for _ in range(m)]
-    return (on_card(k2.astype(np.uint32)), *(on_card(p) for p in pays))
+    return (on_card(k2_case(kind, n, rng)), *(on_card(p) for p in pays))
 
 
 def _cosort_on_card(n: int, seed: int):
@@ -1544,7 +1536,7 @@ def phase_fill_match_kernel(rng, card: str) -> dict:
                 f"fill_match_k2 kernel != plain: {label}")
         return got
 
-    for kind in ("sorted", "run", "unsorted"):
+    for kind in ("sorted", "run", "unsorted", "none", "all", "dead"):
         for n in (1, 4095, 4096, 4097, 3 * 4096 + 5):
             for m_l, m_r in ((1, 1), (0, 0), (2, 1), (1, 3), (3, 3)):
                 check(f"{kind} n={n} m_l={m_l} m_r={m_r}",
@@ -1603,6 +1595,125 @@ def phase_fill_match_kernel(rng, card: str) -> dict:
         torch.cuda.empty_cache()
     main = rows["sf128_merge"]
     return {**main, "shapes": rows}
+
+
+def phase_fill_match_compact_kernel(rng, card: str) -> dict:
+    """fill_match_compact_k2's kernel == its plain version
+    (fill_match_compact_k2_ref) on the card, each call one launch of its
+    own: the count, and the rows below it and below the capacity bit for
+    bit, at the edges of phase_fill_match_kernel (every kind, 0-3 payloads
+    a side, views at offsets 1 and 3), below a capacity, in two calls in a
+    row and a CUDA-graph replay, and at FILL_MATCH_SHAPES and at cell 1's
+    merge with every fk row matched (the 2.24 ms bound). Timed there
+    (eager, one call replayed from a graph) beside the plain version and the
+    plan's route before it (fill_match_k2, then _compact_device)."""
+    import torch
+
+    from dpu_olap_tpu_torch import plan
+    from dpu_olap_tpu_torch.ops import fill_match_compact_cuda, fill_match_cuda, scan_cuda
+
+    compact, plain = (fill_match_compact_cuda.fill_match_compact_k2,
+                      fill_match_compact_cuda.fill_match_compact_k2_ref)
+
+    def counts():
+        return (fill_match_compact_cuda.LAUNCHES, fill_match_cuda.LAUNCHES, scan_cuda.LAUNCHES)
+
+    def rows(res, cap):
+        kept = min(int(res[3]), cap)
+        return [p[:kept] for p in (res[0], *res[1], *res[2])]
+
+    def same(label, got, want, cap):
+        require(int(got[3]) == int(want[3]), f"fill_match_compact_k2 {label}: count"
+                                             f" {int(got[3])} != plain {int(want[3])}")
+        require(card_equal(rows(got, cap), rows(want, cap)),
+                f"fill_match_compact_k2 kernel != plain: {label}")
+
+    def check(label, planes, m_l, m_r, cap):
+        before = counts()
+        got = compact(planes, m_l, m_r, cap)
+        torch.cuda.synchronize()
+        require(counts() == (before[0] + 1, *before[1:]),
+                f"fill_match_compact_k2 {label}: not one launch of its own kernel")
+        same(label, got, plain(planes, m_l, m_r, cap), cap)
+        return got
+
+    for kind in ("sorted", "run", "unsorted", "none", "all", "dead"):
+        for n in (1, 4095, 4096, 4097, 3 * 4096 + 5, 17 * 4096 + 9):
+            for m_l, m_r in ((1, 1), (0, 0), (2, 1), (1, 3), (3, 3)):
+                check(f"{kind} n={n} m_l={m_l} m_r={m_r}",
+                      _fill_match_case(rng, n, max(m_l, m_r), kind), m_l, m_r, n)
+    planes = _fill_match_case(rng, 3 * 4096 + 5, 2, "sorted")
+    n = planes[0].shape[0]
+    for off in (1, 3):  # views that are not 16-byte aligned
+        check(f"views at offset {off}", tuple(p[off:] for p in planes), 2, 1, n - off)
+    full = int(check("the whole count", planes, 1, 1, n)[3])
+    for cap in (0, 1, full // 2, full - 1):
+        check(f"capacity {cap} of {full}", planes, 1, 1, cap)
+    first = check("two calls in a row", planes, 1, 2, n)
+    require(card_equal(rows(first, n), rows(compact(planes, 1, 2, n), n)),
+            "fill_match_compact_k2: two calls in a row differ")
+    gp = tuple(p.clone() for p in planes)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        compact(gp, 1, 2, n)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = compact(gp, 1, 2, n)
+    for kind in ("dead", "unsorted"):  # each replay clears and reuses the work memory
+        for p, q in zip(gp, _fill_match_case(rng, n, 2, kind)):
+            p.copy_(q)
+        graph.replay()
+        torch.cuda.synchronize()
+        same(f"a graph replay ({kind})", captured, plain(gp, 1, 2, n), n)
+    del graph, captured, first, gp
+    print("[fill_match_compact] kernel == plain at the tile's edges, every kind, 0-3 payloads"
+          " a side, views at offsets 1 and 3, capacities below the count, two calls in a row"
+          " and two graph replays", flush=True)
+
+    def all_matched(n: int, seed: int):
+        """bm_join_sf128's merge: each pk row followed by one fk row of its
+        key (k2 = the lane), n / 2 matched."""
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        k2 = torch.arange(n, dtype=torch.int32, device="cuda").view(torch.uint32)
+        return (k2, rand_u32(n, gen)), n // 2
+
+    out = {}
+    shapes = [(name, n, _cosort_on_card) for name, n in FILL_MATCH_SHAPES.items()]
+    shapes.append(("sf128_all_matched", FILL_MATCH_SHAPES["sf128_merge"], all_matched))
+    for name, n, make in shapes:
+        torch.cuda.empty_cache()
+        planes, want = make(n, SEED + n.bit_length())
+        cap = n // 2  # the fk rows: each matches at most once
+        c = int(check(f"{name} (n={n})", planes, 1, 1, cap)[3])
+        require(c == want, f"fill_match_compact_k2 {name}: {c} matched, not {want}")
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: compact(planes, 1, 1, cap))
+        replay = graph_ms(lambda: compact(planes, 1, 1, cap))
+        torch.cuda.empty_cache()
+        plain_ms = cuda_ms(lambda: plain(planes, 1, 1, cap))
+        torch.cuda.empty_cache()
+
+        def before_route():
+            key, out_l, out_r, matched = fill_match_cuda.fill_match_k2(planes, 1, 1)
+            return plan._compact_device(matched, {"k": key, "l": out_l[0], "r": out_r[0]})
+
+        before_ms = cuda_ms(before_route)
+        torch.cuda.empty_cache()
+        # k2 and the payload read a lane; key, out_l and out_r written a matched lane
+        nbytes = 8 * n + 12 * want
+        out[name] = {**kernel_row(0, ms, plain_ms, nbytes, None), "graph_ms": replay,
+                     "before_ms": before_ms, "n": n, "matched": want}
+        print(f"[fill_match_compact] {name} n={n} m_l=m_r=1, {want} matched: kernel == plain;"
+              f" kernel {ms:.4f} ms eager, {replay:.4f} replayed, bound {bound_ms(nbytes):.4f}"
+              f" ({bound_ms(nbytes) / replay:.1%} of the replay); plain {plain_ms:.4f} ms;"
+              f" fill_match_k2 + _compact_device it replaces {before_ms:.4f} ms (median of"
+              f" {REPS}, CUDA events) [{card}]", flush=True)
+        del planes
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return {**out["sf128_merge"], "shapes": out}
 
 
 MERGE_TOP_BIT = np.array([0, 1, 3, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF], np.uint32)
@@ -2379,15 +2490,16 @@ def check_dense_truth(label: str, out, lc, rc) -> None:
 
 def _join_kernels():
     """The join paths' kernels by launch counter: fill is propagate_fill
-    (the generic co-sort join), fill_match the keys31 joins' fill and match."""
+    (the generic co-sort join), fill_match the keys31 joins' fill and match,
+    fill_match_compact its compacting form (the plan's device-resident join)."""
     from dpu_olap_tpu_torch.ops import (
-        bitonic_cuda, fill_match_cuda, merge_cuda, partition_cuda, scan_cuda, sort_cuda,
-        take_cuda,
+        bitonic_cuda, fill_match_compact_cuda, fill_match_cuda, merge_cuda, partition_cuda,
+        scan_cuda, sort_cuda, take_cuda,
     )
 
     return {"partition": partition_cuda, "sort": sort_cuda, "fill": scan_cuda,
-            "fill_match": fill_match_cuda, "gather": take_cuda, "merge": bitonic_cuda,
-            "merge_probe": merge_cuda}
+            "fill_match": fill_match_cuda, "fill_match_compact": fill_match_compact_cuda,
+            "gather": take_cuda, "merge": bitonic_cuda, "merge_probe": merge_cuda}
 
 
 def _split(kernels: dict, names) -> tuple:
@@ -2830,10 +2942,19 @@ def phase_plan(card: str) -> dict:
                    card))
 
     # the device-resident chain: a materialized Filter, the join on its
-    # device columns, the sum in place; no JoinGpu, no SumGpu
+    # device columns, the sum in place; no JoinGpu, no SumGpu, and no
+    # filter launch past the Filter node's own: the join's last kernel
+    # writes only the matched rows
+    from dpu_olap_tpu_torch.ops import filter_cuda
+
     class Boom:
         def __init__(self, *a, **k):
             raise SmokeFailure("a materializing operator ran in the device chain")
+
+    filter_cuda.LAUNCHES = 0
+    P.Filter(P.Source(left), "y")._run(ds)
+    torch.cuda.synchronize()
+    filter_once = filter_cuda.LAUNCHES
 
     def device_chain():
         fnode = P.Filter(P.Source(left), "y")
@@ -2853,12 +2974,15 @@ def phase_plan(card: str) -> dict:
     saved = join_op.JoinGpu, aggr_op.SumGpu
     join_op.JoinGpu = aggr_op.SumGpu = Boom
     try:
-        add(plan_chain("Filter -> HashJoin -> Aggregate SF=1 device-resident", device_chain,
-                       ("filter", "sort", "merge", "fill_match", "sum"), left.num_rows,
-                       check_chain,
-                       card))
+        chain = plan_chain("Filter -> HashJoin -> Aggregate SF=1 device-resident", device_chain,
+                           ("filter", "sort", "merge", "fill_match_compact", "sum"),
+                           left.num_rows, check_chain, card)
     finally:
         join_op.JoinGpu, aggr_op.SumGpu = saved
+    require(chain["filter"] == filter_once,
+            f"device chain: {chain['filter']} filter launches, not the Filter node's"
+            f" {filter_once}: the join's output was compacted by a filter")
+    add(chain)
 
     # Take -> Sum, the order-free tier, on BM_Take SF=1
     data, idx = make_take_batches(1, 1 << 22, 1 << 19, seed=SEED)
@@ -2898,7 +3022,7 @@ SUITE_GROUPS = (
     ("^take_(tpu|native)", ("sort", "gather")),
     ("^hashtable_", ("sort", "merge_probe")),
     ("^partition_", ("partition",)),
-    ("^plan_", ("filter", "sum", "sort", "merge", "fill_match", "gather")),
+    ("^plan_", ("filter", "sum", "sort", "merge", "fill_match_compact", "gather")),
     ("^(filter|sum|take|take_rowgather|join)_kernel", ("filter", "sum", "sort", "gather", "merge",
                                                         "fill_match")),
     ("^parallel_memcpy_", ()),
@@ -3482,6 +3606,7 @@ def main() -> dict:
     measured["propagate_fill"] = fills["propagate_fill"]
     measured["propagate_last"] = fills["propagate_last"]
     measured["fill_match_k2"] = phase_fill_match_kernel(rng, card)
+    measured["fill_match_compact_k2"] = phase_fill_match_compact_kernel(rng, card)
     measured["bitonic_merge_blocks"] = phase_merge_kernels(rng, card)
     measured["partition_cells"] = phase_partition_kernel(rng, card)
     phase_round_kernels(card)
@@ -3503,7 +3628,7 @@ def main() -> dict:
     filter_launches.update(phase_probe_lowering(card))
 
     launches = {"sort": 0, "gather": 0, "filter": 0, "sum": 0, "merge": 0, "fill": 0,
-                "fill_match": 0, "partition": 0, "merge_probe": 0}
+                "fill_match": 0, "fill_match_compact": 0, "partition": 0, "merge_probe": 0}
     paths = [lambda sf=sf, ph=ph: ph(sf, card)
              for sf in (1, SF8) for ph in (phase_join, phase_filter, phase_sum, phase_take)]
     paths.append(lambda: phase_join_fallbacks(card))
@@ -3542,6 +3667,14 @@ def main() -> dict:
         "fill_match_k2": ("fill_match", "scan.cu", "dpu_olap_tpu/ops/scan_pallas.py:178", [
             "dpu_olap_tpu/ops/merge_xla.py:62", "dpu_olap_tpu/ops/join.py:128",
         ]),
+        # the same with the plan's compaction (plan.py _compact_device: the
+        # filter and the takes) folded in
+        "fill_match_compact_k2": ("fill_match_compact", "scan.cu",
+                                  "dpu_olap_tpu/ops/scan_pallas.py:178", [
+                                      "dpu_olap_tpu/ops/merge_xla.py:62",
+                                      "dpu_olap_tpu/ops/join.py:128",
+                                      "dpu_olap_tpu/ops/filter_pallas.py:314",
+                                  ]),
         "bitonic_merge_blocks": ("merge", "sort.cu", "dpu_olap_tpu/ops/bitonic_pallas.py:91",
                                  ["dpu_olap_tpu/ops/sort_pallas.py:327"]),
         "partition_cells": ("partition", "partition.cu",

@@ -377,6 +377,28 @@ cudaError_t dispatch_fill(int n_planes, InPlanes in, const uint8_t* alive, uint3
 // reads plane 1. Up to two payloads it keeps fill_kernel's budget of five
 // blocks an SM (ptxas: 48 registers, 32 and 20 bytes spilled at one and two
 // payloads; 74% of the bound at 2^29 lanes and one payload on an H100).
+//
+// The compacting form (COMPACT; ops/fill_match_cuda.py
+// fill_match_compact_k2) takes the same steps up to the match and then
+// writes only the matched lanes, in lane order: row i of key, out_l and
+// out_r is the i-th matched lane's, no mask. Output row r is written only
+// below `cap`. A tile ranks its hits (each thread's count in a row, a byte a
+// row, summed over the warp by shuffles and over the warps in shared
+// memory) and finds its first row by a second decoupled look-back, over the
+// tiles' matched counts: a word a tile after the carry's words and the
+// ticket, AGG with the tile's own count, then PREFIX with the count up to
+// and including it. The last tile writes the total after them. Each plane
+// is gathered in output order into shared memory (the key from k2's buffer,
+// which it then reuses, the payloads from theirs) and leaves with 16-byte
+// stores, aligned to the plane's address. Bytes: 4(1 + M) a lane and
+// 4(1 + m_l + m_r) a matched lane, 14 a lane at m_l = m_r = 1 with half the
+// lanes matched (2.24 ms at 2^29 lanes): the padded form's planes, the
+// mask and the compaction's passes over them never reach device memory.
+// It keeps the budget of five blocks an SM (ptxas: 48 registers, 4 bytes
+// spilled at one payload; 60% of the bound at 2^29 lanes on an H100, where
+// the stores and the second look-back are not all hidden behind other
+// tiles' loads: fewer or more blocks an SM, per-warp or unstaged stores and
+// blocks that prefetch their next tile were each slower).
 constexpr uint32_t K2_DEAD = 0xFFFFFFFFu;  // the carry's k2 where there is none: odd
 
 struct JoinOut {
@@ -386,11 +408,59 @@ struct JoinOut {
   uint8_t* matched;
 };
 
-template <int M>
+__device__ __forceinline__ unsigned long long warp_sum(unsigned long long v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_sync(FULL, v, lane ^ d);
+  return v;
+}
+
+// The matched count of the tiles before `tile`, by one warp: the compacting
+// form's second look-back. It adds the published counts up to and including
+// the nearest PREFIX, 32 words a step, and waits where a word before it is
+// not published yet. Words before tile 0 count as PREFIX 0.
+__device__ __forceinline__ unsigned long long look_back_count(const unsigned long long* counts,
+                                                              long long tile) {
+  const int lane = threadIdx.x & 31;
+  const volatile unsigned long long* words = counts;
+  unsigned long long before = 0;
+  long long t = tile - 1;  // the nearest tile not added yet
+  for (;;) {
+    const long long j = t - lane;
+    const unsigned long long w = j >= 0 ? words[j] : FLAG_PREFIX;
+    const unsigned pre = __ballot_sync(FULL, (w & FLAG_MASK) == FLAG_PREFIX);
+    const unsigned unpub = __ballot_sync(FULL, (w & FLAG_MASK) == 0);
+    const unsigned stop = pre & (0u - pre);  // the nearest PREFIX
+    if (pre && !(unpub & (stop - 1u)))
+      return before + warp_sum(lane < __ffs(pre) ? w & ~FLAG_MASK : 0ull);
+    const int passed = unpub ? __ffs(unpub) - 1 : 32;  // AGG words before the first gap
+    before += warp_sum(lane < passed ? w & ~FLAG_MASK : 0ull);
+    t -= passed;
+    if (passed == 0) __nanosleep(64);
+  }
+}
+
+// By warp 0: publish the tile's matched count (PREFIX at tile 0, else AGG
+// and, once the look-back ends, PREFIX with the inclusive count) and return
+// the count of the tiles before it.
+__device__ __forceinline__ unsigned long long publish_count(unsigned long long* counts,
+                                                            long long tile, unsigned own) {
+  const int lane = threadIdx.x & 31;
+  volatile unsigned long long* word = counts + tile;
+  if (lane == 0) *word = (tile == 0 ? FLAG_PREFIX : FLAG_AGG) | own;
+  if (tile == 0) return 0;
+  const unsigned long long before = look_back_count(counts, tile);
+  if (lane == 0) *word = FLAG_PREFIX | (before + own);
+  return before;
+}
+
+template <int M, bool COMPACT>
 __global__ void __launch_bounds__(THREADS, M <= 2 ? FILL_BLOCKS_PER_SM : 1)
 fill_match_kernel(InPlanes in, int m_l, int m_r, long long n, bool vec, JoinOut out,
-                  unsigned* ticket, unsigned long long* status) {
-  __shared__ __align__(16) uint32_t s_buf[2][TILE];  // k2 in s_buf[0], payload q in s_buf[(q + 1) & 1]
+                  unsigned long long cap, unsigned* ticket, unsigned long long* status) {
+  // k2 in s_buf[0], payload q in s_buf[(q + 1) & 1]; the compacting form
+  // gathers each output plane into s_buf[0], a group of four past the tile
+  __shared__ __align__(16) uint32_t s_buf[2][TILE + (COMPACT ? VEC : 0)];
   __shared__ int s_warp[ROWS][WARPS];
   __shared__ uint32_t s_carry[1 + M];  // the carry's k2 (K2_DEAD where none) and payloads
   __shared__ unsigned s_tile;
@@ -434,7 +504,7 @@ fill_match_kernel(InPlanes in, int m_l, int m_r, long long n, bool vec, JoinOut 
   }
   __syncthreads();
 
-  // the match (bit 4k + e), the key and the mask
+  // the match (bit 4k + e); the padded form writes the key and the mask
   unsigned hit = 0;
   const uint32_t ck = s_carry[0];
 #pragma unroll
@@ -455,77 +525,252 @@ fill_match_kernel(InPlanes in, int m_l, int m_r, long long n, bool vec, JoinOut 
       hit |= (unsigned)hit_e << (VEC * k + e);
       h |= (unsigned)hit_e << (8 * e);
     }
-    const long long i = base + off;
-    store4(out.key, i, n, whole, o);
-    if (whole) {
-      *reinterpret_cast<unsigned*>(out.matched + i) = h;
-    } else {
+    if constexpr (!COMPACT) {
+      const long long i = base + off;
+      store4(out.key, i, n, whole, o);
+      if (whole) {
+        *reinterpret_cast<unsigned*>(out.matched + i) = h;
+      } else {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        if (i + e < n) out.matched[i + e] = (uint8_t)(h >> (8 * e));
+        for (int e = 0; e < VEC; ++e)
+          if (i + e < n) out.matched[i + e] = (uint8_t)(h >> (8 * e));
+      }
     }
   }
 
-  // each payload: its own values where matched (q < m_l), and the carry's
-  // from the staged tile or s_carry (q < m_r)
+  if constexpr (COMPACT) {
+    __shared__ unsigned s_count[WARPS];  // a warp's hits in each row, a byte a row
+    __shared__ unsigned long long s_first;
+    // the thread's hits a row, a byte each; their sum over the lanes up to it
+    unsigned mine = 0;
 #pragma unroll
-  for (int q = 0; q < M; ++q) {
-    const bool carried = q < m_r;
-    const bool staged = q == 0 || carried;  // the lane's own values are read from buf
-    uint32_t* buf = s_buf[(q + 1) & 1];
-    uint4 v[ROWS];
-    if (q > 0) {
+    for (int k = 0; k < ROWS; ++k) mine |= (unsigned)__popc((hit >> (VEC * k)) & 0xFu) << (8 * k);
+    unsigned upto = mine;  // at most 128 a byte: no carry between bytes
 #pragma unroll
-      for (int k = 0; k < ROWS; ++k) v[k] = load4(in.p[1 + q], base + k * ROW + mine0, n, whole);
-      if (carried) {
-        __syncthreads();  // the reads of k2 or of payload q - 2 from this buffer are done
-#pragma unroll
-        for (int k = 0; k < ROWS; ++k)
-          *reinterpret_cast<uint4*>(&buf[k * ROW + mine0]) = v[k];
-        __syncthreads();
-      }
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned v = __shfl_sync(FULL, upto, lane - d);
+      if (lane >= d) upto += v;
     }
-    const uint32_t cv = s_carry[1 + q];
+    if (lane == 31) s_count[warp] = upto;
+    __syncthreads();
+    int rank[ROWS];  // the tile's hits before the thread's first in row k
+    int total = 0;
 #pragma unroll
     for (int k = 0; k < ROWS; ++k) {
-      const int off = k * ROW + mine0;
-      const long long i = base + off;
-      const unsigned mk = (hit >> (VEC * k)) & 0xFu;
-      const uint4 w = staged ? *reinterpret_cast<const uint4*>(&buf[off]) : v[k];
-      const uint32_t own[VEC] = {w.x, w.y, w.z, w.w};
-      uint32_t o[VEC];
-      if (q < m_l) {
+      int pre = 0, row = 0;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) o[e] = (mk >> e) & 1u ? own[e] : 0u;
-        store4(out.l[q], i, n, whole, o);
+      for (int w = 0; w < WARPS; ++w) {
+        const int c = (int)((s_count[w] >> (8 * k)) & 0xFFu);
+        if (w < warp) pre += c;
+        row += c;
       }
-      if (carried) {
-        const unsigned m = (live >> (VEC * k)) & 0xFu;
-        int src = before[k];
+      rank[k] = total + pre + (int)(((upto - mine) >> (8 * k)) & 0xFFu);
+      total += row;
+    }
+    const long long ntiles = (n + TILE - 1) / TILE;
+    unsigned long long* counts = status + ntiles + 1;  // a word a tile, then the total
+    if (warp == 0) {
+      const unsigned long long first = publish_count(counts, tile, (unsigned)total);
+      if (lane == 0) {
+        s_first = first;
+        if (tile == ntiles - 1) counts[ntiles] = first + total;
+      }
+    }
+    __syncthreads();
+    const unsigned long long first = s_first;
+    const int rows = first >= cap ? 0 : (int)(cap - first < (unsigned long long)total
+                                                  ? cap - first : (unsigned long long)total);
+    if (rows == 0) return;  // the same in every thread
+
+    uint32_t* const a = s_buf[0];
+    // where g[first] sits in its group of four: a[phase + r] holds row first + r
+    auto phase = [&](const uint32_t* g) {
+      return (int)((reinterpret_cast<uintptr_t>(g + first) >> 2) & 3u);
+    };
+    // a[ph + the hit's rank] = value(k, e) for each of the thread's hits
+    auto gather = [&](int ph, auto value) {
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          if ((m >> e) & 1u) src = off + e;
-          o[e] = (mk >> e) & 1u ? (src >= 0 ? buf[src] : cv) : 0u;
+      for (int k = 0; k < ROWS; ++k) {
+        const unsigned mk = (hit >> (VEC * k)) & 0xFu;
+        int r = ph + rank[k];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          if ((mk >> e) & 1u) a[r++] = value(k, e);
+      }
+    };
+    // g[first + r] = a[ph + r] for r < rows: 16 bytes a store where a whole
+    // group of four is in range, 4 at the two ends; streaming stores (evict
+    // first), which no later read of the sweep wants in L2 (60.0% of the
+    // bound against 57.5% with plain stores at 2^29 lanes on an H100)
+    auto put = [&](uint32_t* g, int ph) {
+      uint32_t* const at = g + first;
+      const int end = ph + rows;
+      for (int j = VEC * threadIdx.x; j < end; j += VEC * THREADS) {
+        if (j >= ph && j + VEC <= end) {
+          __stcs(reinterpret_cast<uint4*>(at + (j - ph)), *reinterpret_cast<const uint4*>(&a[j]));
+        } else {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            if (j + e >= ph && j + e < end) __stcs(at + (j + e - ph), a[j + e]);
         }
-        store4(out.r[q], i, n, whole, o);
+      }
+    };
+
+    // the key: k2 >> 1 out of a before a takes the gathered rows
+    uint32_t key[ROWS][VEC];
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+      const uint4 v = *reinterpret_cast<const uint4*>(&a[k * ROW + mine0]);
+      key[k][0] = v.x >> 1, key[k][1] = v.y >> 1, key[k][2] = v.z >> 1, key[k][3] = v.w >> 1;
+    }
+    __syncthreads();
+    int ph = phase(out.key);
+    gather(ph, [&](int k, int e) { return key[k][e]; });
+    __syncthreads();
+    put(out.key, ph);
+
+    // each payload q from its staged tile: the carry's (q < m_r), then the
+    // lane's own (q < m_l)
+#pragma unroll
+    for (int q = 0; q < M; ++q) {
+      uint32_t* const b = s_buf[1];
+      if (q > 0) {
+        uint4 v[ROWS];
+#pragma unroll
+        for (int k = 0; k < ROWS; ++k) v[k] = load4(in.p[1 + q], base + k * ROW + mine0, n, whole);
+        __syncthreads();  // the gathers from payload q - 1 are done
+#pragma unroll
+        for (int k = 0; k < ROWS; ++k) *reinterpret_cast<uint4*>(&b[k * ROW + mine0]) = v[k];
+      }
+      if (q < m_r) {
+        const uint32_t cv = s_carry[1 + q];
+        __syncthreads();  // the last put from a, and b's stores, are done
+        ph = phase(out.r[q]);
+        gather(ph, [&](int k, int e) {
+          // the nearest live lane at or before (k, e), in the tile or the carry
+          const unsigned m = (live >> (VEC * k)) & ((2u << e) - 1u);
+          const int src = m ? k * ROW + mine0 + 31 - __clz(m) : before[k];
+          return src >= 0 ? b[src] : cv;
+        });
+        __syncthreads();
+        put(out.r[q], ph);
+      }
+      if (q < m_l) {
+        __syncthreads();
+        ph = phase(out.l[q]);
+        gather(ph, [&](int k, int e) { return b[k * ROW + mine0 + e]; });
+        __syncthreads();
+        put(out.l[q], ph);
+      }
+    }
+  } else {
+    // each payload: its own values where matched (q < m_l), and the carry's
+    // from the staged tile or s_carry (q < m_r)
+#pragma unroll
+    for (int q = 0; q < M; ++q) {
+      const bool carried = q < m_r;
+      const bool staged = q == 0 || carried;  // the lane's own values are read from buf
+      uint32_t* buf = s_buf[(q + 1) & 1];
+      uint4 v[ROWS];
+      if (q > 0) {
+#pragma unroll
+        for (int k = 0; k < ROWS; ++k) v[k] = load4(in.p[1 + q], base + k * ROW + mine0, n, whole);
+        if (carried) {
+          __syncthreads();  // the reads of k2 or of payload q - 2 from this buffer are done
+#pragma unroll
+          for (int k = 0; k < ROWS; ++k)
+            *reinterpret_cast<uint4*>(&buf[k * ROW + mine0]) = v[k];
+          __syncthreads();
+        }
+      }
+      const uint32_t cv = s_carry[1 + q];
+#pragma unroll
+      for (int k = 0; k < ROWS; ++k) {
+        const int off = k * ROW + mine0;
+        const long long i = base + off;
+        const unsigned mk = (hit >> (VEC * k)) & 0xFu;
+        const uint4 w = staged ? *reinterpret_cast<const uint4*>(&buf[off]) : v[k];
+        const uint32_t own[VEC] = {w.x, w.y, w.z, w.w};
+        uint32_t o[VEC];
+        if (q < m_l) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) o[e] = (mk >> e) & 1u ? own[e] : 0u;
+          store4(out.l[q], i, n, whole, o);
+        }
+        if (carried) {
+          const unsigned m = (live >> (VEC * k)) & 0xFu;
+          int src = before[k];
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            if ((m >> e) & 1u) src = off + e;
+            o[e] = (mk >> e) & 1u ? (src >= 0 ? buf[src] : cv) : 0u;
+          }
+          store4(out.r[q], i, n, whole, o);
+        }
       }
     }
   }
 }
 
-template <int M>
+template <int M, bool COMPACT>
 cudaError_t launch_fill_match(InPlanes in, int m_l, int m_r, long long n, bool vec, JoinOut out,
-                              unsigned long long* work, cudaStream_t s) {
+                              unsigned long long cap, unsigned long long* work,
+                              cudaStream_t s) {
   const long long ntiles = (n + TILE - 1) / TILE;
-  cudaError_t err = cudaMemsetAsync(work, 0, (size_t)(ntiles + 1) * 8, s);
+  // the carry's words and the ticket; the compacting form's counts and total after them
+  const size_t words = (size_t)(ntiles + 1) * (COMPACT ? 2 : 1);
+  cudaError_t err = cudaMemsetAsync(work, 0, words * 8, s);
   if (err != cudaSuccess) return err;
   unsigned* ticket = reinterpret_cast<unsigned*>(work + ntiles);
-  fill_match_kernel<M><<<(unsigned)ntiles, THREADS, 0, s>>>(in, m_l, m_r, n, vec, out, ticket,
-                                                            work);
+  fill_match_kernel<M, COMPACT><<<(unsigned)ntiles, THREADS, 0, s>>>(in, m_l, m_r, n, vec, out,
+                                                                     cap, ticket, work);
   return cudaGetLastError();
 }
 
 bool aligned(const void* p, uintptr_t to) { return reinterpret_cast<uintptr_t>(p) % to == 0; }
+
+template <bool COMPACT>
+int dispatch_fill_match(void* const* in_planes, int m_l, int m_r, long long n,
+                        unsigned long long cap, void* key, void* const* out_l,
+                        void* const* out_r, void* matched, void* work, void* stream) {
+  if (m_l < 0 || m_r < 0 || m_l >= MAX_PLANES || m_r >= MAX_PLANES || n < 1)
+    return (int)cudaErrorInvalidValue;
+  const int m = m_l > m_r ? m_l : m_r;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  InPlanes in{};
+  JoinOut out{};
+  out.key = static_cast<uint32_t*>(key);
+  out.matched = static_cast<uint8_t*>(matched);
+  // the compacting form aligns its stores to each output's own address
+  bool vec = COMPACT || (aligned(key, 16) && aligned(matched, 4));
+  for (int q = 0; q <= m; ++q) {
+    in.p[q] = static_cast<const uint32_t*>(in_planes[q]);
+    vec = vec && aligned(in.p[q], 16);
+  }
+  for (int q = 0; q < m_l; ++q) {
+    out.l[q] = static_cast<uint32_t*>(out_l[q]);
+    vec = vec && (COMPACT || aligned(out.l[q], 16));
+  }
+  for (int q = 0; q < m_r; ++q) {
+    out.r[q] = static_cast<uint32_t*>(out_r[q]);
+    vec = vec && (COMPACT || aligned(out.r[q], 16));
+  }
+  unsigned long long* w = static_cast<unsigned long long*>(work);
+#define DPU_FILL_MATCH_CASE(M) \
+  case M: return (int)launch_fill_match<M, COMPACT>(in, m_l, m_r, n, vec, out, cap, w, s);
+  switch (m) {
+    DPU_FILL_MATCH_CASE(0)
+    DPU_FILL_MATCH_CASE(1)
+    DPU_FILL_MATCH_CASE(2)
+    DPU_FILL_MATCH_CASE(3)
+    DPU_FILL_MATCH_CASE(4)
+    DPU_FILL_MATCH_CASE(5)
+    DPU_FILL_MATCH_CASE(6)
+    DPU_FILL_MATCH_CASE(7)
+    default: return (int)launch_fill_match<8, COMPACT>(in, m_l, m_r, n, vec, out, cap, w, s);
+  }
+#undef DPU_FILL_MATCH_CASE
+}
 
 }  // namespace
 
@@ -571,40 +816,21 @@ extern "C" int dpu_fill_u32(void* const* in_planes, void* const* out_planes, int
 extern "C" int dpu_fill_match_u32(void* const* in_planes, int m_l, int m_r, long long n,
                                   void* key, void* const* out_l, void* const* out_r,
                                   void* matched, void* work, void* stream) {
-  if (m_l < 0 || m_r < 0 || m_l >= MAX_PLANES || m_r >= MAX_PLANES || n < 1)
-    return (int)cudaErrorInvalidValue;
-  const int m = m_l > m_r ? m_l : m_r;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  InPlanes in{};
-  JoinOut out{};
-  out.key = static_cast<uint32_t*>(key);
-  out.matched = static_cast<uint8_t*>(matched);
-  bool vec = aligned(key, 16) && aligned(matched, 4);
-  for (int q = 0; q <= m; ++q) {
-    in.p[q] = static_cast<const uint32_t*>(in_planes[q]);
-    vec = vec && aligned(in.p[q], 16);
-  }
-  for (int q = 0; q < m_l; ++q) {
-    out.l[q] = static_cast<uint32_t*>(out_l[q]);
-    vec = vec && aligned(out.l[q], 16);
-  }
-  for (int q = 0; q < m_r; ++q) {
-    out.r[q] = static_cast<uint32_t*>(out_r[q]);
-    vec = vec && aligned(out.r[q], 16);
-  }
-  unsigned long long* w = static_cast<unsigned long long*>(work);
-#define DPU_FILL_MATCH_CASE(M) \
-  case M: return (int)launch_fill_match<M>(in, m_l, m_r, n, vec, out, w, s);
-  switch (m) {
-    DPU_FILL_MATCH_CASE(0)
-    DPU_FILL_MATCH_CASE(1)
-    DPU_FILL_MATCH_CASE(2)
-    DPU_FILL_MATCH_CASE(3)
-    DPU_FILL_MATCH_CASE(4)
-    DPU_FILL_MATCH_CASE(5)
-    DPU_FILL_MATCH_CASE(6)
-    DPU_FILL_MATCH_CASE(7)
-    default: return (int)launch_fill_match<8>(in, m_l, m_r, n, vec, out, w, s);
-  }
-#undef DPU_FILL_MATCH_CASE
+  return dispatch_fill_match<false>(in_planes, m_l, m_r, n, (unsigned long long)n, key, out_l,
+                                    out_r, matched, work, stream);
+}
+
+// The same, compacted (fill_match_kernel's compacting form): key, out_l and
+// out_r receive the matched lanes' rows in lane order, rows below cap only.
+// work holds twice fill_plan's words (ops/fill_match_cuda.py
+// compact_words): the carry's words and the ticket, then a count word a tile
+// and, in the last word, the number of matched lanes (uint64), which may
+// exceed cap. The function clears them on the stream, launches on it and
+// does not synchronise. Returns 0 or the first CUDA error.
+extern "C" int dpu_fill_match_compact_u32(void* const* in_planes, int m_l, int m_r, long long n,
+                                          long long cap, void* key, void* const* out_l,
+                                          void* const* out_r, void* work, void* stream) {
+  if (cap < 0) return (int)cudaErrorInvalidValue;
+  return dispatch_fill_match<true>(in_planes, m_l, m_r, n, (unsigned long long)cap, key, out_l,
+                                   out_r, nullptr, work, stream);
 }

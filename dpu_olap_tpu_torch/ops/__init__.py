@@ -14,6 +14,8 @@
                 propagate_last)
   fill_match_cuda - the co-sort joins' fill and match, csrc/scan.cu (no TPU
                 kernel of its own: propagate_fill fused with the glue around it)
+  fill_match_compact_cuda - its compacting form, the matched rows only,
+                csrc/scan.cu (no TPU kernel of its own)
   bitonic_cuda - in-block merge cascade, csrc/sort.cu
                                               (ops/bitonic_pallas.py:bitonic_merge_blocks)
   partition_cuda - radix partition into padded cells, csrc/partition.cu

@@ -70,6 +70,11 @@ _SIGNATURES = {
         ctypes.POINTER(_P), ctypes.c_int, ctypes.c_int, _LL, _P, ctypes.POINTER(_P),
         ctypes.POINTER(_P), _P, _P, _P,
     ],
+    # (in_planes, m_l, m_r, n, cap, key, out_l, out_r, work, stream)
+    "dpu_fill_match_compact_u32": [
+        ctypes.POINTER(_P), ctypes.c_int, ctypes.c_int, _LL, _LL, _P, ctypes.POINTER(_P),
+        ctypes.POINTER(_P), _P, _P,
+    ],
     # (in_planes, out_planes, n_planes, n, block, stream)
     "dpu_merge_blocks_u32": [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.c_int, _LL, _LL, _P],
     # (keys, payloads, n_pay, n, parts, cell, cells_k, cells_pay, cells_sel or NULL,

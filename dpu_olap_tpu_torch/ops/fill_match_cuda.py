@@ -54,6 +54,20 @@ def fill_match_k2_ref(planes, m_l: int, m_r: int) -> tuple:
     return match_filled(sk, is_pk, filled, planes[1:], m_l)
 
 
+def _checked(name: str, planes, m_l: int, m_r: int) -> tuple:
+    """(the planes the step reads, their device), or a ValueError."""
+    planes = tuple(planes)
+    m = max(m_l, m_r)
+    if min(m_l, m_r) < 0 or len(planes) < 1 + m:
+        raise ValueError(f"{name} needs k2 and max(m_l, m_r) payload planes, got"
+                         f" {len(planes)} planes for m_l={m_l}, m_r={m_r}")
+    planes = planes[:1 + m]
+    dev = _check_planes(name, planes, (torch.uint32,))
+    if dev.type == "cuda" and not all(p.is_contiguous() for p in planes):
+        raise ValueError(f"{name} planes must be contiguous")
+    return planes, dev
+
+
 def fill_match_k2(planes, m_l: int, m_r: int) -> tuple:
     """The co-sort joins' fill and match over sorted uint32 planes (k2,
     payload 0, ...), k2 = key << 1 | side (pk rows 0), at least max(m_l,
@@ -66,17 +80,9 @@ def fill_match_k2(planes, m_l: int, m_r: int) -> tuple:
     the kernel (on the current stream, without synchronising), CPU tensors
     to ``fill_match_k2_ref``."""
     global LAUNCHES
-    planes = tuple(planes)
-    m = max(m_l, m_r)
-    if min(m_l, m_r) < 0 or len(planes) < 1 + m:
-        raise ValueError(f"fill_match_k2 needs k2 and max(m_l, m_r) payload planes, got"
-                         f" {len(planes)} planes for m_l={m_l}, m_r={m_r}")
-    planes = planes[:1 + m]
-    dev = _check_planes("fill_match_k2", planes, (torch.uint32,))
+    planes, dev = _checked("fill_match_k2", planes, m_l, m_r)
     if dev.type == "cpu":
         return fill_match_k2_ref(planes, m_l, m_r)
-    if not all(p.is_contiguous() for p in planes):
-        raise ValueError("fill_match_k2 planes must be contiguous")
     n = planes[0].shape[0]
     key = torch.empty(n, dtype=torch.uint32, device=dev)
     out_l = tuple(torch.empty(n, dtype=torch.uint32, device=dev) for _ in range(m_l))

@@ -10,7 +10,9 @@
     equal fk, and the fill (scan_cuda.propagate_fill) and the match run
     apart.
   * ``join_shard_auto`` — the sorted-build join (merge.py) for a sorted pk
-    with 31-bit keys, the fused join otherwise.
+    with 31-bit keys, the fused join otherwise; with 31-bit keys and a
+    capacity, either one's planes end in the compacting fill and match
+    (merge.fill_match_compact), which writes only the matched rows.
   * ``join_shard`` / ``probe_indices`` — one output row per left row in left
     order, with the "cosort" (co-sort + fill + restore sort), "cuckoo"
     (hashtable.py) or "sort" (sort + searchsorted) probe: the per-partition
@@ -38,7 +40,9 @@ from .merge import (
     _sort,
     _u32,
     fill_match,
+    fill_match_compact,
     join_shard_sorted_build,
+    sorted_build_planes,
 )
 from .scan_cuda import propagate_fill
 from .sort_cuda import sort_bitonic_ref
@@ -164,11 +168,21 @@ def join_shard_auto(
     right_payload,
     keys31: bool = False,
     pk_sorted: bool = False,
+    capacity: int | None = None,
 ):
     """Single-shard join with host-detected workload structure:
     pk_sorted and keys31 -> the sorted-build bitonic-merge join (merge.py);
     keys31 -> the fused join with the side packed into the key; otherwise
-    the generic fused join."""
+    the generic fused join. Returns the padded (key, left_cols, right_cols,
+    matched), except with keys31 and a ``capacity``: then either keys31
+    join's planes end in merge.fill_match_compact, which writes only the
+    matched rows, and it returns (key, left_cols, right_cols, count) with
+    ``capacity`` rows a column (the probe rows are a safe one: each matches
+    at most once) and count a 0-d device tensor."""
+    if keys31 and capacity is not None:
+        planes = (sorted_build_planes(left_fk, left_payload, right_pk, right_payload) if pk_sorted
+                  else cosort_k2(left_fk, left_payload, right_pk, right_payload))
+        return fill_match_compact(planes, len(left_payload), len(right_payload), capacity)
     if pk_sorted and keys31:
         return join_shard_sorted_build(left_fk, left_payload, right_pk, right_payload)
     return join_shard_fused(left_fk, left_payload, right_pk, right_payload, keys31=keys31)

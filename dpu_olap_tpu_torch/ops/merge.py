@@ -8,9 +8,13 @@ pass and then the in-block cascade as one tile pass.
 
 ``join_shard_sorted_build`` joins a unique-pk build side that arrives sorted
 (or is sorted once) with 31-bit keys: sort the probe side only, bitonic-merge
-[ascending pk run | pad | descending fk run], then the forward fill and the
-match mask in one kernel (``fill_match_cuda.fill_match_k2``), the tail that the
-fused co-sort join with keys31 (ops/join.py) shares.
+[ascending pk run | pad | descending fk run] (``sorted_build_planes``), then
+the forward fill and the match mask in one kernel (``fill_match``:
+``fill_match_cuda.fill_match_k2``), the tail that the fused co-sort join with
+keys31 (ops/join.py) shares. ``fill_match_compact`` is the tail with the
+compaction of the matched rows in the same kernel
+(``fill_match_compact_cuda.fill_match_compact_k2``), which the query plan's
+device-resident join takes after either join's planes.
 
 When the build side's pk is dense (pk[i] = pk[0] + i, checked on the host by
 the operator; always true for the reference generator's sequential pk,
@@ -31,6 +35,7 @@ import torch
 
 from ..metrics import count, trace
 from .bitonic_cuda import LANES, bitonic_merge_blocks
+from .fill_match_compact_cuda import fill_match_compact_k2
 from .fill_match_cuda import fill_match_k2
 from .scan_cuda import EMPTY, _u32, _where0, fill_planes, match_filled, propagate_fill
 from .sort_cuda import sort_bitonic, sortable_bitonic
@@ -90,6 +95,17 @@ def fill_match(planes, m_l: int, m_r: int):
         return fill_match_k2(planes, m_l, m_r)
 
 
+def fill_match_compact(planes, m_l: int, m_r: int, capacity: int):
+    """fill_match with the compaction of its matched rows in the same
+    kernel (fill_match_compact_cuda.fill_match_compact_k2), in the span
+    dpu_olap.join.fill_match and counted as join.fill_match_compact.
+    Returns (key, out_l, out_r, count): ``capacity`` rows a plane, the
+    matched rows first in key order, count a 0-d device tensor."""
+    with trace("dpu_olap.join.fill_match"):
+        count("join.fill_match_compact")
+        return fill_match_compact_k2(planes, m_l, m_r, capacity)
+
+
 def _sort(planes) -> tuple:
     """The ported bitonic sort; a single row is already sorted."""
     return sort_bitonic(planes) if sortable_bitonic(planes[0].shape[0]) else tuple(planes)
@@ -107,6 +123,21 @@ def join_shard_sorted_build(
     matched), each padded to the merge length (the next power of two of
     n_l + n_r), key-sorted; payload k of both sides shares one merged
     plane. The probe sort may permute the payloads of equal fks."""
+    planes = sorted_build_planes(left_fk, left_payload, right_pk, right_payload, pk_sorted)
+    return fill_match(planes, len(left_payload), len(right_payload))
+
+
+def sorted_build_planes(
+    left_fk: torch.Tensor,
+    left_payload: Tuple[torch.Tensor, ...],
+    right_pk: torch.Tensor,
+    right_payload: Tuple[torch.Tensor, ...],
+    pk_sorted: bool = True,
+) -> tuple:
+    """The steps of join_shard_sorted_build before its tail, in the spans
+    dpu_olap.join.keys, .sort and .merge: the merged planes (k2, payload 0,
+    ...), k2 = key << 1 | side (pk rows 0), sorted, padded to the merge
+    length with 0xFFFFFFFF keys."""
     n_r, n_l = right_pk.shape[0], left_fk.shape[0]
     m_l, m_r = len(left_payload), len(right_payload)
     m = max(m_l, m_r)
@@ -132,8 +163,7 @@ def join_shard_sorted_build(
                         _reverse(sorted_l[0])])
         zps = [torch.cat([x, torch.zeros(pad, dtype=torch.uint32, device=dev), _reverse(sy)])
                for x, sy in zip(xs, sorted_l[1:])]
-        merged = bitonic_merge((zk, *zps))
-    return fill_match(merged, m_l, m_r)
+        return bitonic_merge((zk, *zps))
 
 
 def join_dense_eligible(n_l: int, n_r: int) -> bool:

@@ -192,7 +192,8 @@ class HashJoin(Node):
         at least one side, one round: the filters become join_shard_fused's
         validity masks (no intermediate Table, no compaction pass);
       * device-resident: a side already on the device (an upstream node's
-        output) joins there through join_shard_auto and stays there;
+        output) joins there (the sorted-build or co-sort join's steps)
+        and its matched rows stay there;
       * JoinGpu with its routing (dense, sorted-build, fused, shuffle or
         partitioned join) on host tables.
     On several devices only the last is taken, as in the JAX plan
@@ -235,7 +236,11 @@ class HashJoin(Node):
         """Join uint32 tables on the device into a device-resident compacted
         Table. Structure detection (keys31, pk_sorted) runs as device
         reductions with scalar readbacks, not the operator's host scans,
-        which would copy the very intermediates this tier keeps resident."""
+        which would copy the very intermediates this tier keeps resident.
+        With keys31 join_shard_auto's last kernel writes only the matched
+        rows (merge.fill_match_compact); the generic join's padded output
+        is compacted by _compact_device. Either way the row count is the one
+        readback after the join."""
         from .ops.join import join_shard_auto
 
         with trace("dpu_olap.plan.dtypes"):
@@ -264,13 +269,22 @@ class HashJoin(Node):
             keys31 = _readback("keys31", lf64.max() < lim) and _readback("keys31", rk64.max() < lim)
             pk_sorted = (_readback("pk_sorted", (rk64[1:] >= rk64[:-1]).all())
                          if rk.shape[0] > 1 else True)
-        fk, lcols, rcols, matched = join_shard_auto(
-            lf, lps, rk, rps, keys31=keys31, pk_sorted=pk_sorted
+        fk, lcols, rcols, last = join_shard_auto(
+            lf, lps, rk, rps, keys31=keys31, pk_sorted=pk_sorted,
+            capacity=lf.shape[0] if keys31 else None,
         )
         cols = {self.fk: fk}
         cols.update(dict(zip(lnames, lcols)))
         cols.update(dict(zip(rnames, rcols)))
-        return Table([Batch(_compact_device(matched, cols))])
+        if not keys31:
+            return Table([Batch(_compact_device(last, cols))])
+        count("readback.plan.compact")
+        c = int(last)  # the matched rows, at most the probe rows
+        # views of the first c rows; a copy where fewer than half the
+        # capacity's rows are kept, so that a selective join's Table does
+        # not hold the probe side's size alive downstream
+        rows = (lambda p: p[:c].clone()) if 2 * c < lf.shape[0] else (lambda p: p[:c])
+        return Table([Batch({name: rows(p) for name, p in cols.items()})])
 
     @staticmethod
     def _side_plan(table: Table, transforms, key: str):

@@ -87,10 +87,13 @@ inline unsigned __ballot_sync(unsigned, int pred) {
 }
 inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
 inline void __nanosleep(unsigned) { std::this_thread::yield(); }
+inline void __stcs(uint4* p, uint4 v) { *p = v; }
+inline void __stcs(unsigned* p, unsigned v) { *p = v; }
 inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
   memset(p, v, n);
   return cudaSuccess;

@@ -7,7 +7,7 @@ import numpy as np
 
 from dpu_olap_tpu_torch.ops.scan_cuda import EMPTY, TILE
 
-KINDS = ["sorted", "run", "unsorted"]
+KINDS = ["sorted", "run", "unsorted", "none", "all", "dead"]
 
 
 def k2_case(kind: str, n: int, rng) -> np.ndarray:
@@ -18,7 +18,33 @@ def k2_case(kind: str, n: int, rng) -> np.ndarray:
     (0xFFFFFFFE) and pad or masked fk rows (0xFFFFFFFF). run: fks with no pk
     up to two lanes before the first tile's end, then one pk and its fks to
     the end, so its carry crosses every later tile. unsorted: keys drawn
-    from the same kinds in no order, with 0 and 1."""
+    from the same kinds in no order, with 0 and 1. none: pks (keys 3i) and
+    fks (keys 3j + 1) in order, no fk with its pk. all: each pk followed by
+    1-3 fks of its key, every fk matched. dead: stretches of lanes with no
+    match, each about a fifth of n (several tiles at the longer lengths):
+    fks below every pk, a pk and its fks, a pk and fks with no pk above it,
+    masked-out pk rows, then pad rows."""
+    if kind == "none":
+        n_pk = n // 3
+        pk = 6 * rng.choice(n, size=n_pk, replace=False)
+        fk = 2 * (3 * rng.integers(0, n, n - n_pk) + 1) + 1
+        return np.sort(np.concatenate([pk, fk])).astype(np.uint32)
+    if kind == "all":
+        fks = rng.integers(1, 4, n)  # fks a pk
+        keys = np.repeat(np.arange(n), fks + 1)[:n]
+        first = np.concatenate([[True], keys[1:] != keys[:-1]])
+        return np.where(first, 2 * keys, 2 * keys + 1).astype(np.uint32)
+    if kind == "dead":
+        cut = [n // 5, 2 * n // 5, 3 * n // 5, 4 * n // 5]
+        k2 = np.empty(n, np.int64)
+        k2[:cut[0]] = np.sort(2 * rng.integers(0, 100, cut[0]) + 1)
+        k2[cut[0]:cut[1]] = 2 * 200 + 1
+        k2[cut[1]:cut[2]] = np.sort(2 * (300 + rng.integers(1, 10**6, cut[2] - cut[1])) + 1)
+        k2[cut[1]:cut[2]][:1] = 2 * 300
+        k2[cut[0]:cut[1]][:1] = 2 * 200
+        k2[cut[2]:cut[3]] = 0xFFFFFFFE
+        k2[cut[3]:] = 0xFFFFFFFF
+        return k2.astype(np.uint32)
     if kind == "run":
         lead = min(n, TILE - 2)
         k2 = np.empty(n, np.int64)

@@ -24,7 +24,9 @@ the top-bit edges, misaligned views, in == out, the sorted-build join's
 call) and the tile stage at its geometry's edges,
 the forward fill in both modes (csrc/scan.cu), the co-sort joins' fill
 and match (csrc/scan.cu fill_match_kernel: 0 to 3 payloads a side, masked,
-pad and unsorted lanes, and 2^29 lanes) and filter v1
+pad and unsorted lanes, and 2^29 lanes) and its compacting form (the same
+edges, a capacity below the count, 2^29 lanes against the padded form's
+matched rows) and filter v1
 (csrc/filter.cu) at their one-sweep edges (lengths around a tile and not a
 multiple of 4, misaligned views, dead stretches over many tiles, one kept
 value in the last tile; v1's ENABLE_TRACE sweep against the untraced one
@@ -52,6 +54,7 @@ from dpu_olap_tpu_torch.ops import (
     bitonic_cuda,
     block_ops_cuda,
     filter_alt_cuda,
+    fill_match_compact_cuda,
     fill_match_cuda,
     filter_cuda,
     filter_stages,
@@ -711,6 +714,80 @@ def test_fill_match_kernel_at_the_merge_length(cuda_device):
     del i
     got = _fill_match_same((k2, pay), 1, 1)
     assert int(got[3].sum()) == 3 * (n // 4 - int(masked.sum()))
+
+
+def _compact_same(planes, m_l, m_r, cap):
+    """fill_match_compact_k2's kernel, one launch of its own, against its
+    plain version: the count, and the rows below it and below cap."""
+    before = (fill_match_compact_cuda.LAUNCHES, fill_match_cuda.LAUNCHES, scan_cuda.LAUNCHES)
+    got = fill_match_compact_cuda.fill_match_compact_k2(planes, m_l, m_r, cap)
+    torch.cuda.synchronize()
+    assert (fill_match_compact_cuda.LAUNCHES, fill_match_cuda.LAUNCHES,
+            scan_cuda.LAUNCHES) == (before[0] + 1, *before[1:])
+    want = fill_match_compact_cuda.fill_match_compact_k2_ref(tuple(p.cpu() for p in planes),
+                                                             m_l, m_r, cap)
+    assert int(got[3]) == int(want[3])
+    kept = min(int(want[3]), cap)
+    _same([p[:kept] for p in (got[0], *got[1], *got[2])],
+          [p[:kept] for p in (want[0], *want[1], *want[2])])
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n", FILL_LENGTHS)
+@pytest.mark.parametrize("m_l, m_r, offset", [(1, 1, 0), (0, 0, 0), (2, 1, 1), (1, 3, 3),
+                                              (3, 3, 0), (0, 2, 2)])
+def test_fill_match_compact_kernel_matches_plain(cuda_device, kind, n, m_l, m_r, offset):
+    """The compacting form at the padded form's edges: every kind (no match,
+    all matched, dead stretches among them), lengths around a tile, 0 to 3
+    payloads a side, input views at offsets 1-3."""
+    rng = np.random.default_rng(n + 10 * m_l + m_r)
+    arrays = [k2_case(kind, n, rng),
+              *(rng.integers(0, 2**32, n, dtype=np.uint32) for _ in range(max(m_l, m_r)))]
+
+    def view(a):
+        t = torch.from_numpy(np.concatenate([np.zeros(offset, a.dtype), a])).to(cuda_device)
+        return t[offset:]
+
+    _compact_same(tuple(view(a) for a in arrays), m_l, m_r, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cut", [1, 2, 3, 1000])
+def test_fill_match_compact_kernel_below_the_count(cuda_device, cut):
+    """A capacity below the count: the rows under it, the count whole."""
+    rng = np.random.default_rng(cut)
+    n = (1 << 20) + 3
+    planes = (torch.from_numpy(k2_case("sorted", n, rng)).to(cuda_device),
+              torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(cuda_device))
+    full = int(fill_match_compact_cuda.fill_match_compact_k2(planes, 1, 1, n)[3])
+    _compact_same(planes, 1, 1, full - cut)
+
+
+@pytest.mark.cuda
+def test_fill_match_compact_kernel_at_the_merge_length(cuda_device):
+    """At bm_join_sf128's merge length, 2^29 lanes, against the padded
+    kernel and the matched rows selected: a pk row and three fk rows a key,
+    1 in 20 pk rows masked out (0xFFFFFFFE, its fks unmatched)."""
+    n = 1 << 29
+    gen = torch.Generator(device=cuda_device).manual_seed(29)
+    i = torch.arange(n, device=cuda_device)
+    k2 = ((i >> 2) << 1) | ((i & 3) != 0).to(torch.int64)
+    masked = ((i & 3) == 0) & (torch.rand(n, generator=gen, device=cuda_device) < 0.05)
+    k2 = torch.where(masked, 0xFFFFFFFE, k2).to(torch.uint32)
+    pay = torch.randint(-2**31, 2**31, (n,), dtype=torch.int32, device=cuda_device,
+                        generator=gen).view(torch.uint32)
+    del i
+    want = 3 * (n // 4 - int(masked.sum()))
+    del masked
+    key, (out_l,), (out_r,), count = fill_match_compact_cuda.fill_match_compact_k2(
+        (k2, pay), 1, 1, 3 * n // 4)
+    assert int(count) == want
+    pkey, (pl,), (pr,), matched = fill_match_cuda.fill_match_k2((k2, pay), 1, 1)
+    for got, padded in ((key, pkey), (out_l, pl), (out_r, pr)):
+        assert torch.equal(got[:want].view(torch.int32),
+                           padded.view(torch.int32)[matched])
 
 
 FILTER_TILE = filter_cuda.TILE

@@ -17,7 +17,13 @@ the CPU:
   * the joins that run the step (join_shard_fused with keys31, with filter
     masks, and join_shard_sorted_build) against the JAX package, the
     counter ``join.fill_match`` once a call there and never on the generic
-    join, and the wrapper's argument checks.
+    join, and the wrapper's argument checks;
+  * the compacting form (``fill_match_compact_k2``, merge.fill_match_compact):
+    its plain version against ``fill_match_k2_ref`` followed by the boolean
+    selection of the matched rows, the kernel's source against the plain
+    version on the same kinds (no match, all matched, dead stretches over
+    many tiles among them), at the tile's edges, on misaligned views and
+    below a capacity that cuts the rows, and the wrapper's checks.
 """
 
 import ctypes
@@ -34,7 +40,7 @@ import torch
 from dpu_olap_tpu.ops import join as jjoin
 from dpu_olap_tpu.ops.merge_xla import join_shard_sorted_build as jax_sorted_build
 from dpu_olap_tpu_torch import metrics
-from dpu_olap_tpu_torch.ops import fill_match_cuda, join, merge, scan_cuda
+from dpu_olap_tpu_torch.ops import fill_match_compact_cuda, fill_match_cuda, join, merge, scan_cuda
 from fill_match_cases import KINDS, k2_case
 
 REPO = Path(__file__).resolve().parents[1]
@@ -158,7 +164,10 @@ def lib(tmp_path_factory):
     lib.dpu_fill_match_u32.argtypes = [ptrs, ctypes.c_int, ctypes.c_int, ll, ptr, ptrs, ptrs,
                                        ptr, ptr, ptr]
     lib.dpu_fill_u32.argtypes = [ptrs, ptrs, ctypes.c_int, ll, ctypes.c_uint, ptr, ptr, ptr, ptr]
+    lib.dpu_fill_match_compact_u32.argtypes = [ptrs, ctypes.c_int, ctypes.c_int, ll, ll, ptr,
+                                               ptrs, ptrs, ptr, ptr]
     lib.dpu_fill_match_u32.restype = lib.dpu_fill_u32.restype = ctypes.c_int
+    lib.dpu_fill_match_compact_u32.restype = ctypes.c_int
     return lib
 
 
@@ -225,6 +234,152 @@ def test_fill_kernel_source_equals_plain(lib, n, n_pay):
                             work.data_ptr(), None) == 0
     for got, want in zip(outs, scan_cuda.propagate_fill_ref(planes)):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# ---- the compacting form ------------------------------------------------------
+
+COMPACT_LENGTHS = [1, TILE - 1, TILE, TILE + 1, 3 * TILE + 5, 9 * TILE + 3]
+
+
+def _selected(planes, m_l, m_r):
+    """fill_match_k2_ref, then the matched rows by boolean selection."""
+    key, out_l, out_r, matched = fill_match_cuda.fill_match_k2_ref(planes, m_l, m_r)
+
+    def rows(p):
+        return p.view(torch.int32)[matched].view(torch.uint32)
+
+    return rows(key), tuple(map(rows, out_l)), tuple(map(rows, out_r)), int(matched.sum())
+
+
+def _assert_compacted(got, want, cap):
+    """got (key, out_l, out_r, count) holds want's rows up to cap and want's count."""
+    key, out_l, out_r, count = got
+    wkey, wl, wr, wcount = want
+    assert int(count) == wcount
+    kept = min(wcount, cap)
+    for g, w in zip([key, *out_l, *out_r], [wkey, *wl, *wr]):
+        assert g.dtype == torch.uint32 and g.shape == (cap,)
+        assert torch.equal(g[:kept].view(torch.int32), w[:kept].view(torch.int32))
+
+
+@pytest.mark.parametrize("m_l, m_r", SIDES)
+@pytest.mark.parametrize("n", COMPACT_LENGTHS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_compact_plain_version_is_the_step_then_the_selection(kind, n, m_l, m_r):
+    planes = _case(kind, n, max(m_l, m_r), seed=3 * n + 10 * m_l + m_r)
+    # CPU: the plain version
+    got = fill_match_compact_cuda.fill_match_compact_k2(planes, m_l, m_r, n)
+    want = _selected(planes, m_l, m_r)
+    _assert_compacted(got, want, n)
+    if kind == "none":
+        assert want[3] == 0
+    if kind == "all":  # every fk lane matched
+        assert want[3] == int((planes[0] & 1).sum())
+
+
+def test_compact_plain_version_below_the_count():
+    planes = _case("sorted", 2 * TILE, 1, seed=8)
+    want = _selected(planes, 1, 1)
+    cap = want[3] // 2
+    got = fill_match_compact_cuda.fill_match_compact_k2(planes, 1, 1, cap)
+    _assert_compacted(got, want, cap)
+
+
+def _emulated_compact(lib, planes, m_l, m_r, cap, offsets=(0, 0, 0)):
+    """The kernel's compacting form under the stand-in, the input planes at
+    offsets[0] elements into their buffers, key and out_l at offsets[1],
+    out_r at offsets[2]; every output lane first 0xAB."""
+    n = planes[0].shape[0]
+    planes = [_view(p, offsets[0]) for p in planes[:1 + max(m_l, m_r)]]
+
+    def out(offset):
+        return _view(torch.full((cap,), 0xAB, dtype=torch.uint32), offset)
+
+    key = out(offsets[1])
+    out_l = [out(offsets[1]) for _ in range(m_l)]
+    out_r = [out(offsets[2]) for _ in range(m_r)]
+    work = torch.full((fill_match_compact_cuda.compact_words(n),), -1, dtype=torch.int64)
+    rc = lib.dpu_fill_match_compact_u32(_ptrs(planes), m_l, m_r, n, cap, key.data_ptr(),
+                                        _ptrs(out_l), _ptrs(out_r), work.data_ptr(), None)
+    assert rc == 0
+    return key, tuple(out_l), tuple(out_r), work[-1]
+
+
+@pytest.mark.parametrize("m_l, m_r", [(1, 1), (0, 0), (2, 1), (1, 3), (3, 0)])
+@pytest.mark.parametrize("n", [1, TILE - 1, TILE, TILE + 1, 3 * TILE + 5])
+@pytest.mark.parametrize("kind", KINDS)
+def test_compact_kernel_source_equals_plain(lib, kind, n, m_l, m_r):
+    planes = _case(kind, n, max(m_l, m_r), seed=5 * n + m_l + m_r)
+    got = _emulated_compact(lib, planes, m_l, m_r, n)
+    _assert_compacted(got, _selected(planes, m_l, m_r), n)
+    # the rows past the count are not written
+    count = int(got[3])
+    assert all(bool((p[count:] == 0xAB).all()) for p in (got[0], *got[1], *got[2]))
+
+
+@pytest.mark.parametrize("kind", ["dead", "run", "sorted"])
+def test_compact_kernel_source_over_many_tiles(lib, kind):
+    """Stretches of several tiles with no match, and a carry across them."""
+    planes = _case(kind, 17 * TILE + 9, 1, seed=17)
+    _assert_compacted(_emulated_compact(lib, planes, 1, 1, 17 * TILE + 9),
+                      _selected(planes, 1, 1), 17 * TILE + 9)
+
+
+@pytest.mark.parametrize("offsets", [(1, 0, 0), (0, 1, 2), (3, 2, 1), (2, 3, 3)])
+def test_compact_kernel_source_on_misaligned_views(lib, offsets):
+    planes = _case("sorted", 2 * TILE + 7, 2, seed=sum(offsets))
+    n = planes[0].shape[0]
+    _assert_compacted(_emulated_compact(lib, planes, 2, 1, n, offsets),
+                      _selected(planes, 2, 1), n)
+
+
+@pytest.mark.parametrize("cut", [0, 1, 2, 5, TILE // 3])
+def test_compact_kernel_source_below_the_count(lib, cut):
+    """A capacity below the count: the rows under it written, none past it,
+    the count whole."""
+    planes = _case("sorted", 3 * TILE + 5, 1, seed=cut)
+    want = _selected(planes, 1, 1)
+    cap = max(0, want[3] - cut) if cut else 0
+    key, _, (out_r,), count = _emulated_compact(lib, planes, 1, 1, cap)
+    _assert_compacted((key, (), (out_r,), count), (want[0], (), (want[2][0],), want[3]), cap)
+
+
+def test_compact_kernel_source_refuses_what_it_does_not_take(lib):
+    k2 = torch.zeros(8, dtype=torch.uint32)
+    assert lib.dpu_fill_match_compact_u32(_ptrs([k2] * 10), 9, 0, 8, 8, k2.data_ptr(),
+                                          _ptrs([k2] * 9), _ptrs([]), k2.data_ptr(), None) != 0
+    assert lib.dpu_fill_match_compact_u32(_ptrs([k2]), 0, 0, 8, -1, k2.data_ptr(), _ptrs([]),
+                                          _ptrs([]), k2.data_ptr(), None) != 0
+
+
+@pytest.mark.parametrize("planes, m_l, m_r, cap, match", [
+    (1, 1, 0, 4, "needs k2 and max"),
+    (3, -1, 1, 4, "needs k2 and max"),
+    (10, 9, 0, 4, "at most 9 planes"),
+    (2, 1, 1, -1, "capacity >= 0"),
+])
+def test_compact_wrapper_refuses_what_the_kernel_does_not_take(planes, m_l, m_r, cap, match):
+    with pytest.raises(ValueError, match=match):
+        fill_match_compact_cuda.fill_match_compact_k2(_case("sorted", 64, planes - 1, seed=2),
+                                                      m_l, m_r, cap)
+
+
+def test_compact_wrapper_refuses_other_dtypes():
+    k2, pay = _case("sorted", 64, 1, seed=3)
+    with pytest.raises(ValueError, match="uint32"):
+        fill_match_compact_cuda.fill_match_compact_k2((k2, pay.view(torch.int32)), 1, 1, 64)
+
+
+def test_compact_cpu_path_launches_nothing_and_counts_its_step():
+    planes = _case("sorted", TILE + 1, 1, seed=4)
+    launches = (fill_match_cuda.LAUNCHES, fill_match_compact_cuda.LAUNCHES, scan_cuda.LAUNCHES)
+    before = metrics.counts()
+    merge.fill_match_compact(planes, 1, 1, TILE + 1)
+    assert (fill_match_cuda.LAUNCHES, fill_match_compact_cuda.LAUNCHES,
+            scan_cuda.LAUNCHES) == launches
+    counted = {k: v - before.get(k, 0) for k, v in metrics.counts().items()
+               if k.startswith("join.") and v != before.get(k, 0)}
+    assert counted == {"join.fill_match_compact": 1}
 
 
 # ---- the joins that run the step ------------------------------------------------

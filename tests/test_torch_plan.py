@@ -25,6 +25,7 @@ from dpu_olap_tpu.columnar import Batch as JBatch
 from dpu_olap_tpu.columnar import Table as JTable
 from dpu_olap_tpu.generator import make_filter_batches, make_join_tables, make_take_batches
 from dpu_olap_tpu.parallel.mesh import DeviceSet as JaxDeviceSet
+from dpu_olap_tpu_torch import metrics
 from dpu_olap_tpu_torch import plan as tplan
 from dpu_olap_tpu_torch.columnar import Batch, Table, to_numpy
 from dpu_olap_tpu_torch.parallel.mesh import DeviceSet
@@ -383,6 +384,82 @@ def test_device_resident_plan_chain(ds, jds, monkeypatch):
     assert jtab.is_device, "join result left the device"
     assert tplan.Aggregate(jnode, "x").scalar(ds) == want
     assert_same_rows(jtab.to_host(), want_rows)
+
+
+def _resident_tables(route: str, share: float = 0.8, batch: int = 700):
+    """Device-resident (fk, y) and (pk, x) Tables of several batches for
+    each route of the device tier: a sorted pk (the sorted-build join), a
+    permuted one (the co-sort join, keys31), and a key above 2^31 - 1 (the
+    generic join); about ``share`` of the fks with a pk."""
+    rng = np.random.default_rng({"sorted_build": 1, "fused": 2, "generic": 3}[route])
+    n_r, n_l = 1000, 3000
+    pk = np.sort(rng.choice(2**31 - 1, size=n_r, replace=False)).astype(np.uint32)
+    if route != "sorted_build":
+        pk = rng.permutation(pk)
+    if route == "generic":
+        pk[7] = 0xFFFFFFF0
+    fk = np.where(rng.random(n_l) < share, pk[rng.integers(0, n_r, n_l)],
+                  rng.integers(0, 2**31 - 1, n_l)).astype(np.uint32)
+    y, x = (rng.integers(0, 2**32, k, dtype=np.uint32) for k in (n_l, n_r))
+
+    def table(names, cols):
+        return Table([Batch({n: torch.from_numpy(c[i:i + batch]) for n, c in zip(names, cols)})
+                      for i in range(0, cols[0].shape[0], batch)])
+
+    return table(("fk", "y"), (fk, y)), table(("pk", "x"), (pk, x))
+
+
+@pytest.mark.parametrize("share", [0.8, 0.1])
+@pytest.mark.parametrize("route", ["sorted_build", "fused", "generic"])
+def test_device_join_compacts_in_the_join(ds, route, share, monkeypatch):
+    """The device tier's Table is the one _compact_device made of the padded
+    join, row for row and in order: with keys31 the join's last kernel
+    writes only the matched rows (no _compact_device), the generic join
+    still compacts through _compact_device. Where fewer than half the probe
+    rows match, the keys31 Table's columns hold only their rows, not views
+    of the probe side's size."""
+    from dpu_olap_tpu_torch.ops import fill_match_cuda, join, merge
+
+    lt, rt = _resident_tables(route, share)
+    assert lt.is_device and rt.is_device
+    lc, rc = lt.concat(), rt.concat()
+    if route == "generic":
+        fk, lcols, rcols, matched = join.join_shard_fused(lc["fk"], (lc["y"],), rc["pk"],
+                                                          (rc["x"],))
+    else:
+        args = (lc["fk"], (lc["y"],), rc["pk"], (rc["x"],))
+        planes = (merge.sorted_build_planes(*args) if route == "sorted_build"
+                  else join.cosort_k2(*args))
+        fk, lcols, rcols, matched = fill_match_cuda.fill_match_k2(planes, 1, 1)
+    want = tplan._compact_device(matched, {"fk": fk, "y": lcols[0], "x": rcols[0]})
+
+    calls = {"compact": 0}
+    compact = tplan._compact_device
+
+    def spy(*a):
+        calls["compact"] += 1
+        return compact(*a)
+
+    monkeypatch.setattr(tplan, "_compact_device", spy)
+    before = metrics.counts()
+    got = tplan.HashJoin(tplan.Source(lt), tplan.Source(rt))._run(ds)
+    counted = {k: v - before.get(k, 0) for k, v in metrics.counts().items()
+               if v != before.get(k, 0) and k.startswith(("join.", "readback.plan.compact"))}
+    assert calls == {"compact": int(route == "generic")}
+    want_counts = {"readback.plan.compact": 1}
+    if route != "generic":
+        want_counts["join.fill_match_compact"] = 1
+    assert counted == want_counts
+    assert got.is_device and len(got) == 1 and list(got.names) == ["fk", "y", "x"]
+    assert 0 < want["fk"].shape[0] < lc.num_rows
+    c = want["fk"].shape[0]
+    assert (2 * c < lc.num_rows) == (share < 0.5)
+    for n in ("fk", "y", "x"):
+        assert got[0][n].dtype == torch.uint32
+        assert torch.equal(got[0][n].view(torch.int32), want[n].view(torch.int32)), n
+        if route != "generic":
+            held = got[0][n].untyped_storage().nbytes()
+            assert held == 4 * (c if share < 0.5 else lc.num_rows), n
 
 
 def test_aggregate_plan_float_double(ds, jds):

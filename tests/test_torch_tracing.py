@@ -26,11 +26,12 @@ from dpu_olap_tpu_torch.parallel.mesh import DeviceSet
 BATCH, BATCHES = 512, 4  # a small cell 1: several batches a side
 # The spans one query of Aggregate(HashJoin(Source, Source)) opens, with
 # how often: one a plan node (two Sources), one a step of the device tier
-# and of the sorted-build join, none a batch.
+# and of the sorted-build join, none a batch. With keys31 the compaction
+# runs inside the join's last step, so no dpu_olap.plan.compact.
 QUERY_SPANS = {
     "dpu_olap.plan.Aggregate": 1, "dpu_olap.plan.HashJoin": 1, "dpu_olap.plan.Source": 2,
     "dpu_olap.plan.dtypes": 1, "dpu_olap.plan.concat": 1, "dpu_olap.plan.structure": 1,
-    "dpu_olap.plan.compact": 1, "dpu_olap.plan.sum": 1,
+    "dpu_olap.plan.sum": 1,
     "dpu_olap.join.keys": 1, "dpu_olap.join.sort": 1, "dpu_olap.join.merge": 1,
     "dpu_olap.join.fill_match": 1,
 }
@@ -95,7 +96,7 @@ def test_query_opens_each_span_once_a_query_nested_as_the_plan(cell):
         return all(any(ps <= s and e <= pe for ps, pe in parents) for s, e in inner)
 
     assert within("dpu_olap.join.", "dpu_olap.plan.HashJoin")
-    for step in ("dtypes", "concat", "structure", "compact", "Source"):
+    for step in ("dtypes", "concat", "structure", "Source"):
         assert within(f"dpu_olap.plan.{step}", "dpu_olap.plan.HashJoin")
     assert within("dpu_olap.plan.HashJoin", "dpu_olap.plan.Aggregate")
     assert within("dpu_olap.plan.sum", "dpu_olap.plan.Aggregate")
@@ -112,12 +113,12 @@ def test_query_counts_its_six_readbacks(cell, profiled):
 
 
 def test_query_counts_one_fill_match(cell):
-    """The plan's device tier joins with keys31 through the fused fill and
-    match: one step a query."""
+    """The plan's device tier joins with keys31 through the fused fill,
+    match and compaction: one step a query, and the padded step never."""
     queries = 2
     before = metrics.counts()
     assert [_query(cell) for _ in range(queries)] == [cell[2]] * queries
-    assert _delta(before, metrics.counts(), "join.") == {"join.fill_match": queries}
+    assert _delta(before, metrics.counts(), "join.") == {"join.fill_match_compact": queries}
 
 
 def test_span_off_is_one_shared_noop(cell, monkeypatch):
@@ -179,6 +180,7 @@ def test_shuffle_join_spans_vote_and_exchange_bytes():
         assert Counter(x for x in names if x.startswith("dpu_olap.join.")) == {
             "dpu_olap.join.sort": ROUNDS, "dpu_olap.join.fill_match": ROUNDS}
         assert counted["join.fill_match"] == ROUNDS
+        assert "join.fill_match_compact" not in counted  # the shuffle join keeps its padding
         assert {k: v for k, v in counted.items() if k.startswith("readback.")} == {
             "readback.group.any": 1}
         # two exchanges a side (the stacked planes, the counts), one collective each
